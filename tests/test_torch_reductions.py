@@ -11,6 +11,9 @@ so each output is held to ``rtol=1e-5`` plus an absolute bound of
 float64): a sum whose terms cancel can sit near zero where only an
 absolute bound is meaningful.
 """
+import ctypes
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -20,6 +23,7 @@ from weatherbench2_tpu import ops as jops
 from weatherbench2_tpu.regions import ExtraTropicalRegion, SliceRegion
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import ops
+from weatherbench2_torch.ops import _build as build_lib
 from weatherbench2_torch.ops import reductions
 
 RTOL = 1e-5
@@ -204,3 +208,176 @@ def test_split_plan_covers_the_cell_axis(rows, cols):
   assert split_len % 128 == 0
   assert (n_splits - 1) * split_len < cols <= n_splits * split_len
   assert 1 <= n_splits <= 65535
+
+
+@pytest.mark.parametrize("rows, cols, rows_per_block, target", [
+    (1008, 29040, 8, 1056), (1008, 29040, 64, 264), (126, 1038240, 64, 264),
+    (4032, 29040, 128, 264), (63, 1038240, 64, 264)])
+def test_split_plan_reaches_or_stays_within_its_target(rows, cols,
+                                                       rows_per_block, target):
+  row_blocks = -(-rows // rows_per_block)
+  # rounded up: the grid reaches the target unless the splits run out
+  n_up, len_up = reductions.split_plan(rows, cols, rows_per_block, target)
+  assert (n_up + 1) * row_blocks > target or n_up * len_up >= cols > (
+      n_up - 1) * len_up
+  # one wave: never more blocks than the target
+  n_down, _ = reductions.split_plan(rows, cols, rows_per_block, target,
+                                    one_wave=True)
+  assert n_down * row_blocks <= max(target, row_blocks)
+  assert n_down <= n_up
+
+
+def test_split_plan_of_the_cuda_core_path_is_unchanged():
+  # (1008, 29040): 126 row blocks, 1056 / 126 rounded up = 9 splits
+  assert reductions.split_plan(1008, 29040) == (9, 3328)
+  plan = reductions.launch_plan(reductions.KIND_DET, 1008, 29040, 3)
+  assert (plan.n_splits, plan.split_len) == (9, 3328)
+  # the tensor-core plan stays within one wave of 264 blocks
+  plan = reductions.launch_plan(reductions.KIND_DET, 1008, 29040, 13)
+  assert plan.grid == (16, 16)
+
+
+# -- the host-side launch plan -------------------------------------------------
+
+_PLAN_ROWS = [1, 7, 126, 1008, 4032]
+_PLAN_COLS = [2015, 2112, 29040, 1038240]
+_PLAN_REGIONS = [1, 4, 5, 13, 16]
+_KINDS = [reductions.KIND_DET_CLIM, reductions.KIND_DET,
+          reductions.KIND_REGION]
+
+
+@pytest.mark.parametrize("n_regions", _PLAN_REGIONS)
+@pytest.mark.parametrize("cols", _PLAN_COLS)
+@pytest.mark.parametrize("rows", _PLAN_ROWS)
+def test_launch_plan_covers_rows_and_cells_once(rows, cols, n_regions):
+  for kind in _KINDS:
+    plan = reductions.launch_plan(kind, rows, cols, n_regions)
+    # the cell axis: splits tile [0, cols) exactly once, none empty
+    assert (plan.n_splits - 1) * plan.split_len < cols
+    assert cols <= plan.n_splits * plan.split_len
+    assert 1 <= plan.n_splits <= 65535
+    # every core's step divides a split
+    assert plan.split_len % 128 == 0
+    assert plan.split_len % reductions.MMA_STAGE_CELLS == 0
+    # the row axis: row blocks tile [0, rows) exactly once, none empty
+    row_blocks, n_splits = plan.grid
+    assert n_splits == plan.n_splits
+    assert (row_blocks - 1) * plan.rows_per_block < rows
+    assert rows <= row_blocks * plan.rows_per_block
+    # which core: odd lengths cannot take 16-byte loads
+    if cols % 4:
+      assert plan.core == reductions.CORE_SCALAR
+    elif n_regions <= 4 and kind != reductions.KIND_REGION:
+      assert plan.core == reductions.CORE_VEC4
+    else:
+      assert plan.core == reductions.CORE_MMA
+    want_rows = (reductions.MMA_ROWS_PER_BLOCK[kind]
+                 if plan.core == reductions.CORE_MMA else 8)
+    assert plan.rows_per_block == want_rows
+    # scratch and output shapes, as the C entry points are told them
+    n_out = 3 if kind == reductions.KIND_REGION else 8
+    assert plan.partial_shape == (plan.n_splits, n_out, n_regions, rows)
+    assert plan.out_shape == (n_out, n_regions, rows)
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_launch_plan_unaligned_and_forced_cores(kind):
+  plan = reductions.launch_plan(kind, 126, 2112, 13, aligned=False)
+  assert plan.core == reductions.CORE_SCALAR
+  for core in (reductions.CORE_SCALAR, reductions.CORE_VEC4,
+               reductions.CORE_MMA):
+    assert reductions.launch_plan(kind, 126, 2112, 4, core=core).core == core
+  for core in (reductions.CORE_SCALAR, reductions.CORE_MMA):
+    assert reductions.launch_plan(kind, 126, 2112, 13, core=core).core == core
+  # the CUDA-core 16-byte core is built for up to four regions
+  with pytest.raises(ValueError, match="four regions"):
+    reductions.launch_plan(kind, 126, 2112, 5, core=reductions.CORE_VEC4)
+  with pytest.raises(ValueError, match="16-byte cores"):
+    reductions.launch_plan(kind, 126, 2015, 13, core=reductions.CORE_MMA)
+  with pytest.raises(ValueError, match="16-byte cores"):
+    reductions.launch_plan(kind, 126, 2112, 13, aligned=False,
+                           core=reductions.CORE_VEC4)
+  with pytest.raises(ValueError, match="unknown core"):
+    reductions.launch_plan(kind, 126, 2112, 13, core=3)
+  for bad in (0, 17):
+    with pytest.raises(ValueError, match="regions"):
+      reductions.launch_plan(kind, 126, 2112, bad)
+  with pytest.raises(ValueError, match="empty input"):
+    reductions.launch_plan(kind, 0, 2112, 13)
+
+
+def test_launch_plan_fills_the_card_at_the_official_shape():
+  # 126 rows are two row blocks of kernel 1 and one of kernel 2: the
+  # splits bring the grid to one wave of two blocks on each of 132 SMs
+  for kind in _KINDS:
+    plan = reductions.launch_plan(kind, 126, 1038240, 13)
+    blocks = plan.grid[0] * plan.grid[1]
+    assert 132 <= blocks <= 2 * 132, (kind, plan)
+
+
+def test_is_aligned_sees_a_view_off_sixteen_bytes():
+  buf = torch.zeros(4 * 2112 + 4)
+  base = buf.data_ptr() % 16 // 4  # elements past a 16-byte boundary
+  aligned = buf[(4 - base) % 4:][:4 * 2112].view(4, 2112)
+  shifted = buf[(4 - base) % 4 + 1:][:4 * 2112].view(4, 2112)
+  assert reductions._is_aligned(aligned, None)
+  assert not reductions._is_aligned(aligned, shifted)
+
+
+# -- the C interface, read from the CUDA source --------------------------------
+
+_CTYPES_OF = {"int": ctypes.c_int, "int64_t": ctypes.c_int64}
+
+
+def _extern_c_declarations():
+  """{name: [ctypes type per parameter]} of the int-returning extern "C"
+  functions in the CUDA source."""
+  text = build_lib.SOURCE.read_text()
+  text = text[text.index('extern "C" {'):]
+  text = re.sub(r"//[^\n]*", "", text)
+  found = {}
+  for name, params in re.findall(r"\bint\s+(wb2_\w+)\s*\(([^)]*)\)\s*\{", text):
+    types = []
+    for param in params.split(","):
+      words = param.replace("*", " * ").split()
+      if "*" in words:
+        types.append(ctypes.c_void_p)
+      else:
+        types.append(_CTYPES_OF[[w for w in words if w != "const"][0]])
+    found[name] = types
+  return found
+
+
+def test_ctypes_signatures_match_the_cuda_source():
+  declared = _extern_c_declarations()
+  assert set(declared) == set(build_lib._SIGNATURES)
+  for name, types in declared.items():
+    assert build_lib._SIGNATURES[name] == types, name
+
+
+def test_python_constants_match_the_cuda_source():
+  text = build_lib.SOURCE.read_text()
+
+  def constant(pattern):
+    return int(re.search(pattern, text).group(1))
+
+  assert constant(r"constexpr int kStageCells = (\d+);") == (
+      reductions.MMA_STAGE_CELLS)
+  warps = constant(r"constexpr int kMmaWarps = (\d+);")
+  tiles = constant(r"constexpr int kRegionTiles = (\d+);")
+  assert reductions.MMA_ROWS_PER_BLOCK == {
+      reductions.KIND_DET_CLIM: warps * 8, reductions.KIND_DET: warps * 8,
+      reductions.KIND_REGION: warps * 8 * tiles}
+  assert constant(r"constexpr int kWarps = (\d+);") == (
+      reductions._ROWS_PER_BLOCK)
+  for name, value in (("kCoreScalar", reductions.CORE_SCALAR),
+                      ("kCoreVec4", reductions.CORE_VEC4),
+                      ("kCoreMma", reductions.CORE_MMA)):
+    assert constant(rf"constexpr int {name} = (\d+);") == value
+  # dynamic shared memory of two resident blocks fits the SM's 227 KB
+  stages = constant(r"constexpr int kStages = (\d+);")
+  k_j = reductions.MMA_STAGE_CELLS // 16
+  for n_arrays, n_tiles in ((3, 1), (2, 1), (1, tiles)):
+    smem = 16 * (stages * n_arrays * k_j * n_tiles * warps * 32
+                 + 2 * 3 * k_j * 2 * 32)
+    assert 2 * (smem + 1024) <= 232448

@@ -20,39 +20,69 @@
 // (fused_region_sums). For (N, L) rows x, each row with its own NaN mask:
 //   0: sum W.x0   1: sum W.valid   2: sum (W > 0).isnan(x)
 //
-// Bound on the card. Per cell, kernel 1 reads 8 bytes (12 with a
-// climatology) and does 8R FMAs; kernel 2 reads 4 bytes and does 3R. At
-// the main path's R = 3 both are memory-bound by a wide margin (H100 SXM:
-// 3.35 TB/s HBM against 67 TFLOP/s fp32, about 20 flop per byte); at the
-// official 13-region shape kernel 1 does 104 FMAs per 12 bytes, near that
-// balance. The design therefore streams each input byte once with
-// coalesced loads and keeps all work in registers:
+// Bound on the card (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 on the CUDA
+// cores, 495 TFLOP/s TF32 on the tensor cores). Per cell, kernel 1 reads 8
+// bytes (12 with a climatology) and does 8R multiply-adds; kernel 2 reads 4
+// bytes and does 3R. With up to four regions both are memory-bound by a wide
+// margin. At the official thirteen regions the fp32 multiply-adds alone
+// (104 per 12 bytes) would take as long on the CUDA cores as the bytes take
+// to arrive, and 8 x 16 accumulators a thread leave one block resident per
+// SM. So the 16-byte paths come as two cores, chosen by the Python wrapper:
 //
-//  * These are skinny reductions, not GEMMs: fp32 FMAs on CUDA cores, no
-//    tensor cores and no TF32, so the result is IEEE float32 arithmetic.
-//  * Pass 1: one warp per row, eight rows per block; the block covers one
-//    slice [l0, l1) of the cell axis. Each lane walks the slice at stride
-//    32 (neighbouring lanes on neighbouring addresses) and keeps its
-//    NSTAT x RP partial sums in registers. A fixed xor-shuffle tree then
-//    reduces the 32 lanes and lane 0 writes partial[split, stat, r, row].
-//  * Loads: where L % 4 == 0 and the arrays are 16-byte aligned (every
-//    grid the main path meets), a lane step covers four cells with 16-byte
-//    loads, and the next step's data loads are issued before this step's
-//    arithmetic, so each warp has two steps in flight; otherwise one cell
-//    per step with 4-byte loads and W read through the L1.
-//  * Pass 2 sums the splits of each output in a fixed order. There is no
-//    floating-point atomicAdd, so results do not change from run to run.
-//  * W reuse: the eight rows of a block share one shared-memory copy of
-//    each W tile (on the 16-byte path), so W crosses L2 once per block,
-//    not once per row; blockIdx.x walks rows, so the blocks resident at
-//    one time share a cell slice and W crosses HBM about once per slice
-//    (at 0.25 degrees and R = 13, W is 54 MB, more than the 50 MB L2).
-//  * The number of splits is chosen by the wrapper so that the grid fills
-//    the 132 SMs even when B is small (126 rows at 0.25 degrees).
-//  * Columns past L and rows past B contribute nothing; L need not be a
-//    multiple of anything. Accumulators exist for R rounded up to 4, 8 or
-//    16, so at R = 16 a thread holds 128 sums; the unused ones are
-//    skipped by a uniform branch.
+//  * CUDA-core core (pass1_vec4; R <= 4 only: kernel 1 on the wrapper's
+//    plan, kernel 2 as the baseline its tensor-core core is timed against).
+//    One warp per row, eight rows per block; a lane covers four cells per step with
+//    16-byte loads, the next step's loads started before this step's
+//    arithmetic; the block's rows share a double-buffered shared-memory
+//    copy of each (4, 128-cell) tile of W; NSTAT x 4 sums a thread,
+//    reduced over the 32 lanes by a fixed xor-shuffle tree.
+//  * Tensor-core core (pass1_mma; R > 4, and kernel 2 at any R, where it
+//    is the faster one at three regions too). Both kernels are the skinny
+//    product out[16 regions, rows] = W[16, cells] . stat[cells, rows], so
+//    one mma.sync.m16n8k8 (TF32 in, fp32 out) takes W's (16, 8 cells) as A
+//    and one statistic of 8 cells x 8 rows as B; a thread holds 4 sums per
+//    statistic instead of 16. Precision: every operand that is not exactly
+//    a TF32 number is split, v = hi + lo with hi = tf32(v) and lo =
+//    v - hi (of which the tensor core reads the upper 19 bits), and W.s
+//    is the three products Wlo.shi + Whi.slo + Whi.shi (3xTF32); the 0/1
+//    masks are exact, so the valid-weight sum takes Whi and Wlo and the
+//    NaN-hit sum takes (W > 0) alone. The tensor
+//    core does not round its running sum to nearest, so a chain of MMAs
+//    runs for one 32-cell stage only (12 MMAs into a zeroed accumulator),
+//    which is then added to the thread's fp32 sum on the CUDA cores.
+//    The statistics themselves are fp32 on the CUDA cores (stats_of).
+//    Range: the split is of finite numbers. An infinite weight or
+//    statistic (an infinite input, or a square that overflows), or one
+//    within 2^-12 of the largest float, has hi = inf and lo = -inf or NaN,
+//    and a weight that is a TF32 number has lo = 0, which times inf is NaN:
+//    this core then returns NaN where the CUDA-core cores and an fp32
+//    matmul return inf (they too return NaN for every region that has a
+//    zero weight in that row, 0 x inf). Either way the output is not
+//    finite; rows without such values are not touched by it.
+//    Layout: the cell index is summed over, so any assignment of cells to
+//    k works if A and B agree. A lane (g = lane / 4, tig = lane % 4) reads
+//    the four cells 16j + 4tig .. +3 of row g with one 16-byte load (four
+//    lanes cover 64 contiguous bytes of a row, a warp eight rows) and uses
+//    them as k = tig, tig + 4 of two MMA steps: no transposition and no
+//    cross-lane traffic for the data. The loads are cp.async (16 bytes,
+//    .cg, with an L2 hint that fetches the row's next stage too) into a
+//    ring of four stages in dynamic shared memory that is private to each
+//    thread (it reads back only what it copied), so data needs
+//    cp.async.wait_group and no barrier. W is shared: per stage, two
+//    warps load the (16, 32-cell) tile one stage ahead into registers,
+//    split it once and store Whi, Wlo and (W > 0) to shared memory in
+//    fragment order (one conflict-free 16-byte read per fragment); the one
+//    barrier per stage orders those stores. A block of eight warps holds
+//    64 rows (kernel 1) or 128 rows (kernel 2, two 8-row tiles a warp), so
+//    at 0.25 degrees W crosses L2 twice or once, not sixteen times.
+//  * Any L or alignment that the 16-byte paths cannot take goes to
+//    pass1_scalar: one cell per lane step, 4-byte loads, any R.
+//  * In every core a block covers one slice [l0, l1) of the cell axis and
+//    writes partial[split, stat, r, row]; pass 2 sums the splits of each
+//    output in a fixed order. No floating-point atomics: the same inputs
+//    give the same bits on every run. The wrapper picks the number of
+//    splits so that the grid fills the 132 SMs even for 126 rows.
+//  * Columns past L and rows past B contribute nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -172,7 +202,7 @@ pass1_scalar(const float* __restrict__ a, const float* __restrict__ b,
 // aligned arrays. A block step covers 128 cells of its eight rows: the
 // step's (RP, 128) tile of W is loaded once into shared memory (double
 // buffered, the next tile loading while this one is used) and read by all
-// eight warps, and each warp issues its next step's data loads before this
+// eight warps, and each warp starts its next step's data loads before this
 // step's arithmetic.
 template <int KIND, int RP>
 __global__ void __launch_bounds__(kWarps * 32)
@@ -258,88 +288,362 @@ pass1_vec4(const float* __restrict__ a, const float* __restrict__ b,
   if (active) write_partials(acc, lane, split, row, rows, R, partial);
 }
 
+// ---------------------------------------------------------------------------
+// Tensor-core core (see the header). Geometry of one block:
+constexpr int kMmaWarps = 8;
+constexpr int kMmaThreads = kMmaWarps * 32;
+constexpr int kStages = 4;               // depth of the cp.async ring
+constexpr int kRegionTiles = 2;          // 8-row tiles a warp of kernel 2
+constexpr int kStageCells = 32;          // cells per pipeline stage
+constexpr int kJ = kStageCells / 16;     // 16-byte steps a lane per stage
+constexpr int kWFragF4 = 3 * kJ * 2 * 32;  // Whi, Wlo, W>0 of one stage
+// Stages between two flushes of the MMA accumulators into the fp32 sums.
+// One is what ships; kernel_lab.py builds longer chains to record the
+// error that each leaves against float64 sums.
+#ifndef WB2_CHAIN_STAGES
+#define WB2_CHAIN_STAGES 1
+#endif
+
+template <int KIND>
+struct Mma {
+  // 8-row tiles per warp
+  static constexpr int NT = KIND == 2 ? kRegionTiles : 1;
+  static constexpr int NARR = KIND == 0 ? 3 : KIND == 1 ? 2 : 1;
+  static constexpr int STAGES = kStages;
+  static constexpr int ROWS = kMmaWarps * 8 * NT;  // rows per block
+  static constexpr int STAGE_F4 = NARR * kJ * NT * kMmaThreads;
+  static constexpr size_t SMEM = (STAGES * STAGE_F4 + 2 * kWFragF4) * 16;
+};
+
+// v = hi + lo. hi is v rounded to TF32 (nearest, ties away from zero: an
+// integer add and mask, which rounds as cvt.rna.tf32.f32 does and is the
+// cheaper instruction); v - hi is exact in fp32, and the tensor core reads
+// its upper 19 bits. Finite v only: see "Range" in the header.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// d += A(16x8, row) . B(8x8, col), TF32 operands, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
+                                         uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, asynchronously; n = 0 writes zeros instead.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  // the L2 hint fetches the row's next 128 bytes (the next stage) too
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;" ::"r"(d),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+template <int KIND>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+pass1_mma(const float* __restrict__ a, const float* __restrict__ b,
+          const float* __restrict__ c, const float* __restrict__ w,
+          int rows, int64_t L, int R, int64_t split_len,
+          float* __restrict__ partial) {
+  using M = Mma<KIND>;
+  constexpr int NS = Stats<KIND>::N;
+  constexpr int NT = M::NT;
+  extern __shared__ float4 smem[];
+  float4* const ring = smem;
+  uint4* const wfrag = reinterpret_cast<uint4*>(smem + M::STAGES * M::STAGE_F4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int tig = lane & 3;
+  const int split = blockIdx.y;
+  const int row0 = blockIdx.x * M::ROWS + (tid >> 5) * 8 * NT;
+  const bool warp_active = row0 < rows;
+  const int64_t l0 = split * split_len;  // split_len % kStageCells == 0
+  const int64_t l1 = min(L, l0 + split_len);
+  const int n_it = static_cast<int>((l1 - l0 + kStageCells - 1) / kStageCells);
+  const float* const arrs[3] = {a, b, c};
+
+  // This thread's 16-byte pieces of stage s, into ring slot s % STAGES.
+  auto prefetch = [&](int s) {
+    if (s < n_it) {
+      float4* const slot = ring + (s % M::STAGES) * M::STAGE_F4 + tid;
+      const int64_t cell = l0 + static_cast<int64_t>(s) * kStageCells + 4 * tig;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int row = row0 + nt * 8 + g;
+#pragma unroll
+        for (int j = 0; j < kJ; ++j) {
+          const int64_t cj = cell + 16 * j;
+          const bool ok = row < rows && cj < l1;
+          const int64_t off = ok ? static_cast<int64_t>(row) * L + cj : 0;
+#pragma unroll
+          for (int arr = 0; arr < M::NARR; ++arr)
+            cp_async16(slot + ((arr * kJ + j) * NT + nt) * kMmaThreads,
+                       arrs[arr] + off, ok ? 16 : 0);
+        }
+      }
+    }
+    cp_async_commit();  // one group per stage, empty past the end
+  };
+
+  // W's (16, 32-cell) tile of stage s: threads 0..63 each load regions g
+  // and g + 8 of four cells, split them and store them in fragment order.
+  float4 wa, wb;
+  auto load_w = [&](int s) {
+    wa = wb = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (tid < 32 * kJ && s < n_it) {
+      const int64_t cell = l0 + static_cast<int64_t>(s) * kStageCells +
+                           16 * (tid >> 5) + 4 * tig;
+      if (cell < l1) {
+        if (g < R)
+          wa = __ldg(reinterpret_cast<const float4*>(w + g * L + cell));
+        if (g + 8 < R)
+          wb = __ldg(reinterpret_cast<const float4*>(w + (g + 8) * L + cell));
+      }
+    }
+  };
+  auto store_w = [&](int s) {
+    if (tid < 32 * kJ) {
+      uint4* const dst =
+          wfrag + (s & 1) * kWFragF4 + (tid >> 5) * 2 * 32 + lane;
+      const float v[2][4] = {{wa.x, wb.x, wa.y, wb.y},
+                             {wa.z, wb.z, wa.w, wb.w}};
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        uint32_t hi[4], lo[4], pos[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          split_tf32(v[ks][i], hi[i], lo[i]);
+          pos[i] = v[ks][i] > 0.f ? 0x3f800000u : 0u;
+        }
+        dst[(0 * kJ * 2 + ks) * 32] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        dst[(1 * kJ * 2 + ks) * 32] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        dst[(2 * kJ * 2 + ks) * 32] =
+            make_uint4(pos[0], pos[1], pos[2], pos[3]);
+      }
+    }
+  };
+
+  float sum[NT][NS][4];   // fp32 sums, added to on the CUDA cores
+  float chain[NT][NS][4]; // MMA accumulators of the running chain
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) sum[nt][k][i] = chain[nt][k][i] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < M::STAGES - 1; ++s) prefetch(s);
+  load_w(0);
+  store_w(0);
+
+  for (int it = 0; it < n_it; ++it) {
+    load_w(it + 1);
+    prefetch(it + M::STAGES - 1);
+    cp_async_wait<M::STAGES - 1>();  // this thread's pieces of stage `it`
+    __syncthreads();  // W of stage `it` stored; W of stage it - 1 read
+    if (warp_active) {
+      const float4* const slot = ring + (it % M::STAGES) * M::STAGE_F4 + tid;
+      const uint4* const wf = wfrag + (it & 1) * kWFragF4 + lane;
+#pragma unroll
+      for (int j = 0; j < kJ; ++j) {
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          const uint4 whi = wf[(0 * kJ * 2 + j * 2 + ks) * 32];
+          const uint4 wlo = wf[(1 * kJ * 2 + j * 2 + ks) * 32];
+          const uint4 wpos = wf[(2 * kJ * 2 + j * 2 + ks) * 32];
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const float4 va = slot[((0 * kJ + j) * NT + nt) * kMmaThreads];
+            float4 vb = va, vc = va;
+            if constexpr (KIND != 2)
+              vb = slot[((1 * kJ + j) * NT + nt) * kMmaThreads];
+            if constexpr (KIND == 0)
+              vc = slot[((2 * kJ + j) * NT + nt) * kMmaThreads];
+            float s0[NS], s1[NS];
+            stats_of<KIND>(ks ? va.z : va.x, ks ? vb.z : vb.x,
+                           KIND == 0 ? (ks ? vc.z : vc.x) : 0.f, s0);
+            stats_of<KIND>(ks ? va.w : va.y, ks ? vb.w : vb.y,
+                           KIND == 0 ? (ks ? vc.w : vc.y) : 0.f, s1);
+            const uint32_t v0 = __float_as_uint(s0[NS - 2]);
+            const uint32_t v1 = __float_as_uint(s1[NS - 2]);
+#pragma unroll
+            for (int k = 0; k < NS - 2; ++k) {
+              uint32_t h0, h1, e0, e1;
+              split_tf32(s0[k], h0, e0);
+              split_tf32(s1[k], h1, e1);
+              mma_tf32(chain[nt][k], wlo, h0, h1);
+              mma_tf32(chain[nt][k], whi, e0, e1);
+              mma_tf32(chain[nt][k], whi, h0, h1);
+            }
+            // 0/1 masks are exact in TF32
+            mma_tf32(chain[nt][NS - 2], wlo, v0, v1);
+            mma_tf32(chain[nt][NS - 2], whi, v0, v1);
+            mma_tf32(chain[nt][NS - 1], wpos, __float_as_uint(s0[NS - 1]),
+                     __float_as_uint(s1[NS - 1]));
+          }
+        }
+      }
+      if ((it + 1) % WB2_CHAIN_STAGES == 0 || it + 1 == n_it) {
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+          for (int k = 0; k < NS; ++k)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              sum[nt][k][i] += chain[nt][k][i];
+              chain[nt][k][i] = 0.f;
+            }
+      }
+    }
+    store_w(it + 1);  // its slot was last read in stage it - 1
+  }
+
+  // sum[nt][k][i]: region g (i < 2) or g + 8, row 2 tig + (i & 1) of tile nt
+  if (warp_active) {
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int k = 0; k < NS; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = g + (i >> 1) * 8;
+          const int row = row0 + nt * 8 + 2 * tig + (i & 1);
+          if (r < R && row < rows)
+            partial[((static_cast<int64_t>(split) * NS + k) * R + r) * rows +
+                    row] = sum[nt][k][i];
+        }
+  }
+}
+
 // Pass 2: out[i] = sum over splits of partial[split, i], in split order.
 __global__ void pass2(const float* __restrict__ partial, int n_splits,
                       int64_t n_out, float* __restrict__ out) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
                     threadIdx.x;
   if (i >= n_out) return;
+  // eight loads in flight, added in split order
   float acc = 0.f;
-  for (int s = 0; s < n_splits; ++s) acc += partial[s * n_out + i];
+  int s = 0;
+  for (; s + 8 <= n_splits; s += 8) {
+    float v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) v[u] = __ldg(partial + (s + u) * n_out + i);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) acc += v[u];
+  }
+  for (; s < n_splits; ++s) acc += __ldg(partial + s * n_out + i);
   out[i] = acc;
 }
 
-template <int KIND, int RP>
-cudaError_t launch_rp(const float* a, const float* b, const float* c,
-                      const float* w, int rows, int64_t L, int R,
-                      int n_splits, int64_t split_len, float* partial,
-                      float* out, cudaStream_t stream) {
-  constexpr int NS = Stats<KIND>::N;
-  dim3 grid((rows + kWarps - 1) / kWarps, n_splits);
-  auto aligned = [](const float* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (L % 4 == 0 && split_len % 128 == 0 && aligned(a) && aligned(b) &&
-      aligned(c) && aligned(w))
-    pass1_vec4<KIND, RP><<<grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
-  else
-    pass1_scalar<KIND, RP><<<grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
+cudaError_t finish(const float* partial, int n_splits, int64_t n_out,
+                   float* out, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t n_out = static_cast<int64_t>(NS) * R * rows;
   const int threads = 256;
   pass2<<<static_cast<unsigned>((n_out + threads - 1) / threads), threads, 0,
           stream>>>(partial, n_splits, n_out, out);
   return cudaGetLastError();
 }
 
+// The cores, as the wrapper names them.
+constexpr int kCoreScalar = 0;
+constexpr int kCoreVec4 = 1;
+constexpr int kCoreMma = 2;
+
 template <int KIND>
-cudaError_t launch(const float* a, const float* b, const float* c,
+cudaError_t launch(int core, const float* a, const float* b, const float* c,
                    const float* w, int rows, int64_t L, int R, int n_splits,
                    int64_t split_len, float* partial, float* out,
                    cudaStream_t stream) {
-  if (rows <= 0 || L <= 0 || R <= 0 || n_splits <= 0 || n_splits > 65535)
+  if (rows <= 0 || L <= 0 || R <= 0 || R > 16 || n_splits <= 0 ||
+      n_splits > 65535 || split_len <= 0)
     return cudaErrorInvalidValue;
-  if (R <= 4)
-    return launch_rp<KIND, 4>(a, b, c, w, rows, L, R, n_splits, split_len,
-                              partial, out, stream);
-  if (R <= 8)
-    return launch_rp<KIND, 8>(a, b, c, w, rows, L, R, n_splits, split_len,
-                              partial, out, stream);
-  if (R <= 16)
-    return launch_rp<KIND, 16>(a, b, c, w, rows, L, R, n_splits, split_len,
-                               partial, out, stream);
-  return cudaErrorInvalidValue;
+  auto aligned = [](const float* p) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  // the 16-byte cores take what the wrapper's plan promises, nothing else
+  if (core != kCoreScalar &&
+      !(L % 4 == 0 && aligned(a) && aligned(b) && aligned(c) && aligned(w) &&
+        split_len % (core == kCoreVec4 ? 128 : kStageCells) == 0))
+    return cudaErrorInvalidValue;
+  const dim3 simt_grid((rows + kWarps - 1) / kWarps, n_splits);
+  if (core == kCoreMma) {
+    using M = Mma<KIND>;
+    cudaError_t err = cudaFuncSetAttribute(
+        pass1_mma<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(M::SMEM));
+    if (err != cudaSuccess) return err;
+    dim3 grid((rows + M::ROWS - 1) / M::ROWS, n_splits);
+    pass1_mma<KIND><<<grid, kMmaThreads, M::SMEM, stream>>>(
+        a, b, c, w, rows, L, R, split_len, partial);
+  } else if (core == kCoreVec4) {
+    if (R > 4) return cudaErrorInvalidValue;  // the wrapper plans it so
+    pass1_vec4<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(
+        a, b, c, w, rows, L, R, split_len, partial);
+  } else if (core != kCoreScalar) {
+    return cudaErrorInvalidValue;
+  } else if (R <= 4) {
+    pass1_scalar<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(
+        a, b, c, w, rows, L, R, split_len, partial);
+  } else if (R <= 8) {
+    pass1_scalar<KIND, 8><<<simt_grid, kWarps * 32, 0, stream>>>(
+        a, b, c, w, rows, L, R, split_len, partial);
+  } else {
+    pass1_scalar<KIND, 16><<<simt_grid, kWarps * 32, 0, stream>>>(
+        a, b, c, w, rows, L, R, split_len, partial);
+  }
+  return finish(partial, n_splits,
+                static_cast<int64_t>(Stats<KIND>::N) * R * rows, out, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// core: 0 one cell a step (any L, any alignment), 1 CUDA cores with 16-byte
+// loads (R <= 4), 2 tensor cores; 1 and 2 need L % 4 == 0, 16-byte aligned
+// arrays and split_len a multiple of 128 (core 1) or 32 (core 2).
+
 // Kernel 1. f, t, (c or null): (rows, L); w: (R, L); partial:
 // (n_splits, 8, R, rows) scratch; out: (8, R, rows). Returns cudaError_t.
 int wb2_fused_deterministic_sums(const float* f, const float* t,
                                  const float* c, const float* w, int rows,
-                                 int64_t L, int R, int n_splits,
+                                 int64_t L, int R, int core, int n_splits,
                                  int64_t split_len, float* partial,
                                  float* out, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   if (c != nullptr)
-    return launch<0>(f, t, c, w, rows, L, R, n_splits, split_len, partial,
-                     out, s);
-  return launch<1>(f, t, nullptr, w, rows, L, R, n_splits, split_len,
+    return launch<0>(core, f, t, c, w, rows, L, R, n_splits, split_len,
+                     partial, out, s);
+  return launch<1>(core, f, t, nullptr, w, rows, L, R, n_splits, split_len,
                    partial, out, s);
 }
 
 // Kernel 2. x: (rows, L); w: (R, L); partial: (n_splits, 3, R, rows)
 // scratch; out: (3, R, rows). Returns cudaError_t.
 int wb2_fused_region_sums(const float* x, const float* w, int rows,
-                          int64_t L, int R, int n_splits, int64_t split_len,
-                          float* partial, float* out, void* stream) {
-  return launch<2>(x, nullptr, nullptr, w, rows, L, R, n_splits, split_len,
-                   partial, out, static_cast<cudaStream_t>(stream));
+                          int64_t L, int R, int core, int n_splits,
+                          int64_t split_len, float* partial, float* out,
+                          void* stream) {
+  return launch<2>(core, x, nullptr, nullptr, w, rows, L, R, n_splits,
+                   split_len, partial, out,
+                   static_cast<cudaStream_t>(stream));
 }
 
 const char* wb2_error_string(int err) {

@@ -30,10 +30,10 @@ _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _SIGNATURES = {
     "wb2_fused_deterministic_sums": [_P, _P, _P, _P, ctypes.c_int, _I64,
-                                     ctypes.c_int, ctypes.c_int, _I64, _P,
-                                     _P, _P],
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     _I64, _P, _P, _P],
     "wb2_fused_region_sums": [_P, _P, ctypes.c_int, _I64, ctypes.c_int,
-                              ctypes.c_int, _I64, _P, _P, _P],
+                              ctypes.c_int, ctypes.c_int, _I64, _P, _P, _P],
 }
 
 
@@ -70,19 +70,24 @@ def build(verbose: bool = False) -> Path:
   return lib_path
 
 
+def bind(lib_path):
+  """The library at ``lib_path`` loaded, its entry points typed."""
+  lib = ctypes.CDLL(str(lib_path))
+  for name, argtypes in _SIGNATURES.items():
+    fn = getattr(lib, name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+  lib.wb2_error_string.argtypes = [ctypes.c_int]
+  lib.wb2_error_string.restype = ctypes.c_char_p
+  return lib
+
+
 def library():
   """The loaded kernel library (built on first use)."""
   global _lib
   with _lock:
     if _lib is None:
-      lib = ctypes.CDLL(str(build()))
-      for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-      lib.wb2_error_string.argtypes = [ctypes.c_int]
-      lib.wb2_error_string.restype = ctypes.c_char_p
-      _lib = lib
+      _lib = bind(build())
   return _lib
 
 

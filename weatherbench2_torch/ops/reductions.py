@@ -19,9 +19,18 @@ plain PyTorch version, a CUDA tensor to the hand-written kernel in
 the counterparts of the JAX package's ``*_reference`` functions in IEEE
 float32 (TF32 is off, see ``device.py``); the tests and ``chip_smoke.py``
 hold the kernels against them.
+
+The CUDA source has three cores (see its header): one cell a step for any
+length and alignment, CUDA cores with 16-byte loads for up to four regions,
+and tensor cores with an error-corrected TF32 split (3xTF32) for more.
+``launch_plan`` picks the core and the tiling here, in Python, and the C
+entry points are told the result.  ``tf32_split_sums_emulation`` repeats
+the tensor-core core's arithmetic in torch for the tests and for
+``chip_smoke.py``, which holds that core against it.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
@@ -34,10 +43,29 @@ STAT_NAMES = ("bias", "mse", "mae", "acc_num", "acc_fvar", "acc_tvar")
 N_STATS = len(STAT_NAMES)
 MAX_REGIONS = 16
 
-# Pass-1 blocks hold eight rows; the card has 132 SMs and a block of
-# eight warps leaves room for eight resident blocks on each.
+N_SMS = 132  # H100 SXM
+
+# The cores of csrc/reductions.cu, by the numbers its entry points take.
+CORE_SCALAR = 0  # one cell a lane step: any length, any alignment
+CORE_VEC4 = 1    # CUDA cores, 16-byte loads, W tiles shared by 8 rows
+CORE_MMA = 2     # tensor cores, 3xTF32, cp.async ring
+# The kernels: fused_deterministic_sums with and without a climatology,
+# and fused_region_sums (KIND 0, 1, 2 of the CUDA source).
+KIND_DET_CLIM, KIND_DET, KIND_REGION = 0, 1, 2
+_N_OUT = {KIND_DET_CLIM: 8, KIND_DET: 8, KIND_REGION: 3}
+
+# CUDA-core cores: a block holds eight rows (one a warp), and a block of
+# eight warps leaves room for eight resident blocks on each SM.
 _ROWS_PER_BLOCK = 8
-_TARGET_BLOCKS = 132 * 8
+_TARGET_BLOCKS = N_SMS * 8
+# Tensor-core core: a block of eight warps holds 64 rows (128 for
+# fused_region_sums, two 8-row tiles a warp), two blocks are resident per
+# SM, a pipeline stage is 32 cells, and the grid is one wave of those 264
+# blocks at most (few long blocks measured faster than many short ones).
+MMA_ROWS_PER_BLOCK = {KIND_DET_CLIM: 64, KIND_DET: 64, KIND_REGION: 128}
+MMA_STAGE_CELLS = 32
+_MMA_TARGET_BLOCKS = N_SMS * 2
+_MMA_MIN_SPLIT = 512
 
 
 def make_region_weight_matrix(
@@ -61,24 +89,109 @@ def make_region_weight_matrix(
   return np.asarray(rows, dtype=np.float32)
 
 
-def split_plan(rows: int, cols: int) -> tuple[int, int]:
+def split_plan(rows: int, cols: int, rows_per_block: int = _ROWS_PER_BLOCK,
+               target_blocks: int = _TARGET_BLOCKS,
+               min_split: int = 256, one_wave: bool = False
+               ) -> tuple[int, int]:
   """(n_splits, split_len) of the cell axis for pass 1.
 
   Enough splits that the grid fills the card even for few rows (126 at
-  0.25 degrees), but every lane keeps at least eight cells per split.
-  ``split_len`` is a multiple of 128: a warp step covers 4 cells a lane.
+  0.25 degrees), but no split shorter than ``min_split`` cells: the grid
+  reaches ``target_blocks`` (the splits per row block rounded up) or, with
+  ``one_wave``, stays within it (rounded down), so that no block waits for
+  a second wave.  ``split_len`` is a multiple of 128, which every core's
+  step divides.
   """
-  row_blocks = -(-rows // _ROWS_PER_BLOCK)
-  n_splits = max(1, min(-(-_TARGET_BLOCKS // row_blocks), -(-cols // 256),
-                        65535))
+  row_blocks = -(-rows // rows_per_block)
+  per_row_block = (target_blocks // row_blocks if one_wave
+                   else -(-target_blocks // row_blocks))
+  n_splits = max(1, min(per_row_block, -(-cols // min_split), 65535))
   split_len = -(-cols // n_splits)
   split_len = -(-split_len // 128) * 128
   return -(-cols // split_len), split_len
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+  """What a C entry point is told about one launch."""
+  core: int
+  rows_per_block: int
+  n_splits: int
+  split_len: int
+  partial_shape: tuple[int, int, int, int]  # (n_splits, stats, R, rows)
+  out_shape: tuple[int, int, int]           # (stats, R, rows)
+
+  @property
+  def grid(self) -> tuple[int, int]:
+    return (-(-self.out_shape[2] // self.rows_per_block), self.n_splits)
+
+
+def launch_plan(kind: int, rows: int, cols: int, n_regions: int,
+                aligned: bool = True, core: Optional[int] = None
+                ) -> LaunchPlan:
+  """Core, tiling and scratch shapes of one kernel launch.
+
+  ``aligned`` says that every array starts on a 16-byte boundary.  The
+  16-byte cores also need ``cols % 4 == 0`` (every row then starts
+  aligned); anything else takes the one-cell-a-step core.  Kernel 1 with up
+  to four regions stays on the CUDA cores; more regions, and kernel 2 with
+  any number (the tensor-core core is faster there at three regions too),
+  go to the tensor cores.  ``core`` forces one (for measurements); forcing
+  a 16-byte core on input it cannot take, or the CUDA-core one on more
+  than four regions (it is built for no more), raises.
+  """
+  if not 1 <= n_regions <= MAX_REGIONS:
+    raise ValueError(f"{n_regions} regions: the kernel takes "
+                     f"1..{MAX_REGIONS}")
+  if rows < 1 or cols < 1:
+    raise ValueError(f"empty input: {rows} rows, {cols} cells")
+  wide = aligned and cols % 4 == 0
+  if core is None:
+    core = (CORE_SCALAR if not wide
+            else CORE_VEC4 if n_regions <= 4 and kind != KIND_REGION
+            else CORE_MMA)
+  elif core not in (CORE_SCALAR, CORE_VEC4, CORE_MMA):
+    raise ValueError(f"unknown core {core}")
+  elif core != CORE_SCALAR and not wide:
+    raise ValueError("the 16-byte cores need cols % 4 == 0 and 16-byte "
+                     "aligned arrays")
+  elif core == CORE_VEC4 and n_regions > 4:
+    raise ValueError("the CUDA-core 16-byte core takes up to four regions")
+  if core == CORE_MMA:
+    rpb = MMA_ROWS_PER_BLOCK[kind]
+    n_splits, split_len = split_plan(rows, cols, rpb, _MMA_TARGET_BLOCKS,
+                                     _MMA_MIN_SPLIT, one_wave=True)
+  else:
+    rpb = _ROWS_PER_BLOCK
+    n_splits, split_len = split_plan(rows, cols)
+  n_out = _N_OUT[kind]
+  return LaunchPlan(core, rpb, n_splits, split_len,
+                    (n_splits, n_out, n_regions, rows),
+                    (n_out, n_regions, rows))
+
+
+def _is_aligned(*tensors) -> bool:
+  return all(t is None or t.data_ptr() % 16 == 0 for t in tensors)
+
+
 def _as_f32(x, like=None) -> torch.Tensor:
   dev = like.device if like is not None else None
   return torch.as_tensor(x, dtype=torch.float32, device=dev).contiguous()
+
+
+def _det_stats(forecast, truth, clim):
+  """The six NaN-masked statistics, the valid mask and the NaN mask, each
+  (B, L): the CUDA source's ``stats_of`` in torch, float32 operation for
+  operation."""
+  nan = torch.isnan(forecast) | torch.isnan(truth)
+  if clim is not None:
+    nan |= torch.isnan(clim)
+  f0 = torch.where(nan, 0.0, forecast)
+  t0 = torch.where(nan, 0.0, truth)
+  c0 = torch.zeros_like(f0) if clim is None else torch.where(nan, 0.0, clim)
+  d, a, c = f0 - t0, f0 - c0, t0 - c0
+  return ([d, d * d, d.abs(), a * c, a * a, c * c],
+          (~nan).to(forecast.dtype), nan.to(forecast.dtype))
 
 
 def fused_deterministic_sums_plain(forecast, truth, clim, region_w):
@@ -91,23 +204,11 @@ def fused_deterministic_sums_plain(forecast, truth, clim, region_w):
   Returns:
     sums (N_STATS, R, B), wsum_valid (R, B), nan_w (R, B).
   """
-  nan_mask = torch.isnan(forecast) | torch.isnan(truth)
-  if clim is not None:
-    nan_mask |= torch.isnan(clim)
-  valid = (~nan_mask).to(forecast.dtype)
-  f0 = torch.where(nan_mask, 0.0, forecast)
-  t0 = torch.where(nan_mask, 0.0, truth)
-  c0 = torch.zeros_like(f0) if clim is None else torch.where(
-      nan_mask, 0.0, clim)
-  diff = f0 - t0
-  a = f0 - c0
-  c = t0 - c0
+  stats, valid, nan = _det_stats(forecast, truth, clim)
   wt = region_w.T
-  stats = (diff, diff * diff, torch.abs(diff), a * c, a * a, c * c)
   sums = torch.stack([s @ wt for s in stats]).permute(0, 2, 1)
   wsum = (valid @ wt).T
-  nanw = (nan_mask.to(forecast.dtype) @ (region_w > 0).to(
-      forecast.dtype).T).T
+  nanw = (nan @ (region_w > 0).to(forecast.dtype).T).T
   return sums, wsum, nanw
 
 
@@ -143,24 +244,188 @@ def fused_deterministic_sums(forecast, truth, clim=None, region_w=None):
     return fused_deterministic_sums_plain(f, t, c, w)
   if f.device.type != "cuda":
     raise ValueError(f"unsupported device {f.device}")
-  if not 1 <= r <= MAX_REGIONS:
-    raise ValueError(f"{r} regions: the kernel takes 1..{MAX_REGIONS}")
-  n_splits, split_len = split_plan(b, l)
-  partial = torch.empty((n_splits, N_STATS + 2, r, b), dtype=torch.float32,
+  return launch_deterministic_sums(f, t, c, w)
+
+
+def launch_deterministic_sums(f, t, c, w, core: Optional[int] = None):
+  """Kernel 1 on contiguous float32 CUDA tensors of matching shapes.
+
+  What ``fused_deterministic_sums`` calls once it has checked its
+  arguments.  ``core`` forces a core, for measurements.
+  """
+  b, l = f.shape
+  kind = KIND_DET if c is None else KIND_DET_CLIM
+  plan = launch_plan(kind, b, l, w.shape[0], _is_aligned(f, t, c, w), core)
+  partial = torch.empty(plan.partial_shape, dtype=torch.float32,
                         device=f.device)
-  out = torch.empty((N_STATS + 2, r, b), dtype=torch.float32,
-                    device=f.device)
-  lib = _build.library()
-  err = lib.wb2_fused_deterministic_sums(
+  out = torch.empty(plan.out_shape, dtype=torch.float32, device=f.device)
+  err = _build.library().wb2_fused_deterministic_sums(
       f.data_ptr(), t.data_ptr(), None if c is None else c.data_ptr(),
-      w.data_ptr(), b, l, r, n_splits, split_len, partial.data_ptr(),
-      out.data_ptr(), torch.cuda.current_stream(f.device).cuda_stream)
+      w.data_ptr(), b, l, w.shape[0], plan.core, plan.n_splits,
+      plan.split_len, partial.data_ptr(), out.data_ptr(),
+      torch.cuda.current_stream(f.device).cuda_stream)
   _build.check(err, "fused_deterministic_sums kernel")
   fused_deterministic_sums.launches += 1
   return out[:N_STATS], out[N_STATS], out[N_STATS + 1]
 
 
 fused_deterministic_sums.launches = 0
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+  """float32 rounded to TF32 (10 mantissa bits), nearest with ties away
+  from zero: the kernel's ``hi_of`` (and ``cvt.rna.tf32.f32``)."""
+  bits = x.contiguous().view(torch.int32)
+  return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
+  """float32 with the 13 low mantissa bits cleared: what the tensor core
+  reads of an operand that was not rounded first (the kernel's ``lo``)."""
+  bits = x.contiguous().view(torch.int32)
+  return (bits & ~0x1FFF).view(torch.float32)
+
+
+# What the card's tensor cores were found to do in one
+# mma.sync.m16n8k8 (TF32 in, fp32 accumulate): see ``tensor_core_add``.
+_MMA_GUARD_BITS = 2
+_EMULATION_BLOCK = 4096  # chains emulated at a time (bounds the memory)
+
+
+def _toward_zero_f32(x: torch.Tensor) -> torch.Tensor:
+  """float64 rounded to float32 toward zero."""
+  f = x.to(torch.float32)
+  over = f.double().abs() > x.abs()
+  return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def tensor_core_add(acc: torch.Tensor, a: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+  """acc + sum_k a[..., k] * b[..., k] as one H100 TF32 MMA step adds it.
+
+  ``acc`` is float32, ``a`` and ``b`` hold TF32 numbers in float32, the
+  last axis being the MMA's k = 8.  The model, found by holding it against
+  ``pass1_mma`` on an H100 (``chip_smoke.py`` repeats that check, bit for
+  bit): the eight products are exact; they and the accumulator are aligned
+  to the largest exponent among them, a product's exponent being the sum
+  of its factors' exponents (its mantissa product is not normalized
+  first); each is truncated toward zero two bits below the float32 unit in
+  the last place of that exponent; the sum of those is exact and is then
+  truncated toward zero to float32.
+  """
+  prods = a.double() * b.double()
+  _, ea = torch.frexp(a)
+  _, eb = torch.frexp(b)
+  low = torch.full_like(ea, -200)
+  e_prod = torch.where(prods == 0, low, ea + eb - 1).amax(-1)
+  _, e_acc = torch.frexp(acc)
+  e_acc = torch.where(acc == 0, low[..., 0], e_acc)
+  e_max = torch.maximum(e_prod, e_acc)
+  quantum = torch.ldexp(torch.ones_like(prods[..., 0]),
+                        e_max - 24 - _MMA_GUARD_BITS)
+  total = torch.trunc(acc.double() / quantum) + torch.trunc(
+      prods / quantum[..., None]).sum(-1)
+  return _toward_zero_f32(total * quantum)
+
+
+def tf32_split_sums_emulation(stat, region_w, split_len: int,
+                              terms: int = 3,
+                              chain_stages: int = 1) -> torch.Tensor:
+  """(R, B) weighted sums of one (B, L) statistic by the tensor-core
+  core's arithmetic, on the CPU, bit for bit.
+
+  As in ``pass1_mma``: W and the statistic are split into TF32 ``hi`` and
+  ``lo`` (``tf32_round`` of v, ``tf32_truncate`` of v - hi); a stage of 32
+  cells is four MMA steps of eight cells (lane ``t`` of four holds cells
+  ``16 j + 4 t .. + 3`` and gives the first two to step ``(j, 0)``, the
+  others to ``(j, 1)``), each step being the MMAs Wlo.hi, Whi.lo, Whi.hi
+  in that order into one accumulator (``tensor_core_add``); a chain is
+  ``chain_stages`` stages into a zeroed accumulator; the chains of a split
+  are added in order in float32, and so are the splits.  ``terms=1`` is
+  Whi.hi alone: plain TF32, which the kernel uses only for operands that
+  are TF32 numbers already.  An MMA whose products are all zero changes
+  nothing, so the kernel's two MMAs for the valid-weight sum are
+  ``terms=3`` of a 0/1 statistic.
+  """
+  if terms not in (1, 3):
+    raise ValueError("terms is 1 (plain TF32) or 3 (3xTF32)")
+  if split_len % MMA_STAGE_CELLS:
+    raise ValueError(f"split_len {split_len} is not whole stages")
+  b, l = stat.shape
+  r = region_w.shape[0]
+  n_splits = -(-l // split_len)
+  chain_cells = MMA_STAGE_CELLS * chain_stages
+  chains_per_split = -(-split_len // chain_cells)
+  n_chains = n_splits * chains_per_split
+
+  def chunks(x):
+    # each split padded on its own to whole chains: (rows, chains, cells)
+    out = torch.zeros((x.shape[0], n_splits, chains_per_split * chain_cells),
+                      dtype=torch.float32)
+    flat = torch.zeros((x.shape[0], n_splits * split_len),
+                       dtype=torch.float32)
+    flat[:, :l] = x
+    out[:, :, :split_len] = flat.view(x.shape[0], n_splits, split_len)
+    return out.view(x.shape[0], n_chains, chain_cells)
+
+  s, w = chunks(stat), chunks(region_w)
+  steps = [torch.tensor([MMA_STAGE_CELLS * stage + 16 * j + 4 * t + 2 * ks + e
+                         for t in range(4) for e in range(2)])
+           for stage in range(chain_stages) for j in range(2)
+           for ks in range(2)]
+  chain = torch.zeros((r, b, n_chains), dtype=torch.float32)
+  for c0 in range(0, n_chains, _EMULATION_BLOCK):
+    sb, wb = s[:, c0:c0 + _EMULATION_BLOCK], w[:, c0:c0 + _EMULATION_BLOCK]
+    s_hi, w_hi = tf32_round(sb), tf32_round(wb)
+    pairs = [(w_hi, s_hi)]
+    if terms == 3:
+      pairs = [(tf32_truncate(wb - w_hi), s_hi),
+               (w_hi, tf32_truncate(sb - s_hi)), (w_hi, s_hi)]
+    acc = torch.zeros((r, b, sb.shape[1]), dtype=torch.float32)
+    for cells in steps:
+      for wp, sp in pairs:
+        acc = tensor_core_add(acc, wp[:, None, :, cells],
+                              sp[None, :, :, cells])
+    chain[..., c0:c0 + _EMULATION_BLOCK] = acc
+  chain = chain.view(r, b, n_splits, chains_per_split)
+  partial = torch.zeros((r, b, n_splits), dtype=torch.float32)
+  for i in range(chains_per_split):
+    partial += chain[..., i]
+  out = torch.zeros((r, b), dtype=torch.float32)
+  for i in range(n_splits):
+    out += partial[..., i]
+  return out
+
+
+def fused_deterministic_sums_tf32_emulation(forecast, truth, clim, region_w,
+                                            terms: int = 3):
+  """Kernel 1 by the tensor-core core's arithmetic, on the CPU: the same
+  outputs as ``fused_deterministic_sums_plain``, for the tests and the
+  card's check of that core."""
+  b, l = forecast.shape
+  kind = KIND_DET if clim is None else KIND_DET_CLIM
+  plan = launch_plan(kind, b, l, region_w.shape[0], core=CORE_MMA)
+  stats, valid, nan = _det_stats(forecast, truth, clim)
+  sums = torch.stack([tf32_split_sums_emulation(s, region_w, plan.split_len,
+                                                terms) for s in stats])
+  wsum = tf32_split_sums_emulation(valid, region_w, plan.split_len, terms)
+  nanw = tf32_split_sums_emulation(nan, (region_w > 0).to(torch.float32),
+                                   plan.split_len, 1)
+  return sums, wsum, nanw
+
+
+def fused_region_sums_tf32_emulation(x, region_w):
+  """Kernel 2 by the tensor-core core's arithmetic, on the CPU."""
+  plan = launch_plan(KIND_REGION, x.shape[0], x.shape[1], region_w.shape[0],
+                     core=CORE_MMA)
+  nan = torch.isnan(x)
+  return (tf32_split_sums_emulation(torch.where(nan, 0.0, x), region_w,
+                                    plan.split_len),
+          tf32_split_sums_emulation((~nan).to(x.dtype), region_w,
+                                    plan.split_len),
+          tf32_split_sums_emulation(nan.to(x.dtype),
+                                    (region_w > 0).to(x.dtype),
+                                    plan.split_len, 1))
 
 
 def fused_region_sums_plain(x, region_w):
@@ -201,16 +466,23 @@ def fused_region_sums(x, region_w=None):
     return fused_region_sums_plain(x, w)
   if x.device.type != "cuda":
     raise ValueError(f"unsupported device {x.device}")
-  if not 1 <= r <= MAX_REGIONS:
-    raise ValueError(f"{r} regions: the kernel takes 1..{MAX_REGIONS}")
-  n_splits, split_len = split_plan(n, l)
-  partial = torch.empty((n_splits, 3, r, n), dtype=torch.float32,
+  return launch_region_sums(x, w)
+
+
+def launch_region_sums(x, w, core: Optional[int] = None):
+  """Kernel 2 on contiguous float32 CUDA tensors of matching shapes.
+
+  What ``fused_region_sums`` calls once it has checked its arguments.
+  ``core`` forces a core, for measurements.
+  """
+  n, l = x.shape
+  plan = launch_plan(KIND_REGION, n, l, w.shape[0], _is_aligned(x, w), core)
+  partial = torch.empty(plan.partial_shape, dtype=torch.float32,
                         device=x.device)
-  out = torch.empty((3, r, n), dtype=torch.float32, device=x.device)
-  lib = _build.library()
-  err = lib.wb2_fused_region_sums(
-      x.data_ptr(), w.data_ptr(), n, l, r, n_splits, split_len,
-      partial.data_ptr(), out.data_ptr(),
+  out = torch.empty(plan.out_shape, dtype=torch.float32, device=x.device)
+  err = _build.library().wb2_fused_region_sums(
+      x.data_ptr(), w.data_ptr(), n, l, w.shape[0], plan.core,
+      plan.n_splits, plan.split_len, partial.data_ptr(), out.data_ptr(),
       torch.cuda.current_stream(x.device).cuda_stream)
   _build.check(err, "fused_region_sums kernel")
   fused_region_sums.launches += 1
