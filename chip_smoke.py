@@ -37,13 +37,28 @@ exits non-zero without the final line):
   e2e025   MSE/RMSE/MAE/Bias of z500/700/850 and t2m with the thirteen
            regions at 1440x721, 4 inits x 21 leads, one init a chunk; the
            first init's results are held against the plain versions run on
-           the card on the same stores.
+           the card on the same stores; then the same four inits in
+           lead_time chunks of 7 (three times the launches, equal results);
+  e2e_official  the official 1.5-degree configuration through the CLI
+           (weatherbench2_torch.cli.evaluate.main): the seven default
+           variables at three levels plus 24 h precipitation, a land-sea
+           mask in the obs store (sixteen regions), SEEPS, wind vectors;
+           `deterministic`, `deterministic_temporal` and
+           `deterministic_spatial` in one stream over the first 32 inits of
+           January 2020 x 21 leads, launch counters against the prediction;
+           the first 16 inits on the card and on the CPU, compared; the
+           first chunk's mse (wind vector included) and seeps against plain
+           versions run on the card; a run whose process dies after its
+           second chunk, resumed from the state file, equal to the
+           uninterrupted run bit for bit; the persistence baseline on the
+           card and on the CPU.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
 """
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -595,6 +610,18 @@ def kernels_phase():
   cases[("det", "e2e025")] = kernel_case(
       "fused_deterministic_sums", (63, 1440 * 721), 13, official, False,
       False, gen)
+  # the shapes of one 16-init chunk of the official 1.5-degree config with
+  # its sixteen regions (e2e_official): kernel 1 on a three-level and on a
+  # surface variable; kernel 2 on mse's rows (18 variable-levels and 3
+  # wind-vector levels), on one of ACC's two row groups and on SEEPS's rows
+  # (NaN cells where the p1 mask bites)
+  for rows in (1008, 336):
+    cases[("det", "official16", rows)] = kernel_case(
+        "fused_deterministic_sums", (rows, 240 * 121), 16, bench, False,
+        False, gen)
+  for rows, nans in ((7056, False), (9072, False), (336, True)):
+    cases[("region", "official16", rows)] = kernel_case(
+        "fused_region_sums", (rows, 240 * 121), 16, bench, nans, None, gen)
   path_cases(gen)
   infinite_cases(gen)
   emulation_cases(gen)
@@ -737,39 +764,49 @@ def read_launches(chunks, det_per_chunk, region_per_chunk):
   return launches
 
 
-def profiled_run(paths, root, time_slice, regions=None, chunk=16):
-  """The same run under torch.profiler: device time by kind, and the
-  device's busy share of the wall (kernels and copies on either stream)."""
+def profiled(run):
+  """`run()` (an entry point that returns the engine's counts) under
+  torch.profiler: device time by kind, and the device's busy share of the
+  wall (kernels and copies on either stream)."""
   import torch
   from torch.profiler import ProfilerActivity, profile
 
-  from weatherbench2_torch import evaluation
-
-  dc, cfgs = bench_suite(paths, os.path.join(root, "profiled"), time_slice,
-                         regions)
   with profile(activities=[ProfilerActivity.CPU,
                            ProfilerActivity.CUDA]) as prof:
-    stats = evaluation.evaluate_with_mesh(dc, cfgs,
-                                          input_chunks={"init_time": chunk})
+    stats = run()
     torch.cuda.synchronize()
-  by_name = {}
+  # key_averages() has a row per operator (device time of the kernels it
+  # launched) and a row per kernel: sum the kernel rows only, and name the
+  # largest operators
+  kernels, operators = {}, {}
   for e in prof.key_averages():
     us = getattr(e, "self_device_time_total", 0) or 0
     if us > 0:
-      by_name[e.key] = us
-  copy_us = sum(v for k, v in by_name.items() if k.lower().startswith(
+      on_device = e.device_type == torch.autograd.DeviceType.CUDA
+      (kernels if on_device else operators)[e.key] = us
+  copy_us = sum(v for k, v in kernels.items() if k.lower().startswith(
       ("memcpy", "memset")))
-  kernel_us = sum(by_name.values()) - copy_us
-  own_us = sum(v for k, v in by_name.items() if "pass1_" in k or "pass2" in k)
-  top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+  kernel_us = sum(kernels.values()) - copy_us
+  own_us = sum(v for k, v in kernels.items() if "pass1_" in k or "pass2" in k)
+  top = sorted(operators.items(), key=lambda kv: -kv[1])[:8]
   return {
       "wall_s": stats["wall_s"],
       "device_kernel_s": kernel_us / 1e6,
       "device_copy_s": copy_us / 1e6,
       "reduction_kernels_s": own_us / 1e6,
       "kernel_busy_share": kernel_us / 1e6 / stats["wall_s"],
-      "top_device_ops_ms": {k[-70:]: v / 1e3 for k, v in top},
+      "top_device_operators_ms": {k: v / 1e3 for k, v in top},
   }
+
+
+def profiled_run(paths, root, time_slice, regions=None, chunk=16):
+  """The bench suite once more, under the profiler."""
+  from weatherbench2_torch import evaluation
+
+  dc, cfgs = bench_suite(paths, os.path.join(root, "profiled"), time_slice,
+                         regions)
+  return profiled(lambda: evaluation.evaluate_with_mesh(
+      dc, cfgs, input_chunks={"init_time": chunk}))
 
 
 def card_vs_cpu(paths, root, tag, time_slice, regions, det_per_chunk,
@@ -805,9 +842,15 @@ def card_vs_cpu(paths, root, tag, time_slice, regions, det_per_chunk,
 
 
 def hold(got, want, what):
-  """Errors of got against want; raises past E2E_TOLERANCE."""
-  err = np.abs(got - want)
-  bound = RTOL * np.abs(want) + RTOL * np.abs(want).max()
+  """Errors of got against want; raises past E2E_TOLERANCE.  NaNs (the
+  rows of a metric that has no such variable) must be in the same places."""
+  nan = np.isnan(want)
+  if not np.array_equal(np.isnan(got), nan):
+    raise AssertionError(f"{what}: NaNs in other places")
+  if nan.all():
+    return {"max_abs_err": 0.0, "max_err_over_bound": 0.0}
+  err = np.abs(got - want)[~nan]
+  bound = (RTOL * np.abs(want) + RTOL * np.nanmax(np.abs(want)))[~nan]
   report = {"max_abs_err": float(err.max()),
             "max_err_over_bound": float((err / bound).max())}
   if not (err <= bound).all():
@@ -977,7 +1020,514 @@ def e2e025_phase():
       errs[v] = hold(g, want[v].astype(np.float64),
                      f"kernel path vs plain versions on the card, {v}")
     out["first_init_vs_plain"] = {"errors": errs, "tolerance": E2E_TOLERANCE}
+
+    # the same four inits with the lead axis in chunks of 7: three slices,
+    # each with accumulators of its own, results concatenated
+    dcl, cfgl = bench_suite(paths, os.path.join(root, "lead7"), span, regions)
+    reset_launches()
+    sl = evaluation.evaluate_with_mesh(
+        dcl, cfgl, input_chunks={"init_time": 1, "lead_time": 7})
+    if sl["chunks"] != 3 * chunks:
+      raise AssertionError(f"{sl['chunks']} chunks in lead_time chunks of 7")
+    lead_launches = read_launches(sl["chunks"], 2, 0)
+    whole = check_results(os.path.join(root, "gpu", "deterministic.nc"), 21,
+                          13)
+    sliced = check_results(os.path.join(root, "lead7", "deterministic.nc"),
+                           21, 13)
+    out["lead_chunks_of_7"] = {
+        "wall_s": sl["wall_s"], "chunks": sl["chunks"],
+        "launches": lead_launches, "tolerance": E2E_TOLERANCE,
+        "errors": {k: hold(
+            np.asarray(sliced[k].transpose(*whole[k].dims).values,
+                       np.float64),
+            np.asarray(whole[k].values, np.float64),
+            f"lead_time chunks vs unchunked, {k}") for k in whole.keys()}}
   emit("e2e025", **out)
+  return out
+
+
+# -- e2e_official -------------------------------------------------------------------
+
+VARIABLES_3D = ("geopotential", "temperature", "u_component_of_wind",
+                "v_component_of_wind", "specific_humidity")
+VARIABLES_2D = ("2m_temperature", "mean_sea_level_pressure")
+PRECIP = "total_precipitation_24hr"
+OFFICIAL_INITS = 32
+# launches per 16-init chunk of the three configs in one stream, written
+# down in PERF.md before the first run: kernel 1 once per variable (8) for
+# bias/mae of `deterministic` and again of `deterministic_temporal`; kernel
+# 2 for mse (1 group), ACC (2 groups under the 1 GiB cap) and SEEPS (1) of
+# each, and for the temporal config's rmse (1)
+OFFICIAL_LAUNCHES = (16, 9)
+# the `deterministic` config alone, in chunks of 16 inits and of 8 (where
+# ACC's rows, 0.53 GB, fit one group)
+DETERMINISTIC_LAUNCHES = (8, 4)
+DETERMINISTIC_LAUNCHES_8 = (8, 3)
+
+
+def write_official_stores(root):
+  """The official 1.5-degree configuration's stores, from the seed: the
+  CLI's seven default variables at 500/700/850 hPa and 24 h precipitation
+  (non-negative, half of it dry); 32 12-hourly inits x 21 leads; 6-hourly
+  truth with a land_sea_mask; an hourly climatology at 6-hour steps with
+  the SEEPS threshold and dry fraction (the fraction is uniform over (0, 1)
+  from cell to cell, so the p1 mask bites).  The climatology's later
+  quarters of the year repeat the values of the first: only its size has
+  to be real, and a quarter of the random draws is enough."""
+  from weatherbench2_torch import schema, xds
+
+  specs = dict(variables_3d=list(VARIABLES_3D),
+               variables_2d=list(VARIABLES_2D) + [PRECIP],
+               levels=(500, 700, 850), spatial_resolution_in_degrees=1.5)
+  truth = schema.mock_truth_data(time_start="2020-01-01",
+                                 time_stop="2020-01-27",
+                                 time_resolution="6 hours", **specs)
+  forecast = schema.mock_forecast_data(
+      time_start="2020-01-01", time_stop="2020-01-17",
+      time_resolution="12 hours", lead_start="0 days", lead_stop="10 days",
+      lead_resolution="12 hours", **specs)
+  clim = schema.mock_hourly_climatology_data(hour_interval=6, **specs)
+  n_lon, n_lat = truth.sizes["longitude"], truth.sizes["latitude"]
+  rng = np.random.default_rng(SEED + 1)
+  dry_fraction = rng.random((n_lon, n_lat), dtype=np.float32)
+
+  def values(name, shape, cache):
+    if name in cache and cache[name].shape == tuple(shape):
+      return cache[name]
+    if name.endswith("_seeps_dry_fraction"):
+      out = np.broadcast_to(dry_fraction, shape)
+    elif name.endswith("_seeps_threshold"):
+      out = 5e-4 + 2.5e-3 * rng.random(shape, dtype=np.float32)
+    else:
+      out = rng.standard_normal(shape, dtype=np.float32)
+      if name == PRECIP:
+        out = np.maximum(out, 0) * np.float32(2e-3)
+    cache[name] = out
+    return out
+
+  clim_dims = ("dayofyear", "hour", "longitude", "latitude")
+  clim_sizes = {**clim.sizes}
+  clim_vars = dict(clim.variables_dict())
+  for suffix in ("_seeps_threshold", "_seeps_dry_fraction"):
+    clim_vars[PRECIP + suffix] = xds.stub_variable(clim_dims, clim_sizes,
+                                                   np.float32)
+  paths = {}
+  for name, ds_vars, coords, dim, block, chunks, reuse in (
+      ("truth", truth.variables_dict(), truth.coords_dict(), "time", 54,
+       {"time": 54}, False),
+      ("forecast", forecast.variables_dict(), forecast.coords_dict(), "time",
+       16, {"time": 16, "prediction_timedelta": -1}, False),
+      ("climatology", clim_vars, clim.coords_dict(), "dayofyear", 92,
+       {"dayofyear": 92}, True)):
+    path = os.path.join(root, f"{name}.zarr")
+    template = xds.Dataset(
+        {k: xds.stub_variable(v.dims, v.sizes, np.float32)
+         for k, v in ds_vars.items()}, coords=dict(coords))
+    if name == "truth":
+      template["land_sea_mask"] = xds.stub_variable(
+          ("longitude", "latitude"), template.sizes, np.float32)
+    writer = xds.RegionWriter(path, template, chunks=chunks)
+    if name == "truth":
+      writer.write_array("land_sea_mask", (slice(None), slice(None)),
+                         rng.random((n_lon, n_lat), dtype=np.float32))
+    n = template.sizes[dim]
+    cache = {}
+    for start in range(0, n, block):
+      sl = slice(start, min(start + block, n))
+      if not reuse:
+        cache = {}
+      for vname, v in ds_vars.items():
+        shape = [sl.stop - sl.start if d == dim else v.sizes[d]
+                 for d in v.dims]
+        writer.write_array(
+            vname, tuple(sl if d == dim else slice(None) for d in v.dims),
+            values(vname, shape, cache))
+    writer.finish()
+    paths[name] = path
+  return paths
+
+
+def official_args(paths, out_dir, stop, *more):
+  """The CLI's arguments for the official configuration over the stores."""
+  return [
+      f"--forecast_path={paths['forecast']}", f"--obs_path={paths['truth']}",
+      f"--climatology_path={paths['climatology']}",
+      f"--output_dir={out_dir}",
+      "--variables=" + ",".join(VARIABLES_3D + VARIABLES_2D + (PRECIP,)),
+      "--time_start=2020-01-01", f"--time_stop={stop}", "--regions=all",
+      "--compute_seeps", "--use_mesh", *more]
+
+
+OFFICIAL_CONFIGS = "deterministic,deterministic_temporal,deterministic_spatial"
+DETERMINISTIC_METRICS = ["mse", "acc", "bias", "mae", "seeps_24hr"]
+
+
+def open_official_results(out_dir, n_inits, grid=(240, 121)):
+  """The three configs' results, checked: shapes, sixteen regions, the
+  wind_vector variable, and finite values exactly where a metric has the
+  variable (mse: all; acc/bias/mae: all but wind_vector; SEEPS:
+  precipitation only)."""
+  from weatherbench2_torch import xds
+
+  levels = {v: (3,) for v in VARIABLES_3D + ("wind_vector",)}
+  names = VARIABLES_3D + VARIABLES_2D + (PRECIP, "wind_vector")
+  results = {
+      "deterministic": xds.open_netcdf(
+          os.path.join(out_dir, "deterministic.nc")),
+      "deterministic_temporal": xds.open_netcdf(
+          os.path.join(out_dir, "deterministic_temporal.nc")),
+      "deterministic_spatial": xds.open_zarr(
+          os.path.join(out_dir, "deterministic_spatial.zarr"))}
+  for cname, ds in results.items():
+    metrics = [str(m) for m in np.asarray(ds.coords_dict()["metric"].data)]
+    spatial = cname == "deterministic_spatial"
+    want_metrics = (["bias", "mse", "mae", "seeps_24hr"] if spatial else
+                    DETERMINISTIC_METRICS + (
+                        ["rmse_sqrt_before_time_avg"]
+                        if cname == "deterministic_temporal" else []))
+    if metrics != want_metrics:
+      raise AssertionError(f"{cname}: metrics {metrics}")
+    want_vars = set(names) - ({"wind_vector"} if spatial else set())
+    if set(ds.keys()) != want_vars:
+      raise AssertionError(f"{cname}: variables {sorted(ds.keys())}")
+    if not spatial and list(np.asarray(
+        ds.coords_dict()["region"].data))[13:] != [
+            "global_land", "extra-tropics_land", "tropics_land"]:
+      raise AssertionError(f"{cname}: regions "
+                           f"{ds.coords_dict()['region'].data}")
+    for v in ds.keys():
+      sizes = {"metric": len(metrics), "lead_time": 21}
+      if v in levels:
+        sizes["level"] = 3
+      if spatial:
+        sizes.update(longitude=grid[0], latitude=grid[1])
+      else:
+        sizes["region"] = 16
+      if cname == "deterministic_temporal":
+        sizes["init_time"] = n_inits
+      if ds[v].sizes != sizes:
+        raise AssertionError(f"{cname}/{v}: sizes {ds[v].sizes}, expected "
+                             f"{sizes}")
+      for i, m in enumerate(metrics):
+        vals = ds[v].isel(metric=i).values
+        has = (v == PRECIP if m == "seeps_24hr" else
+               v != "wind_vector" or m in ("mse", "rmse_sqrt_before_time_avg"))
+        if spatial and m == "seeps_24hr" and has:
+          # per cell: NaN exactly outside the p1 mask
+          if not 0.1 < np.isnan(vals).mean() < 0.5:
+            raise AssertionError(f"{cname}: SEEPS NaN share "
+                                 f"{np.isnan(vals).mean()}")
+        elif np.isfinite(vals).all() != has or (
+            not has and not np.isnan(vals).all()):
+          raise AssertionError(f"{cname}/{v}/{m}: finite where it should "
+                               "not be, or the reverse")
+  return results
+
+
+def compare_results(got, want, what):
+  """{config/variable: errors} of one run's results against another's."""
+  errs = {}
+  for cname in want:
+    for k in want[cname].keys():
+      w = np.asarray(want[cname][k].values, np.float64)
+      g = np.asarray(got[cname][k].transpose(*want[cname][k].dims).values,
+                     np.float64)
+      errs[f"{cname}/{k}"] = hold(g, w, f"{what}, {cname}/{k}")
+  worst = max(errs.values(), key=lambda e: e["max_err_over_bound"])
+  return {"compared": len(errs), "worst": worst}
+
+
+def plain_official_first_chunk(paths, regions, n_inits=16,
+                               device="cuda"):
+  """mse (wind vector included) and SEEPS of the first `n_inits` inits by
+  plain PyTorch on the card, written independently of the package's
+  metrics: {variable: (region, lead[, level])}, and the SEEPS array."""
+  import torch
+
+  from weatherbench2_torch import metrics, ops, xds
+
+  forecast = xds.open_zarr(paths["forecast"], lazy=True)
+  truth = xds.open_zarr(paths["truth"], lazy=True)
+  clim = xds.open_zarr(paths["climatology"], lazy=True)
+  lat = np.asarray(forecast.coords_dict()["latitude"].data)
+  lon = np.asarray(forecast.coords_dict()["longitude"].data)
+  w = metrics._cell_area_from_latitude(np.deg2rad(lat))
+  w = (w / w.mean()).astype(np.float32)
+  region_w = torch.as_tensor(ops.make_region_weight_matrix(
+      w, [r.mask_weights(lat, lon) for r in regions.values()], len(lon)),
+      device=device)
+  inits = np.asarray(forecast.coords_dict()["time"].data)[:n_inits]
+  leads = np.asarray(forecast.coords_dict()["prediction_timedelta"].data)
+  valid = leads[:, None] + inits[None, :]  # (lead, init), as the store
+  truth_times = np.asarray(truth.coords_dict()["time"].data)
+  t_index = np.searchsorted(truth_times, valid)
+  if not np.array_equal(truth_times[t_index], valid):
+    raise AssertionError("valid times missing from the truth store")
+
+  def on_card(ds, name, index):
+    """(lead, init, [level,] lon, lat) values as a tensor."""
+    v = ds[name]
+    if index is None:
+      arr = np.asarray(v.isel(time=slice(0, n_inits)).values)
+    else:
+      arr = np.asarray(v.values)[index]
+    return torch.as_tensor(arr, device=device)
+
+  def region_means(field, skip_nan=False):
+    """Weighted regional means of (lead, init, [level,] lon, lat)."""
+    other = tuple(field.shape[:-2])
+    sums, wsum, nanw = ops.fused_region_sums_plain(
+        field.reshape(int(np.prod(other)), -1), region_w)
+    means = sums / wsum
+    if not skip_nan:
+      means = torch.where(nanw > 0, torch.nan, means)
+    return means.reshape((len(regions),) + other)
+
+  out, squares = {}, {}
+  for name in VARIABLES_3D + VARIABLES_2D + (PRECIP,):
+    dims = forecast[name].dims
+    if dims[:2] != ("prediction_timedelta", "time") or dims[-2:] != (
+        "longitude", "latitude"):
+      raise AssertionError(f"{name}: dims {dims}")
+    f = on_card(forecast, name, None)
+    t = on_card(truth, name, t_index)
+    sq = (f - t) ** 2
+    if name in ("u_component_of_wind", "v_component_of_wind"):
+      squares[name] = sq
+    out[name] = region_means(sq).mean(dim=2).cpu().numpy()  # over inits
+  out["wind_vector"] = region_means(
+      squares["u_component_of_wind"] + squares["v_component_of_wind"]).mean(
+          dim=2).cpu().numpy()
+
+  # SEEPS: categories 0 dry, 1 light, 2 heavy; the score is half the entry
+  # of the 3x3 matrix of the cell's dry fraction p1
+  f = on_card(forecast, PRECIP, None)
+  t = on_card(truth, PRECIP, t_index)
+  days = valid.astype("datetime64[D]")
+  doy = (days - valid.astype("datetime64[Y]")).astype(np.int64)
+  hour = (valid.astype("datetime64[h]") - days).astype(np.int64)
+  hours = np.asarray(clim.coords_dict()["hour"].data)
+  thr = clim[PRECIP + "_seeps_threshold"]
+  if thr.dims != ("dayofyear", "hour", "longitude", "latitude"):
+    raise AssertionError(f"threshold dims {thr.dims}")
+  n_doy = int(doy.max()) + 1
+  wet = torch.as_tensor(
+      np.asarray(thr.isel(dayofyear=slice(0, n_doy)).values)[
+          doy, np.searchsorted(hours, hour)], device=device)
+  p1 = torch.as_tensor(np.asarray(
+      clim[PRECIP + "_seeps_dry_fraction"].values).mean(axis=(0, 1)),
+      device=device)
+  dry = 0.25 / 1000.0
+
+  def category(x):
+    cat = torch.full(x.shape, -1, dtype=torch.long, device=device)
+    cat[x < dry] = 0
+    cat[(x > dry) & (x < wet)] = 1
+    cat[x >= wet] = 2
+    return cat
+
+  zero = torch.zeros_like(p1)
+  matrix = 0.5 * torch.stack([
+      torch.stack([zero, 1 / (1 - p1), 4 / (1 - p1)]),
+      torch.stack([1 / p1, zero, 3 / (1 - p1)]),
+      torch.stack([1 / p1 + 3 / (2 + p1), 3 / (2 + p1), zero])])
+  fc, tc = category(f), category(t)
+  if int((fc < 0).sum()) or int((tc < 0).sum()):
+    raise AssertionError("a precipitation value is in no SEEPS category")
+  lon_i = torch.arange(len(lon), device=device)[:, None]
+  lat_i = torch.arange(len(lat), device=device)[None, :]
+  score = matrix[fc, tc, lon_i, lat_i]
+  score = torch.where((p1 > 0.1) & (p1 < 0.85), score, torch.nan)
+  seeps = region_means(score, skip_nan=True).mean(dim=2).cpu().numpy()
+  return out, seeps
+
+
+def run_cli(args, expect_chunks, per_chunk):
+  """One CLI run on the card with the launch counters read around it."""
+  import torch
+
+  from weatherbench2_torch.cli import evaluate as cli
+
+  reset_launches()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  stats = cli.main(args)
+  if stats["chunks"] != expect_chunks:
+    raise AssertionError(f"{stats['chunks']} chunks, expected "
+                         f"{expect_chunks}")
+  launches = read_launches(stats["chunks"], *per_chunk)
+  return {"wall_s": stats["wall_s"], "chunks": stats["chunks"],
+          "h2d_gib": stats["h2d_bytes"] / 2**30,
+          "wait_host_s": stats["wait_host_s"],
+          "wait_host_share": stats["wait_host_s"] / stats["wall_s"],
+          "wait_device_s": stats["wait_device_s"], "launches": launches,
+          "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+_DYING_CHILD = """
+import os, pickle, sys
+sys.path.insert(0, {repo!r})
+real = os.replace
+def replace(src, dst):
+  real(src, dst)
+  if dst.startswith({ckpt!r}):
+    with open(dst, "rb") as f:
+      if pickle.load(f)["chunk_index"] >= 2:
+        os._exit(9)  # the process dies here, with no clean-up at all
+os.replace = replace
+from weatherbench2_torch.cli import evaluate
+evaluate.main({argv!r})
+"""
+
+
+def kill_and_resume(paths, root):
+  """The `deterministic` config in chunks of 8 inits: a child process dies
+  right after the state of its second chunk is in place; a second call
+  resumes from that file and must equal the uninterrupted run exactly."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.parallel import streaming
+
+  more = ("--eval_configs=deterministic", "--input_chunks=init_time=8")
+  whole = run_cli(official_args(paths, os.path.join(root, "whole"),
+                                "2020-01-16", *more),
+                  OFFICIAL_INITS // 8, DETERMINISTIC_LAUNCHES_8)
+  ckpt = os.path.join(root, "state")
+  state_file = ckpt + ".deterministic"
+  argv = official_args(paths, os.path.join(root, "killed"), "2020-01-16",
+                       *more, f"--checkpoint_path={ckpt}",
+                       "--checkpoint_every=1")
+  t0 = time.perf_counter()
+  child = subprocess.run(
+      [sys.executable, "-c", _DYING_CHILD.format(
+          repo=os.path.dirname(os.path.abspath(__file__)), ckpt=ckpt,
+          argv=argv)],
+      capture_output=True, text=True, timeout=600)
+  if child.returncode != 9:
+    raise AssertionError(f"the child ended with {child.returncode}: "
+                         f"{child.stderr[-2000:]}")
+  child_s = time.perf_counter() - t0
+  if os.path.exists(os.path.join(root, "killed", "deterministic.nc")):
+    raise AssertionError("the killed run wrote its results")
+  kept = state_file + ".after_chunk_2"
+  shutil.copy(state_file, kept)
+  state = streaming.StreamingState.load(kept)
+  if (state.chunk_index, state.chunk_size, state.total) != (
+      2, 8, OFFICIAL_INITS):
+    raise AssertionError(f"state at chunk {state.chunk_index} of "
+                         f"{state.chunk_size} in {state.total}")
+  resumed = run_cli(official_args(paths, os.path.join(root, "resumed"),
+                                  "2020-01-16", *more,
+                                  f"--checkpoint_path={ckpt}",
+                                  "--checkpoint_every=1"),
+                    OFFICIAL_INITS // 8 - 2, DETERMINISTIC_LAUNCHES_8)
+  a = xds.open_netcdf(os.path.join(root, "whole", "deterministic.nc"))
+  b = xds.open_netcdf(os.path.join(root, "resumed", "deterministic.nc"))
+  if list(a.keys()) != list(b.keys()):
+    raise AssertionError("the resumed run's variables differ")
+  for k in a.keys():
+    if not np.array_equal(a[k].values, b[k].values, equal_nan=True):
+      raise AssertionError(f"resumed run differs from the uninterrupted "
+                           f"one in {k}")
+  return {"uninterrupted": whole, "child_process_s": child_s,
+          "state_kept": {"chunk_index": state.chunk_index,
+                         "bytes": os.path.getsize(kept)},
+          "resumed": resumed, "results_bit_identical": True,
+          "variables_compared": len(list(a.keys()))}
+
+
+def e2e_official_phase():
+  """The official 1.5-degree configuration through the CLI."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import evaluate as cli
+
+  out = {"resolution_degrees": 1.5, "inits": OFFICIAL_INITS, "leads": 21,
+         "regions": 16, "configs": OFFICIAL_CONFIGS.split(","),
+         "cut": "the first 32 inits of January 2020 (the month has 62): "
+                "the whole month would add more than two minutes with the "
+                "runs on the CPU",
+         "predicted_launches_per_chunk": dict(zip(
+             ("fused_deterministic_sums", "fused_region_sums"),
+             OFFICIAL_LAUNCHES))}
+  with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_official_") as root:
+    t0 = time.perf_counter()
+    paths = write_official_stores(root)
+    out["write_stores_s"] = time.perf_counter() - t0
+    out["store_gib"] = store_gib(paths)
+    configs = f"--eval_configs={OFFICIAL_CONFIGS}"
+
+    # the main path: the CLI, three configs in one stream, counters around
+    main_dir = os.path.join(root, "main")
+    out["main"] = run_cli(
+        official_args(paths, main_dir, "2020-01-16", configs,
+                      "--input_chunks=init_time=16"),
+        OFFICIAL_INITS // 16, OFFICIAL_LAUNCHES)
+    open_official_results(main_dir, OFFICIAL_INITS)
+
+    # the first 16 inits (one chunk) on the card and on the CPU
+    first = {}
+    for dev in ("cuda", "cpu"):
+      dev_dir = os.path.join(root, f"first16_{dev}")
+      args = official_args(paths, dev_dir, "2020-01-08", configs,
+                           "--input_chunks=init_time=16")
+      if dev == "cuda":
+        out["first16_card"] = run_cli(args, 1, OFFICIAL_LAUNCHES)
+      else:
+        reset_launches()
+        stats = cli.main(args + ["--device=cpu"])
+        read_launches(stats["chunks"], 0, 0)
+        out["first16_cpu_wall_s"] = stats["wall_s"]
+      first[dev] = open_official_results(dev_dir, 16)
+    out["first16_card_vs_cpu"] = {
+        **compare_results(first["cuda"], first["cpu"], "card vs CPU"),
+        "tolerance": E2E_TOLERANCE}
+
+    out["first16_profiled"] = profiled(lambda: cli.main(official_args(
+        paths, os.path.join(root, "first16_profiled"), "2020-01-08", configs,
+        "--input_chunks=init_time=16")))
+
+    # the first chunk's mse and SEEPS against plain versions on the card
+    mask = xds.open_zarr(paths["truth"])["land_sea_mask"]
+    want_mse, want_seeps = plain_official_first_chunk(
+        paths, cli.predefined_regions_dict(mask))
+    det = first["cuda"]["deterministic"]
+    errs = {}
+    for v, want in want_mse.items():
+      dims = ("region", "lead_time") + (("level",) if want.ndim == 3 else ())
+      got = det[v].isel(metric=DETERMINISTIC_METRICS.index("mse"))
+      errs[f"mse/{v}"] = hold(
+          np.asarray(got.transpose(*dims).values, np.float64),
+          want.astype(np.float64), f"mse of {v} vs its plain version")
+    got = det[PRECIP].isel(metric=DETERMINISTIC_METRICS.index("seeps_24hr"))
+    errs["seeps_24hr"] = hold(
+        np.asarray(got.transpose("region", "lead_time").values, np.float64),
+        want_seeps.astype(np.float64), "SEEPS vs its plain version")
+    out["first_chunk_vs_plain"] = {"errors": errs, "tolerance": E2E_TOLERANCE}
+
+    out["kill_and_resume"] = kill_and_resume(paths, root)
+
+    # the persistence baseline, first 16 inits, card against CPU
+    persistence = {}
+    for dev in ("cuda", "cpu"):
+      dev_dir = os.path.join(root, f"persistence_{dev}")
+      args = official_args(paths, dev_dir, "2020-01-08",
+                           "--eval_configs=deterministic",
+                           "--evaluate_persistence",
+                           "--input_chunks=init_time=16")
+      if dev == "cuda":
+        out["persistence_card"] = run_cli(args, 1, DETERMINISTIC_LAUNCHES)
+      else:
+        cli.main(args + ["--device=cpu"])
+      persistence[dev] = {"deterministic": xds.open_netcdf(
+          os.path.join(dev_dir, "deterministic.nc"))}
+    zero = persistence["cuda"]["deterministic"]["geopotential"].isel(
+        metric=0, lead_time=0).values
+    if not (zero == 0).all():
+      raise AssertionError("persistence at lead 0 is not the truth")
+    out["persistence_card_vs_cpu"] = {
+        **compare_results(persistence["cuda"], persistence["cpu"],
+                          "persistence, card vs CPU"),
+        "tolerance": E2E_TOLERANCE}
+  emit("e2e_official", **out)
   return out
 
 
@@ -1014,6 +1564,9 @@ def main():
   t0 = time.perf_counter()
   e2e025 = e2e025_phase()
   t_e2e025 = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  official_run = e2e_official_phase()
+  t_official = time.perf_counter() - t0
 
   summary = []
   for name, key, official, replaces in (
@@ -1030,6 +1583,7 @@ def main():
         "replaces": replaces, "launches": e2e["launches"][name],
         "launches_e2e13": e2e13["launches"][name],
         "launches_e2e025": e2e025["launches"][name],
+        "launches_e2e_official": official_run["main"]["launches"][name],
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -1038,7 +1592,7 @@ def main():
         "official_ms": o["kernel_ms"], "official_bound_ms": o["bound_ms"],
         "official_library_ms": o["library_ms"]})
   emit("times", kernels_s=t_kernels, e2e_s=t_e2e, e2e025_s=t_e2e025,
-       total_s=time.perf_counter() - t_start)
+       e2e_official_s=t_official, total_s=time.perf_counter() - t_start)
   print(json.dumps({"kernels": summary}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {

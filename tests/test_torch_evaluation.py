@@ -183,22 +183,29 @@ def test_default_device_raises_without_cuda(stores, monkeypatch):
 
 
 def test_unported_paths_raise(stores):
+  """What is still missing raises and names its ROADMAP item; lead_time
+  chunks, configs without regions and checkpoints no longer do."""
   tmp, paths = stores
   clim = jxds.open_zarr(paths["climatology"])
   dc = _data_config(paths, tmp / "unported")
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    _run_port(dc, _bench_config(clim), input_chunks={"lead_time": 2})
-  no_regions = {"d": jconfig.Eval(metrics={"mse": jmetrics.MSE()})}
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    _run_port(dc, no_regions)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
+  with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
     _run_port(dc, _bench_config(clim), mesh=object())
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    _run_port(dc, _bench_config(clim), checkpoint_path=str(tmp / "ckpt"))
   with pytest.MonkeyPatch.context() as mp:
     mp.setenv("WB2_TRANSFER_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
       _run_port(dc, _bench_config(clim))
+  prob_clim = {"d": jconfig.Eval(
+      metrics={"mse": jmetrics.MSE()},
+      evaluate_probabilistic_climatology=True,
+      probabilistic_climatology_start_year=1990,
+      probabilistic_climatology_end_year=2000)}
+  with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+    _run_port(dc, prob_clim)
+  no_regions = {"d": jconfig.Eval(metrics={"mse": jmetrics.MSE()})}
+  stats = _run_port(dc, no_regions, input_chunks={"lead_time": 2},
+                    checkpoint_path=str(tmp / "ckpt"), checkpoint_every=1)
+  assert stats["chunks"] == 2  # one init chunk in two lead slices
+  assert os.path.exists(tmp / "ckpt.d")
 
 
 def test_launch_counters_stay_zero_on_cpu(bench_runs):

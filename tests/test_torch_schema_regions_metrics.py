@@ -221,6 +221,7 @@ def test_unported_config_fields_raise():
   with pytest.raises(NotImplementedError, match="ROADMAP"):
     config.Eval(metrics={}, derived_variables={"x": object()}).validate()
   with pytest.raises(NotImplementedError, match="ROADMAP"):
-    config.Eval(metrics={}, evaluate_climatology=True).validate()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    metrics.MSE(wind_vector_mse=[object()])
+    config.Eval(metrics={},
+                evaluate_probabilistic_climatology=True).validate()
+  with pytest.raises(ValueError, match="output_format"):
+    config.Eval(metrics={}, output_format="csv").validate()

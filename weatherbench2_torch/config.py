@@ -3,8 +3,8 @@
 The fields match ``weatherbench2_tpu/config.py`` (and so the reference
 WeatherBench 2 config API), so configs translate one to one
 (``convert.eval_configs_from_reference``).  Derived variables and the
-baseline forecasts exist as fields but are not ported yet: setting them
-raises instead of being ignored.
+probabilistic climatology baseline exist as fields but are not ported yet:
+setting them raises instead of being ignored.
 """
 import dataclasses
 import typing as t
@@ -75,9 +75,9 @@ class Eval:
     if self.derived_variables:
       raise NotImplementedError(
           "derived variables are not ported yet (ROADMAP A.9)")
-    if (self.evaluate_persistence or self.evaluate_climatology
-        or self.evaluate_probabilistic_climatology):
+    if self.evaluate_probabilistic_climatology:
       raise NotImplementedError(
-          "baseline forecasts are not ported yet (ROADMAP A.9)")
+          "the probabilistic climatology baseline is not ported yet "
+          "(ROADMAP A.9)")
     if self.output_format not in ("netcdf", "zarr"):
       raise ValueError(f"unrecognized output_format {self.output_format!r}")

@@ -87,6 +87,20 @@ def from_reference(obj):
   return _convert(obj)
 
 
+def state_from_reference(state):
+  """A ``StreamingState`` of the reference package (already unpickled, its
+  payloads numpy) as the port's, so that the port can resume a run that
+  the reference package began: the same fields, labeled objects crossing
+  as in ``from_reference``."""
+  from weatherbench2_torch.parallel import streaming
+
+  fields = {f.name: getattr(state, f.name)
+            for f in dataclasses.fields(streaming.StreamingState)}
+  return streaming.StreamingState(**{
+      k: _convert(v) if k in ("sums", "counts", "configs", "completed_leads")
+      else v for k, v in fields.items()})
+
+
 def dataset_from_arrays(variables: Mapping[str, tuple],
                         coords: Mapping[str, Any],
                         attrs: Mapping[str, Any] | None = None

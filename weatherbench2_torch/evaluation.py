@@ -1,10 +1,13 @@
-"""Evaluation entry point of the port: open data, stream, save results.
+"""Evaluation entry points of the port: open data, evaluate, save results.
 
-Counterpart of ``weatherbench2_tpu/evaluation.py:31-394`` and
-``evaluate_with_mesh`` (``:716-833``), on one device: chunks of
-(init_)time stream to the card and every metric × region runs in the
-fused tiers of ``parallel/streaming.py``.  Results are written as NetCDF3
-(``scipy.io``), which ``weatherbench2_tpu.xds.open_netcdf`` also reads.
+Counterpart of ``weatherbench2_tpu/evaluation.py``, on one device:
+``evaluate_with_mesh`` streams chunks of (init_)time to the card, where
+every metric × region runs in the tiers of ``parallel/streaming.py``, with
+checkpoint/resume; ``evaluate_in_memory`` loads the selection whole and
+loops over metrics and regions.  Both substitute the persistence and
+climatology baselines for the forecast where a config asks.  Results are
+written as NetCDF3 (``scipy.io``), which
+``weatherbench2_tpu.xds.open_netcdf`` also reads, or as Zarr.
 """
 from __future__ import annotations
 
@@ -14,9 +17,11 @@ import time
 from typing import Mapping, Optional
 
 import numpy as np
+import torch
 
 from weatherbench2_torch import config
 from weatherbench2_torch import device as device_lib
+from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import schema
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds.core import LazyArrayBase, LazyStack
@@ -145,6 +150,78 @@ def _impose_data_selection(
     dataset = dataset.sel({time_dim: selection.time_slice})
   _ensure_nonempty(dataset, message="Selection created empty dataset")
   return dataset
+
+
+def create_persistence_forecast(forecast: xds.Dataset,
+                                obs: xds.Dataset) -> xds.Dataset:
+  """Persistence forecast for by-valid data: the observation at init time,
+  shaped like the forecast."""
+  logging.warning("by-valid with evaluate_persistence is not 100% correct.")
+  init_time = forecast["init_time"]  # dims (time, lead_time)
+  time_vals = np.asarray(init_time.coords["time"].data)
+  lead_max = np.asarray(forecast.coords_dict()["lead_time"].data).max()
+  keep = np.nonzero(time_vals >= time_vals[0] + lead_max)[0]
+  indexer = init_time.isel(time=keep).rename_dims({"time": "valid_time_dim"})
+  persistence = obs.sel(time=indexer).rename({"valid_time_dim": "time"})
+  # drop the stale gathered 'time' coord and restore the index coord
+  return xds.Dataset(
+      dict(persistence.variables_dict()),
+      coords={**{k: v for k, v in persistence.coords_dict().items()
+                 if k != "time"},
+              "time": time_vals[keep]})
+
+
+def create_persistence_forecast_by_init(forecast: xds.Dataset,
+                                        truth: xds.Dataset) -> xds.Dataset:
+  """Persistence for by-init data: truth at init_time, tiled over lead."""
+  init_vals = np.asarray(forecast.coords_dict()["init_time"].data)
+  persistence = truth.sel(time=init_vals).rename({"time": "init_time"})
+  lead = np.asarray(forecast.coords_dict()["lead_time"].data)
+  persistence = persistence.expand_dims(lead_time=lead)
+  for cn, cv in forecast.coords_dict().items():
+    if cn not in persistence.coords_dict():
+      persistence = persistence.assign_coords({cn: cv})
+  return persistence
+
+
+def substitute_climatology_forecast(forecast_like: xds.Dataset,
+                                    climatology: xds.Dataset,
+                                    by_init: bool) -> xds.Dataset:
+  """Climatology selected at the forecast's valid times, coords kept.
+
+  The one implementation for both engines (in memory here, per chunk in
+  ``parallel/streaming._make_truth_chunk``).
+  """
+  time_dim = "valid_time" if by_init else "time"
+  clim = metrics_lib.select_climatology_variables(
+      climatology, list(forecast_like.keys()))
+  times = forecast_like[time_dim]
+  sel = dict(dayofyear=times.dt.dayofyear)
+  if "hour" in climatology.sizes:
+    sel["hour"] = times.dt.hour
+  new_f = clim.sel(sel)
+  for cn, cv in forecast_like.coords_dict().items():
+    if cn not in new_f.coords_dict():
+      new_f = new_f.assign_coords({cn: cv})
+  return new_f
+
+
+def _build_baseline_forecast(forecast, truth, climatology, eval_config,
+                             data_config) -> xds.Dataset:
+  """Replace the forecast with a climatology or persistence baseline if
+  the config asks for one."""
+  if eval_config.evaluate_climatology:
+    return substitute_climatology_forecast(forecast, climatology,
+                                           data_config.by_init)
+  if eval_config.evaluate_probabilistic_climatology:
+    raise NotImplementedError(
+        "the probabilistic climatology baseline is not ported yet "
+        "(ROADMAP A.9)")
+  if eval_config.evaluate_persistence:
+    if data_config.by_init:
+      return create_persistence_forecast_by_init(forecast, truth)
+    return create_persistence_forecast(forecast, truth)
+  return forecast
 
 
 def _unique_step_size(data: np.ndarray):
@@ -374,6 +451,66 @@ def merge_metric_results(results: list, dim: str = "metric") -> xds.Dataset:
   return out
 
 
+def _metric_and_region_loop(forecast, truth, eval_config,
+                            skipna) -> xds.Dataset:
+  """Metric results looping over metrics and regions."""
+  results = []
+  for name, metric in eval_config.metrics.items():
+    logging.info("metric: %s", name)
+    eval_fn = (metric.compute if eval_config.temporal_mean
+               else metric.compute_chunk)
+    if eval_config.regions is not None:
+      per_region = []
+      for region_name, region in eval_config.regions.items():
+        result = eval_fn(forecast=forecast, truth=truth, region=region,
+                         skipna=skipna)
+        per_region.append(result.expand_dims(
+            region=np.asarray([region_name], dtype=object)))
+      result = xds.concat(per_region, "region")
+    else:
+      result = eval_fn(forecast=forecast, truth=truth, skipna=skipna)
+    results.append(result.expand_dims(
+        metric=np.asarray([name], dtype=object)))
+  return merge_metric_results(results)
+
+
+def _evaluate_all_metrics(eval_name, eval_config, data_config, skipna,
+                          dev) -> None:
+  """One eval config in memory: the selection is read whole, moved to the
+  device, and every metric × region evaluated there."""
+  forecast, truth, climatology = open_forecast_and_truth_datasets(
+      data_config, eval_config, lazy=True)
+  forecast = _build_baseline_forecast(forecast, truth, climatology,
+                                      eval_config, data_config)
+  if data_config.by_init:
+    truth = truth.sel(time=forecast["valid_time"])
+  stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+  forecast = xds.to_device(forecast, dev, stream)
+  truth = xds.to_device(truth, dev, stream)
+  results = _metric_and_region_loop(forecast, truth, eval_config,
+                                    skipna=skipna)
+  logging.info("Evaluation complete")
+  output_path = _get_output_path(data_config, eval_name, "netcdf")
+  _to_netcdf(results, output_path)
+  logging.info("Saved results to %s", output_path)
+
+
+def evaluate_in_memory(data_config: config.Data,
+                       eval_configs: Mapping[str, config.Eval],
+                       skipna: bool = False, device=None) -> None:
+  """Run the evaluation in memory; one results NetCDF per config.
+
+  Output schema: dims ``(metric, region, lead_time[, level])`` per
+  variable.  ``device=None`` is the CUDA card; pass ``device="cpu"`` to
+  run on the host.
+  """
+  dev = device_lib.resolve(device)
+  for eval_config in eval_configs.values():
+    eval_config.validate()  # fail fast, not after hours of evaluation
+  for eval_name, eval_config in eval_configs.items():
+    _evaluate_all_metrics(eval_name, eval_config, data_config, skipna, dev)
+
+
 def evaluate_with_mesh(
     data_config: config.Data,
     eval_configs: Mapping[str, config.Eval],
@@ -383,8 +520,9 @@ def evaluate_with_mesh(
     device=None,
     mesh=None,
     checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> dict:
-  """Stream every eval config through the fused tiers on one device.
+  """Stream every eval config through the metric tiers on one device.
 
   Configs whose inputs are built identically share one chunk stream: each
   chunk is read and moved to the device once.  Writes one results file
@@ -392,30 +530,45 @@ def evaluate_with_mesh(
   h2d bytes, and seconds spent waiting on the host and on the device
   (see ``streaming.evaluate_streaming_multi``), plus the wall time.
   ``device=None`` is the CUDA card; pass ``device="cpu"`` to run on the
-  host.  ``mesh`` and ``checkpoint_path`` (the JAX package's multi-device
-  and resume options) are not ported yet and raise.
+  host.  With ``checkpoint_path`` each group of configs snapshots its
+  accumulators every ``checkpoint_every`` chunks into
+  ``<checkpoint_path>.<cfg[+cfg...]>``, and an existing file resumes the
+  run, grouped and lead_time-chunked streams included.  ``mesh`` (the JAX
+  package's multi-device option) is not ported yet and raises.
   """
   from weatherbench2_torch.parallel import streaming
 
   if mesh is not None:
     raise NotImplementedError(
         "multi-device evaluation is not ported yet (ROADMAP A.12)")
-  if checkpoint_path:
-    raise NotImplementedError(
-        "checkpoint/resume is not ported yet (ROADMAP A.6)")
   dev = device_lib.resolve(device)
-  for eval_config in eval_configs.values():
+  for name, eval_config in eval_configs.items():
     eval_config.validate()  # fail fast, not after hours of streaming
+    if checkpoint_path and not eval_config.temporal_mean:
+      raise ValueError(
+          "checkpoint/resume requires temporal_mean=True (config "
+          f"{name!r} emits per-time results, which the accumulator state "
+          "does not capture)")
   input_chunks = dict(input_chunks or {})
   stats: dict = {}
   t0 = time.perf_counter()
   groups: dict = {}
   for name, cfg in eval_configs.items():
-    groups.setdefault(bool(cfg.against_analysis), {})[name] = cfg
+    groups.setdefault(streaming.input_key(cfg), {})[name] = cfg
   for group in groups.values():
     logging.info("Eval config group: %s", sorted(group))
     forecast, truth, climatology = open_forecast_and_truth_datasets(
         data_config, next(iter(group.values())), lazy=True)
+    cpath = state = None
+    if checkpoint_path:
+      # one state file per group: grouped configs share the chunk stream,
+      # so their accumulators are snapshotted together
+      group_tag = "+".join(sorted(group))
+      cpath = f"{checkpoint_path}.{group_tag}"
+      if os.path.exists(cpath):
+        state = streaming.StreamingState.load(cpath)
+        logging.info("Resuming %s from %s (lead_index=%s, chunk_index=%s)",
+                     group_tag, cpath, state.lead_index, state.chunk_index)
     results_by_config = streaming.evaluate_streaming_multi(
         forecast=forecast,
         truth=truth,
@@ -426,6 +579,9 @@ def evaluate_with_mesh(
         skipna=skipna,
         device=dev,
         stats=stats,
+        state=state,
+        checkpoint_path=cpath,
+        checkpoint_every=checkpoint_every,
     )
     for eval_name, results in results_by_config.items():
       output_format = group[eval_name].output_format

@@ -1,14 +1,18 @@
-"""Deterministic verification metrics of the port's first slice.
+"""Deterministic verification metrics of the port.
 
-Counterpart of ``weatherbench2_tpu/metrics.py:39-692``: latitude weights,
-the spatial average, the ``Metric`` protocol, and ``MSE``,
-``RMSESqrtBeforeTimeAvg``, ``MAE``, ``Bias`` and ``ACC``.  The math is
-written against the labeled layer, which dispatches to torch when payloads
-are tensors.  On the streaming path MSE/RMSE/MAE/Bias run through the fused
-deterministic kernel and ACC through the pointwise tier
-(``parallel/streaming.py``); ``compute_chunk`` is the unfused form.
+Counterpart of ``weatherbench2_tpu/metrics.py:39-808``: latitude weights,
+the spatial average, the ``Metric`` protocol, ``MSE``,
+``RMSESqrtBeforeTimeAvg``, ``MAE``, ``Bias`` and ``ACC``, the wind-vector
+errors, the ``Spatial*`` (per-cell) forms and SEEPS.  The math is written
+against the labeled layer, which dispatches to torch when payloads are
+tensors.  On the streaming path MSE/RMSE/MAE/Bias without wind vectors run
+through the fused deterministic kernel; ACC, SEEPS and MSE/RMSE with wind
+vectors through the pointwise tier; the ``Spatial*`` metrics through the
+unfused per-region loop (``parallel/streaming.py``).  ``compute_chunk`` is
+the unfused form.
 """
 import dataclasses
+import functools
 import os
 import threading
 import typing as t
@@ -83,15 +87,26 @@ class Metric:
 
   Engine protocol: ``prepare_chunk`` does the coordinate-dependent work on
   the host (climatology gathers keyed by time coords);
+  ``compute_chunk_prepared`` is array math on the chunk's device;
   ``pointwise_chunk`` returns per-cell fields whose area-weighted regional
   means ``finalize_fused`` turns into the metric (the pointwise tier
-  reduces them with ``ops.fused_region_sums``).  ``compute_chunk`` is the
-  reference-parity unfused entry point.
+  reduces them with ``ops.fused_region_sums``).  ``compute_chunk`` composes
+  the first two and is the reference-parity unfused entry point.
   """
+
+  #: False marks a metric that must run on the host, on numpy chunks (host
+  #: RNG, numpy-only code).  The name is the JAX package's, kept so that a
+  #: reader finds it: there it means "traceable under jit".
+  supports_jit: t.ClassVar[bool] = True
 
   #: metrics whose chunk value is an area-weighted regional mean of
   #: per-cell fields (optionally post-processed by ``finalize_fused``)
   supports_pointwise_fused: t.ClassVar[bool] = False
+
+  #: NaN handling of the fused regional mean: "global" follows the
+  #: evaluation's skipna flag; "skip" always drops NaN cells from the
+  #: weighted mean (the p1 mask of SEEPS).
+  fused_nan_mode: t.ClassVar[str] = "global"
 
   def prepare_chunk(self, forecast: xds.Dataset, truth: xds.Dataset,
                     device=None) -> t.Any:
@@ -103,8 +118,19 @@ class Metric:
     del forecast, truth, device
     return None
 
+  def compute_chunk_prepared(self, forecast, truth, prepared, region=None,
+                             skipna=False):
+    """Chunk evaluation on the chunk's device, given ``prepare_chunk``'s
+    output."""
+    del prepared
+    return self.compute_chunk(forecast, truth, region=region, skipna=skipna)
+
   def pointwise_chunk(self, forecast, truth, prepared, skipna):
-    """Per-cell fields whose weighted regional mean feeds finalize_fused."""
+    """Per-cell fields whose weighted regional mean feeds finalize_fused.
+
+    ``None`` declines (a required variable is missing): the engine then
+    runs this metric through its per-region loop.
+    """
     del forecast, truth, prepared, skipna
     return None
 
@@ -116,6 +142,18 @@ class Metric:
   def compute_chunk(self, forecast, truth, region=None, skipna=False):
     """Evaluate this metric on a temporal chunk of data."""
     raise NotImplementedError
+
+  def compute(self, forecast, truth, region=None, skipna=False):
+    """Evaluate on datasets with full temporal coverage (mean over time)."""
+    if "time" in forecast.sizes:
+      avg_dim = "time"
+    elif "init_time" in forecast.sizes:
+      avg_dim = "init_time"
+    else:
+      raise ValueError("Forecast has neither time nor init_time dimension")
+    return self.compute_chunk(
+        forecast, truth, region=region, skipna=skipna
+    ).mean(avg_dim, skipna=skipna)
 
 
 def _spatial_average(dataset: xds.Dataset, region: t.Optional[Region],
@@ -136,10 +174,54 @@ def _sqrt(obj):
   return obj.copy(data=_xp.namespace(obj.data).sqrt(obj.data))
 
 
-def _no_wind_vectors(wind_vectors):
-  if wind_vectors is not None:
-    raise NotImplementedError(
-        "wind-vector metrics are not ported yet (ROADMAP A.9)")
+@dataclasses.dataclass
+class WindVectorMSE(Metric):
+  """Wind vector mean squared error (see the WeatherBench 2 paper)."""
+
+  u_name: str
+  v_name: str
+  vector_name: str
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    diff = forecast - truth
+    return _spatial_average(
+        diff[self.u_name] ** 2 + diff[self.v_name] ** 2,
+        region=region, skipna=skipna)
+
+
+@dataclasses.dataclass
+class WindVectorRMSESqrtBeforeTimeAvg(Metric):
+  """Wind vector RMSE with the square root taken before time averaging."""
+
+  u_name: str
+  v_name: str
+  vector_name: str
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    mse = WindVectorMSE(
+        u_name=self.u_name, v_name=self.v_name, vector_name=self.vector_name
+    ).compute_chunk(forecast, truth, region=region, skipna=skipna)
+    return _sqrt(mse)
+
+
+def _squared_error_fields(forecast, truth, wind_vectors):
+  """(f-t)² per variable, plus du²+dv² for each wind-vector pair; ``None``
+  when a pair's variable is missing."""
+  diff = forecast - truth
+  fields = diff * diff
+  for wv in wind_vectors or ():
+    if wv.u_name not in fields.keys() or wv.v_name not in fields.keys():
+      return None
+    fields[wv.vector_name] = fields[wv.u_name] + fields[wv.v_name]
+  return fields
+
+
+def _with_wind_vectors(results, wind_vectors, forecast, truth, region,
+                       skipna):
+  for wv in wind_vectors or ():
+    results[wv.vector_name] = wv.compute_chunk(
+        forecast, truth, region=region, skipna=skipna)
+  return results
 
 
 @dataclasses.dataclass
@@ -150,17 +232,15 @@ class RMSESqrtBeforeTimeAvg(Metric):
 
   supports_pointwise_fused: t.ClassVar[bool] = True
 
-  def __post_init__(self):
-    _no_wind_vectors(self.wind_vector_rmse)
-
   def compute_chunk(self, forecast, truth, region=None, skipna=False):
-    return _sqrt(_spatial_average((forecast - truth) ** 2, region=region,
-                                  skipna=skipna))
+    results = _sqrt(_spatial_average((forecast - truth) ** 2, region=region,
+                                     skipna=skipna))
+    return _with_wind_vectors(results, self.wind_vector_rmse, forecast,
+                              truth, region, skipna)
 
   def pointwise_chunk(self, forecast, truth, prepared, skipna):
     del prepared, skipna
-    diff = forecast - truth
-    return diff * diff
+    return _squared_error_fields(forecast, truth, self.wind_vector_rmse)
 
   def finalize_fused(self, means, skipna=False):
     del skipna
@@ -175,17 +255,24 @@ class MSE(Metric):
 
   supports_pointwise_fused: t.ClassVar[bool] = True
 
-  def __post_init__(self):
-    _no_wind_vectors(self.wind_vector_mse)
-
   def compute_chunk(self, forecast, truth, region=None, skipna=False):
-    return _spatial_average((forecast - truth) ** 2, region=region,
-                            skipna=skipna)
+    results = _spatial_average((forecast - truth) ** 2, region=region,
+                               skipna=skipna)
+    return _with_wind_vectors(results, self.wind_vector_mse, forecast,
+                              truth, region, skipna)
 
   def pointwise_chunk(self, forecast, truth, prepared, skipna):
     del prepared, skipna
-    diff = forecast - truth
-    return diff * diff
+    return _squared_error_fields(forecast, truth, self.wind_vector_mse)
+
+
+@dataclasses.dataclass
+class SpatialMSE(Metric):
+  """MSE without spatial averaging."""
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    del region, skipna
+    return (forecast - truth) ** 2
 
 
 @dataclasses.dataclass
@@ -204,6 +291,15 @@ class MAE(Metric):
 
 
 @dataclasses.dataclass
+class SpatialMAE(Metric):
+  """MAE without spatial averaging."""
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    del region, skipna
+    return abs(forecast - truth)
+
+
+@dataclasses.dataclass
 class Bias(Metric):
   """Mean error."""
 
@@ -214,6 +310,15 @@ class Bias(Metric):
 
   def pointwise_chunk(self, forecast, truth, prepared, skipna):
     del prepared, skipna
+    return forecast - truth
+
+
+@dataclasses.dataclass
+class SpatialBias(Metric):
+  """Bias without spatial averaging."""
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    del region, skipna
     return forecast - truth
 
 
@@ -406,3 +511,110 @@ class ACC(Metric):
         forecast, truth, self.prepare_chunk(forecast, truth),
         region=region, skipna=skipna,
     )
+
+
+@dataclasses.dataclass
+class SpatialSEEPS(Metric):
+  """Stable Equitable Error in Probability Space (Rodwell et al. 2010).
+
+  Scores 3-category precipitation (dry / light / heavy) against
+  per-location climatological wet thresholds and dry fractions.
+
+  Attributes:
+    climatology: dataset containing ``{precip_name}_seeps_threshold`` [m]
+      and ``{precip_name}_seeps_dry_fraction`` [0-1].
+    dry_threshold_mm: dry threshold in mm.
+    precip_name: name of the precipitation variable.
+    min_p1 / max_p1: mask out locations with climatological dry fraction
+      outside (min_p1, max_p1).
+  """
+
+  climatology: xds.Dataset
+  dry_threshold_mm: float = 0.25
+  precip_name: str = "total_precipitation_24hr"
+  min_p1: float = 0.1
+  max_p1: float = 0.85
+
+  @functools.cached_property
+  def p1(self) -> xds.DataArray:
+    """The climatological dry fraction per cell (one read of that one
+    variable, whatever else the climatology store holds)."""
+    dry_fraction = self.climatology[f"{self.precip_name}_seeps_dry_fraction"]
+    return dry_fraction.mean(["hour", "dayofyear"])
+
+  def _category_indicators(self, ds: xds.Dataset, wet: xds.DataArray):
+    """(dry, light, heavy) indicators in the data's float type, NaN where
+    the data is NaN."""
+    dry_threshold = self.dry_threshold_mm / 1000.0
+    da = ds[self.precip_name]
+    valid = da.notnull()
+    as_float = lambda cond: cond.astype(da.dtype).where(valid)
+    return (as_float(da < dry_threshold),
+            as_float((da > dry_threshold) & (da < wet)),
+            as_float(da >= wet))
+
+  def prepare_chunk(self, forecast, truth, device=None):
+    del device
+    wet_threshold = self.climatology[f"{self.precip_name}_seeps_threshold"]
+    if "time" in truth.sizes and "time" not in forecast.sizes:
+      # compact truth of a streaming chunk (its time axis is the chunk's
+      # unique valid times): one threshold row per unique time, expanded on
+      # the device together with the truth
+      times = truth["time"]
+    else:
+      times = forecast["valid_time"]
+    wet = wet_threshold.sel(dayofyear=times.dt.dayofyear, hour=times.dt.hour)
+    return {"wet": wet, "p1": self.p1}
+
+  def compute_chunk(self, forecast, truth, region=None, skipna=False):
+    return self.compute_chunk_prepared(
+        forecast, truth, self.prepare_chunk(forecast, truth),
+        region=region, skipna=skipna)
+
+  def compute_chunk_prepared(self, forecast, truth, prepared, region=None,
+                             skipna=False):
+    del region, skipna  # skipna is effectively True because of the p1 mask
+    wet = prepared["wet"]
+    f_dry, f_light, f_heavy = self._category_indicators(forecast, wet)
+    t_dry, t_light, t_heavy = self._category_indicators(truth, wet)
+    p1 = prepared["p1"]
+    # scoring matrix (row: forecast category, column: truth), times 0.5:
+    #   [[0,             1/(1-p1),   4/(1-p1)],
+    #    [1/p1,          0,          3/(1-p1)],
+    #    [1/p1+3/(2+p1), 3/(2+p1),   0       ]]
+    result = 0.5 * (
+        f_dry * t_light * (1.0 / (1 - p1))
+        + f_dry * t_heavy * (4.0 / (1 - p1))
+        + f_light * t_dry * (1.0 / p1)
+        + f_light * t_heavy * (3.0 / (1 - p1))
+        + f_heavy * t_dry * (1.0 / p1 + 3.0 / (2 + p1))
+        + f_heavy * t_light * (3.0 / (2 + p1))
+    )
+    result = result.where(p1 < self.max_p1, np.nan)
+    result = result.where(p1 > self.min_p1, np.nan)
+    return xds.Dataset({self.precip_name: result.variable},
+                       coords={**result.coords})
+
+
+@dataclasses.dataclass
+class SEEPS(SpatialSEEPS):
+  """Spatially averaged SEEPS."""
+
+  supports_pointwise_fused: t.ClassVar[bool] = True
+  #: the p1 mask puts NaN into climatologically degenerate cells; the
+  #: spatial mean always leaves them out
+  fused_nan_mode: t.ClassVar[str] = "skip"
+
+  def compute_chunk_prepared(self, forecast, truth, prepared, region=None,
+                             skipna=False):
+    del skipna
+    result = SpatialSEEPS.compute_chunk_prepared(self, forecast, truth,
+                                                 prepared)
+    return _spatial_average(result, region=region, skipna=True)
+
+  def pointwise_chunk(self, forecast, truth, prepared, skipna):
+    del skipna
+    if self.precip_name not in truth.keys():
+      return None
+    return SpatialSEEPS.compute_chunk_prepared(self, forecast, truth,
+                                               prepared)

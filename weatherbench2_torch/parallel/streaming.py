@@ -6,24 +6,34 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     threads reads, aligns and prepares the next chunks on the host and
     copies them to the card through pinned memory on a side stream while
     the current chunk computes;
-  * per chunk, every metric × region of a config runs in two fused tiers:
-    MSE/RMSE/MAE/Bias through one ``ops.fused_deterministic_sums`` launch
-    per variable, and ACC (and any other pointwise-fused metric) through
-    ``ops.fused_region_sums`` over row groups of its per-cell fields;
+  * per chunk, every metric × region of a config runs in the fused tiers
+    where it can: MSE/RMSE/MAE/Bias without wind vectors through one
+    ``ops.fused_deterministic_sums`` launch per variable; ACC, SEEPS,
+    MSE/RMSE with wind vectors (and any other pointwise-fused metric)
+    through ``ops.fused_region_sums`` over row groups of their per-cell
+    fields; whatever is left (``Spatial*`` metrics, configs without
+    regions, a metric that declines) through the per-metric × region loop;
+    metrics with ``supports_jit = False`` run on the host on numpy chunks;
   * running (sum, count) accumulators stay on the device, and the temporal
     mean is ``sum / count`` at the end;
   * by-init truth is deduplicated to the chunk's unique valid times on the
-    host and expanded on the device with one gather.
+    host and expanded on the device with one gather;
+  * ``lead_time`` input chunks stream the lead axis slice by slice, each
+    slice with accumulators of its own, and the results are concatenated;
+  * ``StreamingState`` snapshots the accumulators every ``checkpoint_every``
+    chunks (one background thread, a side stream, ``os.replace``), and an
+    existing state resumes the run.
 
 Not ported yet, and refused with an error that names the ROADMAP item:
-the probabilistic plan, checkpoint/resume, lead_time input chunks,
-meshes, host (unfused) metrics and the bfloat16 transfer mode.
+the probabilistic plan and baseline, meshes and the bfloat16 transfer mode.
 """
 from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import os
+import pickle
 import time
 from typing import Any, Mapping, Optional
 
@@ -47,6 +57,10 @@ DEVICE_INFLIGHT = 2
 UTIME_BUCKET = 16
 # Forecast bytes per chunk when the caller names no chunk size.
 DEFAULT_CHUNK_BYTES = 1.5e9
+# Leaves up to this size cross device-to-host packed into one buffer per
+# dtype; larger ones (the per-cell accumulators of Spatial* metrics) are
+# copied one by one, so that no second copy of them is made on the device.
+PACKED_LEAF_BYTES = 1 << 20
 
 _UTIME = "__utime"
 
@@ -80,6 +94,30 @@ def _normalize_any(obj, chunk_dim):
   return obj
 
 
+def _reorder_like(ref, obj):
+  """Rebuild ``obj`` with ``ref``'s Dataset variable ordering.
+
+  Aligns a resumed state's accumulators to this run's chunk program, so
+  that the results keep this run's variable order whatever order the
+  state was saved in.  Dicts, tuples and lists recurse; a key of ``obj``
+  that ``ref`` lacks, and anything else, passes through untouched.
+  """
+  if isinstance(ref, dict) and isinstance(obj, dict):
+    return {k: _reorder_like(ref[k], obj[k]) if k in ref else obj[k]
+            for k in obj}
+  if isinstance(ref, (list, tuple)) and isinstance(obj, (list, tuple)):
+    if len(ref) == len(obj):
+      return type(obj)(_reorder_like(r, o) for r, o in zip(ref, obj))
+    return obj
+  if isinstance(ref, xds.Dataset) and isinstance(obj, xds.Dataset):
+    ref_names = list(ref.variables_dict())
+    obj_vars = obj.variables_dict()
+    if set(ref_names) == set(obj_vars) and ref_names != list(obj_vars):
+      return xds.Dataset({n: obj_vars[n] for n in ref_names},
+                         coords=dict(obj.coords_dict()), attrs=obj.attrs)
+  return obj
+
+
 def _leaves(tree, out):
   """Tensor payloads of a tree of xds objects, dicts and sequences."""
   if isinstance(tree, dict):
@@ -99,6 +137,7 @@ def _leaves(tree, out):
 
 
 def _replace_leaves(tree, fn):
+  """The tree with ``fn`` applied to every array payload."""
   if isinstance(tree, dict):
     return {k: _replace_leaves(v, fn) for k, v in tree.items()}
   if isinstance(tree, (list, tuple)):
@@ -114,35 +153,100 @@ def _replace_leaves(tree, fn):
 
 
 def batched_device_get(tree):
-  """The tree with every tensor payload as numpy, in ONE device-to-host
-  copy per dtype (the accumulators hold hundreds of tiny leaves)."""
-  leaves = _leaves(tree, [])
+  """The tree with every tensor payload as numpy: the small leaves in ONE
+  device-to-host copy per dtype (the accumulators hold hundreds of tiny
+  leaves), the large ones each in a copy of its own."""
   host = {}
   by_dtype: dict = {}
-  for t in leaves:
-    by_dtype.setdefault(t.dtype, []).append(t)
+  for t in _leaves(tree, []):
+    if t.numel() * t.element_size() > PACKED_LEAF_BYTES:
+      host[id(t)] = t.cpu().numpy()
+    else:
+      by_dtype.setdefault(t.dtype, []).append(t)
   for group in by_dtype.values():
     flat = torch.cat([t.reshape(-1) for t in group]).cpu().numpy()
     off = 0
     for t in group:
       host[id(t)] = flat[off:off + t.numel()].reshape(tuple(t.shape))
       off += t.numel()
-  return _replace_leaves(tree, lambda t: host[id(t)])
+  return _replace_leaves(tree, lambda t: host.get(id(t), t))
+
+
+def _tree_to_device(tree, dev):
+  """A state's numpy accumulators as tensors on the device."""
+  return _replace_leaves(
+      tree, lambda x: torch.as_tensor(
+          x if isinstance(x, torch.Tensor) else np.asarray(x), device=dev))
 
 
 def _tree_add(a, b):
-  """Elementwise a + b over matching trees of Datasets (None passes)."""
+  """Elementwise a + b over matching trees of Datasets (None passes).
+  The sums are new arrays: a snapshot may still be reading the old ones."""
   if a is None:
     return None
   if isinstance(a, dict):
     return {k: _tree_add(a[k], b[k]) for k in a}
-  return a.copy(data={k: v.data + b.variables_dict()[k].data
+  return a.copy(data={k: _xp.binop(lambda x, y: x + y, v.data,
+                                   b.variables_dict()[k].data)
                       for k, v in a.variables_dict().items()})
+
+
+@dataclasses.dataclass
+class StreamingState:
+  """Checkpointable accumulator state of a streaming evaluation.
+
+  ``chunk_size``/``total`` fingerprint the chunking the state was taken
+  under: ``chunk_index`` counts CHUNKS, so resuming with another chunk
+  size would skip the wrong time range.  ``configs`` maps eval-config name
+  to (sums, counts), so that a grouped stream snapshots every config's
+  accumulators together.  ``lead_index``/``n_lead_slices``/
+  ``completed_leads`` cover lead_time-chunked runs: the finalized results
+  of completed lead slices ride whole (host datasets), the slice in
+  flight resumes from its accumulators.  ``sums``/``counts`` are the
+  single-config fields of version-1 files, which still load and resume.
+
+  The file is a pickle of the port's labeled objects with numpy payloads.
+  """
+
+  sums: Any = None
+  counts: Any = None
+  chunk_index: int = 0
+  chunk_size: Optional[int] = None
+  total: Optional[int] = None
+  configs: Any = None  # {cname: (sums, counts)}
+  lead_index: int = 0
+  n_lead_slices: Optional[int] = None
+  completed_leads: Any = None  # [{cname: results Dataset}, ...]
+
+  def save(self, path: str) -> None:
+    host = batched_device_get((self.sums, self.counts, self.configs))
+    with open(path, "wb") as f:
+      pickle.dump(
+          {"version": 2, "sums": host[0], "counts": host[1],
+           "chunk_index": self.chunk_index, "chunk_size": self.chunk_size,
+           "total": self.total, "configs": host[2],
+           "lead_index": self.lead_index,
+           "n_lead_slices": self.n_lead_slices,
+           "completed_leads": self.completed_leads}, f)
+
+  @classmethod
+  def load(cls, path: str) -> "StreamingState":
+    with open(path, "rb") as f:
+      d = pickle.load(f)
+    return cls(sums=d["sums"], counts=d["counts"],
+               chunk_index=d["chunk_index"],
+               chunk_size=d.get("chunk_size"), total=d.get("total"),
+               configs=d.get("configs"),
+               lead_index=d.get("lead_index", 0),
+               n_lead_slices=d.get("n_lead_slices"),
+               completed_leads=d.get("completed_leads"))
 
 
 def _region_weight_setup(regions, forecast):
   """(region_names, region_w) for the fused kernels, or None when the
   regions or grid do not map to static (latitude, longitude) masks."""
+  if None in regions:
+    return None
   coords = forecast.coords_dict()
   if "latitude" not in coords or "longitude" not in coords:
     return None
@@ -153,7 +257,10 @@ def _region_weight_setup(regions, forecast):
   lon = np.asarray(coords["longitude"].data)
   w = metrics_lib._cell_area_from_latitude(np.deg2rad(lat))
   w = (w / w.mean()).astype(np.float32)
-  masks = [r.mask_weights(lat, lon) for r in regions.values()]
+  try:
+    masks = [r.mask_weights(lat, lon) for r in regions.values()]
+  except (NotImplementedError, KeyError, ValueError):
+    return None
   region_w = ops.make_region_weight_matrix(w, masks, len(lon))
   return np.asarray(list(regions.keys()), dtype=object), region_w
 
@@ -161,49 +268,49 @@ def _region_weight_setup(regions, forecast):
 def _det_stat_of(metric):
   """Stat name in the fused deterministic kernel, or None.
 
-  ACC is deliberately NOT routed here: the kernel shares one NaN mask
-  (isnan(f)|isnan(t)|isnan(clim)) across all stats, which would let
-  climatology NaNs poison MSE/Bias/MAE and allows one climatology per
-  plan. ACC rides the pointwise tier, where each of its three anomaly
-  products carries its own per-cell NaN accounting.
+  MSE and RMSE with wind vectors are NOT kernel-1 metrics: their
+  wind-vector fields are sums of two variables' squared errors, which
+  ride the pointwise tier.  ACC is deliberately not routed here either:
+  the kernel shares one NaN mask (isnan(f)|isnan(t)|isnan(clim)) across
+  all stats, which would let climatology NaNs poison MSE/Bias/MAE and
+  allows one climatology per plan; in the pointwise tier each of its three
+  anomaly products carries its own per-cell NaN accounting.
   """
-  return {
-      metrics_lib.MSE: "mse",
-      metrics_lib.Bias: "bias",
-      metrics_lib.MAE: "mae",
-      metrics_lib.RMSESqrtBeforeTimeAvg: "rmse",
-  }.get(type(metric))
+  if type(metric) is metrics_lib.MSE and not metric.wind_vector_mse:
+    return "mse"
+  if type(metric) is metrics_lib.Bias:
+    return "bias"
+  if type(metric) is metrics_lib.MAE:
+    return "mae"
+  if type(metric) is metrics_lib.RMSESqrtBeforeTimeAvg and (
+      not metric.wind_vector_rmse):
+    return "rmse"
+  return None
 
 
 def _partition_fused(metrics, regions, forecast):
-  """(det_plan, pointwise_plan) covering every metric of a config.
+  """(det_plan, pointwise_plan, remaining) covering a config's metrics.
 
-  The deterministic kernel takes MSE/RMSE/MAE/Bias; metrics implementing
-  the pointwise-fused protocol (ACC) go to the generic region kernel.
-  Anything else needs the unfused per-region loop, not ported yet.
+  The deterministic kernel takes MSE/RMSE/MAE/Bias without wind vectors;
+  metrics implementing the pointwise-fused protocol go to the generic
+  region kernel; ``remaining`` ({name: metric}) runs the per-metric ×
+  region loop.  Without static region masks (no regions, a variable off
+  the grid) both plans are None and every metric remains.
   """
-  if regions is None:
-    raise NotImplementedError(
-        "configs without regions need the unfused per-region metric loop, "
-        "not ported yet (ROADMAP A.5)")
+  remaining = dict(metrics)
   setup = _region_weight_setup(regions, forecast)
   if setup is None:
-    raise NotImplementedError(
-        "the fused tiers need every variable on a (latitude, longitude) "
-        "grid; the unfused per-region loop is not ported yet (ROADMAP A.5)")
+    return None, None, remaining
   region_names, region_w = setup
+  base = {"region_names": region_names, "region_w": region_w}
   det = {n: _det_stat_of(m) for n, m in metrics.items() if _det_stat_of(m)}
   pointwise = [n for n, m in metrics.items()
                if n not in det and m.supports_pointwise_fused]
-  rest = [n for n in metrics if n not in det and n not in pointwise]
-  if rest:
-    raise NotImplementedError(
-        f"metrics {rest} ({[type(metrics[n]).__name__ for n in rest]}) have "
-        "no fused tier in the port yet (ROADMAP A.5/A.8)")
-  base = {"region_names": region_names, "region_w": region_w}
+  for n in list(det) + pointwise:
+    remaining.pop(n)
   det_plan = {**base, "stat_of": det} if det else None
   pw_plan = {**base, "names": pointwise} if pointwise else None
-  return det_plan, pw_plan
+  return det_plan, pw_plan, remaining
 
 
 def _fused_chunk_results(plan, f_c, t_c, skipna):
@@ -268,22 +375,27 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
   Each metric's per-cell fields become rows of one (rows, cells) matrix,
   packed greedily into groups of at most ``fused_group_bytes()``; each
   group is one kernel launch, and the per-group outputs re-join along the
-  row axis.
+  row axis.  The regional mean is ``sums / wsum_valid``; where the
+  metric's ``fused_nan_mode`` is "global" and ``skipna`` is off, a row
+  that met a NaN under a positive weight is NaN.
+
+  Returns (results by metric, leftover names): a metric whose
+  ``pointwise_chunk`` declines (a variable is missing, a field is off the
+  grid) goes to the caller's per-region loop.
   """
   region_w = plan["region_w_dev"]
   n_regions = region_w.shape[0]
   region_coord = xds.Variable(("region",), plan["region_names"])
   group_cap = fused_group_bytes()
-  results = {}
+  results, leftover = {}, []
   for mname in plan["names"]:
     metric = metrics[mname]
     fields = metric.pointwise_chunk(f_c, t_c, prepared[mname], skipna)
     if fields is None or not len(fields) or any(
         "latitude" not in v.dims or "longitude" not in v.dims
         for v in fields.variables_dict().values()):
-      raise NotImplementedError(
-          f"metric {mname!r} declined the pointwise tier; the unfused "
-          "per-region loop is not ported yet (ROADMAP A.5)")
+      leftover.append(mname)
+      continue
     rows, entries = [], []
     for vname, v in fields.variables_dict().items():
       other = tuple(d for d in v.dims if d not in ("longitude", "latitude"))
@@ -309,7 +421,7 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
     sums, wsum, nanw = (torch.cat([p[i] for p in parts], dim=-1)
                         for i in range(3))
     means_all = sums / wsum
-    if not skipna:
+    if metric.fused_nan_mode == "global" and not skipna:
       means_all = torch.where(nanw > 0, torch.nan, means_all)
     ds = xds.Dataset({}, coords={"region": region_coord})
     col = 0
@@ -323,7 +435,21 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
     if fields.attrs:
       result = result.assign_attrs(**fields.attrs)
     results[mname] = result
-  return results
+  return results, leftover
+
+
+def _loop_over_regions(compute, regions):
+  """One result per region, concatenated along ``region``; with
+  ``{None: None}`` (a config without regions) the one result as it is."""
+  region_results = []
+  for region_name, region in regions.items():
+    res = compute(region)
+    if region_name is not None:
+      res = res.expand_dims(region=np.asarray([region_name], dtype=object))
+    region_results.append(res)
+  if len(region_results) > 1 or None not in regions:
+    return xds.concat(region_results, "region")
+  return region_results[0]
 
 
 def _masked_sum_count(result, dim, mask, skipna):
@@ -334,6 +460,12 @@ def _masked_sum_count(result, dim, mask, skipna):
   cnt_ds = xds.Dataset({}, coords=dict(sum_ds.coords_dict()))
   for vname in result.keys():
     da = result[vname]
+    if dim not in da.dims:
+      # no time dependence: one sample
+      vals = _xp.TORCH.asarray(da.data, mask).to(torch.float64)
+      sum_ds[vname] = xds.Variable(da.dims, vals)
+      cnt_ds[vname] = xds.Variable(da.dims, torch.ones_like(vals))
+      continue
     ax = da.dims.index(dim)
     m_shape = [1] * da.ndim
     m_shape[ax] = da.shape[ax]
@@ -361,6 +493,43 @@ def _finalize_mean(sum_ds: xds.Dataset, count_ds: xds.Dataset) -> xds.Dataset:
       out[k] = xds.Variable(sum_ds[k].dims,
                             np.where(c > 0, s / np.maximum(c, 1), np.nan))
   return out
+
+
+def _host_dataset(ds: xds.Dataset) -> xds.Dataset:
+  """The dataset with every payload a numpy array on the host."""
+  return ds.copy(data={k: _xp.to_numpy(v.data)
+                       for k, v in ds.variables_dict().items()})
+
+
+def _eval_host_metric(metric, f_chunk, t_chunk, regions, skipna, n_real,
+                      chunk_dim, temporal_mean):
+  """A ``supports_jit = False`` metric on the host's numpy chunk; its
+  (sum, count) over the chunk's real entries, or the per-time result."""
+  result = _loop_over_regions(
+      lambda region: metric.compute_chunk(f_chunk, t_chunk, region=region,
+                                          skipna=skipna), regions)
+  if not temporal_mean:
+    return result, None
+  sum_ds = xds.Dataset({}, coords={
+      k: v for k, v in result.coords_dict().items()
+      if chunk_dim not in v.dims})
+  cnt_ds = xds.Dataset({}, coords=dict(sum_ds.coords_dict()))
+  for vname in result.keys():
+    da = result[vname]
+    ax = da.dims.index(chunk_dim)
+    vals = np.take(np.asarray(da.values, dtype=np.float64),
+                   np.arange(n_real), axis=ax)
+    if skipna:
+      valid = ~np.isnan(vals)
+      s = np.where(valid, vals, 0.0).sum(axis=ax)
+      c = valid.sum(axis=ax).astype(np.float64)
+    else:
+      s = vals.sum(axis=ax)
+      c = np.full(s.shape, float(vals.shape[ax]))
+    dims = tuple(d for d in da.dims if d != chunk_dim)
+    sum_ds[vname] = xds.Variable(dims, s)
+    cnt_ds[vname] = xds.Variable(dims, c)
+  return sum_ds, cnt_ds
 
 
 def _chunk_slices(total: int, size: int):
@@ -440,14 +609,155 @@ def _expand_utime(obj, uinv):
   return obj
 
 
-def _make_truth_chunk(f_chunk, truth, by_init, unique_times=None):
-  """Truth aligned to the forecast chunk: its compact unique-time
-  selection under the dedup, else valid-time (or time) aligned."""
+def _make_truth_chunk(f_chunk, truth, climatology, eval_config, data_config,
+                      unique_times=None):
+  """(forecast chunk, truth chunk): truth aligned to the forecast chunk
+  (its compact unique-time selection under the dedup, else valid-time or
+  time aligned), and the forecast replaced by a baseline where the config
+  asks for one."""
+  from weatherbench2_torch import evaluation
+
+  by_init = data_config.by_init
   if unique_times is not None:
-    return truth.sel(time=unique_times)
-  if by_init:
-    return truth.sel(time=f_chunk["valid_time"])
-  return truth.sel(time=f_chunk.coords_dict()["time"].data)
+    t_chunk = truth.sel(time=unique_times)
+  elif by_init:
+    t_chunk = truth.sel(time=f_chunk["valid_time"])
+  else:
+    t_chunk = truth.sel(time=f_chunk.coords_dict()["time"].data)
+  if eval_config.evaluate_climatology and climatology is not None:
+    f_chunk = evaluation.substitute_climatology_forecast(
+        f_chunk, climatology, by_init)
+  elif eval_config.evaluate_probabilistic_climatology:
+    raise NotImplementedError(
+        "the probabilistic climatology baseline is not ported yet "
+        "(ROADMAP A.9)")
+  elif eval_config.evaluate_persistence:
+    if not by_init:
+      # as in the JAX package: the by-valid persistence forecast needs the
+      # whole time axis at once
+      raise ValueError(
+          "Persistence in streaming mode requires by-init format; "
+          "evaluate_in_memory builds the by-valid persistence forecast.")
+    f_chunk = evaluation.create_persistence_forecast_by_init(f_chunk, truth)
+  return f_chunk, t_chunk
+
+
+def input_key(cfg):
+  """What decides how a config's inputs are built (the baseline
+  substitution, the derived variables by definition and not just by name,
+  against_analysis): configs with equal keys share one chunk stream."""
+  return (
+      cfg.against_analysis,
+      cfg.evaluate_climatology,
+      cfg.evaluate_persistence,
+      cfg.evaluate_probabilistic_climatology,
+      cfg.probabilistic_climatology_start_year,
+      cfg.probabilistic_climatology_end_year,
+      cfg.probabilistic_climatology_hour_interval,
+      tuple(sorted((n, type(dv).__qualname__, repr(dv))
+                   for n, dv in cfg.derived_variables.items())),
+  )
+
+
+def _check_resume(state, eval_configs, chunk_size, total, n_lead_slices):
+  """Raise unless ``state`` can resume this run: the same config group,
+  accumulators for the progress it records, the same chunk grid and the
+  same lead slices.  Normalizes a version-1 state to the ``configs`` form.
+  """
+  if state.configs is None and state.sums is not None:
+    if len(eval_configs) > 1:
+      raise ValueError(
+          "legacy single-config checkpoint cannot resume a grouped "
+          "multi-config run; delete the checkpoint or stream the config "
+          "alone")
+    state.configs = {next(iter(eval_configs)): (state.sums, state.counts)}
+  resume_lead = int(state.lead_index or 0)
+  resume_chunk = int(state.chunk_index or 0)
+  if state.configs is not None and set(state.configs) != set(eval_configs):
+    raise ValueError(
+        f"checkpoint covers configs {sorted(state.configs)} but this run "
+        f"streams {sorted(eval_configs)}; pass the same config group to "
+        "resume")
+  if (resume_chunk or resume_lead) and state.configs is None:
+    raise ValueError(
+        "checkpoint records chunk progress but carries no accumulators; "
+        "resuming would silently drop the covered chunks")
+  if resume_chunk:
+    # another TOTAL is fine (a partial run resumed over the full range) as
+    # long as the chunk grid lines up from the start
+    if state.chunk_size is not None and state.chunk_size != chunk_size:
+      raise ValueError(
+          f"checkpoint was taken with chunk_size={state.chunk_size} but "
+          f"this run uses chunk_size={chunk_size}; pass the same "
+          "--input_chunks to resume")
+    # in CHUNKS, not entries: the last chunk may be ragged
+    n_chunks = -(-total // chunk_size)
+    if resume_chunk > n_chunks:
+      raise ValueError(
+          f"checkpoint covers {resume_chunk} chunks of {chunk_size} but "
+          f"this run has only {total} entries ({n_chunks} chunks)")
+  if state.configs is not None or resume_chunk or resume_lead:
+    if (state.n_lead_slices is not None
+        and state.n_lead_slices != n_lead_slices):
+      raise ValueError(
+          f"checkpoint was taken with {state.n_lead_slices} lead slices "
+          f"but this run has {n_lead_slices}; pass the same "
+          "--input_chunks lead_time to resume")
+    completed = len(state.completed_leads or [])
+    if resume_lead >= n_lead_slices or completed < resume_lead:
+      raise ValueError(
+          f"checkpoint lead_index={resume_lead} with {completed} completed "
+          f"slices does not fit a run of {n_lead_slices} lead slices")
+
+
+class _Snapshots:
+  """Periodic state files, written by one background thread.
+
+  The accumulators are replaced, never updated in place, so a snapshot
+  keeps the tensors of its moment alive and copies them to the host on a
+  side stream, behind an event recorded on the compute stream: the copy
+  waits for the chunk that produced them and stalls neither the compute
+  stream nor the prefetch threads.  One worker and ``os.replace`` keep the
+  saves ordered and the file whole at every moment.
+  """
+
+  def __init__(self, path, dev):
+    self.path = path
+    self.dev = dev
+    self.stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    self.pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    self.pending: list = []
+
+  def wait(self):
+    while self.pending:
+      self.pending.pop(0).result()
+
+  def submit(self, snap: StreamingState):
+    ready = None
+    if self.stream is not None:
+      ready = torch.cuda.Event()
+      ready.record(torch.cuda.current_stream(self.dev))
+
+    def write():
+      ctx = (torch.cuda.stream(self.stream) if self.stream is not None
+             else contextlib.nullcontext())
+      with ctx:
+        if ready is not None:
+          self.stream.wait_event(ready)
+        snap.sums, snap.counts, snap.configs = batched_device_get(
+            (snap.sums, snap.counts, snap.configs))
+      tmp = self.path + ".tmp"
+      snap.save(tmp)
+      os.replace(tmp, self.path)
+
+    self.wait()  # at most one save in flight
+    self.pending.append(self.pool.submit(write))
+
+  def close(self):
+    try:
+      self.wait()
+    finally:
+      self.pool.shutdown(wait=True)
 
 
 def evaluate_streaming_multi(
@@ -460,30 +770,43 @@ def evaluate_streaming_multi(
     skipna: bool = False,
     device=None,
     stats: Optional[dict] = None,
+    state: Optional[StreamingState] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
 ) -> dict:
-  """Stream chunks ONCE through the fused tiers of several eval configs.
+  """Stream chunks ONCE through the metric programs of several configs.
 
   All configs must build their inputs identically (``evaluate_with_mesh``
   groups them).  Returns {config_name: results dataset}.  ``stats``, when
   given, receives the run's counts: chunks, h2d bytes, and seconds the
-  main thread waited for host preparation and for the device.
+  main thread waited for host preparation and for the device.  ``state``
+  resumes a run; with ``checkpoint_path`` and ``checkpoint_every`` the
+  accumulators of every config are snapshotted together every so many
+  chunks, completed lead slices' results riding in the state.
   """
   dev = device_lib.resolve(device)
   cfg0 = next(iter(eval_configs.values()))
   for cfg in eval_configs.values():
     cfg.validate()
-    if cfg.against_analysis != cfg0.against_analysis:
-      raise ValueError("evaluate_streaming_multi requires configs with "
-                       "identical input construction")
+    if input_key(cfg) != input_key(cfg0):
+      raise ValueError(
+          "evaluate_streaming_multi requires configs with identical input "
+          "construction (baselines/derived/against_analysis)")
     for metric in cfg.metrics.values():
       if not isinstance(metric, metrics_lib.Metric):
         raise TypeError(
             f"{type(metric).__module__}.{type(metric).__name__} is not a "
             "port metric; convert reference configs with "
             "convert.eval_configs_from_reference")
-  if "lead_time" in input_chunks:
-    raise NotImplementedError(
-        "lead_time input chunks are not ported yet (ROADMAP A.6)")
+  if state is not None or checkpoint_path:
+    # per-time results live in a host-side list, not in the state: a
+    # resumed run would drop the rows of every chunk already done
+    for cname, cfg in eval_configs.items():
+      if not cfg.temporal_mean:
+        raise ValueError(
+            "checkpoint/resume requires temporal_mean=True (config "
+            f"{cname!r} emits per-time results, which the accumulator "
+            "state does not capture)")
   if os.environ.get("WB2_TRANSFER_DTYPE", "") == "bfloat16":
     raise NotImplementedError(
         "the bfloat16 transfer mode (WB2_TRANSFER_DTYPE) is not ported yet "
@@ -503,33 +826,57 @@ def evaluate_streaming_multi(
     chunk_size = _auto_chunk_size(forecast, chunk_dim, companions)
   if chunk_size < 1:
     raise ValueError(f"chunk size must be positive, got {chunk_size}")
+  lead_chunk = int(input_chunks.get("lead_time", 0)) or None
+  lead_slices = (list(_chunk_slices(forecast.sizes["lead_time"], lead_chunk))
+                 if lead_chunk and "lead_time" in forecast.sizes
+                 else [slice(None)])
 
+  device_metrics_by = {
+      c: {k: m for k, m in cfg.metrics.items() if m.supports_jit}
+      for c, cfg in eval_configs.items()}
+  host_metrics_by = {
+      c: {k: m for k, m in cfg.metrics.items() if not m.supports_jit}
+      for c, cfg in eval_configs.items()}
+  any_host = any(host_metrics_by.values())
+  regions_by = {c: (cfg.regions or {None: None})
+                for c, cfg in eval_configs.items()}
   any_temporal = any(cfg.temporal_mean for cfg in eval_configs.values())
-  truth_dedup = by_init and "time" in truth.sizes and (
-      _UTIME not in truth.sizes)
+  # host metrics need a chunk-shaped truth on the host: no dedup then
+  truth_dedup = (by_init and not any_host and "time" in truth.sizes
+                 and _UTIME not in truth.sizes)
   plans_by = {}
-  for cname, cfg in eval_configs.items():
-    det_plan, pw_plan = _partition_fused(cfg.metrics, cfg.regions, forecast)
+  for cname in eval_configs:
+    det_plan, pw_plan, generic = _partition_fused(
+        device_metrics_by[cname], regions_by[cname], forecast)
     for plan in (det_plan, pw_plan):
       if plan is not None:
         plan["region_w_dev"] = torch.as_tensor(plan["region_w"], device=dev)
-    plans_by[cname] = (det_plan, pw_plan)
+    plans_by[cname] = (det_plan, pw_plan, generic)
 
   def chunk_program(cname, f_c, t_c, prepared, time_mask, uinv):
-    """Every metric × region of one config on one chunk, reduced over
-    the chunk dim (or per time with temporal_mean=False)."""
-    det_plan, pw_plan = plans_by[cname]
+    """Every device metric × region of one config on one chunk, reduced
+    over the chunk dim (or per time with temporal_mean=False)."""
+    det_plan, pw_plan, generic = plans_by[cname]
+    metrics = device_metrics_by[cname]
     if truth_dedup:
       t_c = _expand_utime(t_c, uinv)
       prepared = _expand_utime(prepared, uinv)
     results = {}
+    generic_names = list(generic)
     if det_plan is not None:
       results.update(_fused_chunk_results(det_plan, f_c, t_c, skipna))
     if pw_plan is not None:
-      results.update(_pointwise_chunk_results(
-          pw_plan, eval_configs[cname].metrics, f_c, t_c, prepared, skipna))
+      pw_results, leftover = _pointwise_chunk_results(
+          pw_plan, metrics, f_c, t_c, prepared, skipna)
+      results.update(pw_results)
+      generic_names.extend(leftover)
+    for name in generic_names:
+      results[name] = _loop_over_regions(
+          lambda region, name=name: metrics[name].compute_chunk_prepared(
+              f_c, t_c, prepared[name], region=region, skipna=skipna),
+          regions_by[cname])
     if not eval_configs[cname].temporal_mean:
-      return results, None
+      return results, dict.fromkeys(results)
     sums, counts = {}, {}
     for name, result in results.items():
       sums[name], counts[name] = _masked_sum_count(result, chunk_dim,
@@ -538,10 +885,12 @@ def evaluate_streaming_multi(
 
   copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-  def prepare_one(ci, sl):
+  def prepare_one(ci, sl, lead_sl):
     """Host work for one chunk (slice, align, prepare, pad) and its
     transfer; the chunk is read and moved once for all configs."""
     f_chunk = forecast.isel({chunk_dim: sl})
+    if lead_sl != slice(None):
+      f_chunk = f_chunk.isel(lead_time=lead_sl)
     n_real = f_chunk.sizes[chunk_dim]
     f_chunk = _pad_chunk(f_chunk, chunk_dim,
                          chunk_size if any_temporal else n_real)
@@ -562,10 +911,15 @@ def evaluate_streaming_multi(
     ctx = (torch.cuda.stream(copy_stream) if copy_stream is not None
            else contextlib.nullcontext())
     with ctx:
-      t_chunk = _make_truth_chunk(f_chunk, truth, by_init, uniq)
+      f_chunk, t_chunk = _make_truth_chunk(f_chunk, truth, climatology, cfg0,
+                                           data_config, uniq)
+      host_chunks = None
+      if any_host:
+        f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)
+        host_chunks = (f_chunk, t_chunk)
       prepared = {
           c: {name: m.prepare_chunk(f_chunk, t_chunk, device=dev)
-              for name, m in eval_configs[c].metrics.items()}
+              for name, m in device_metrics_by[c].items()}
           for c in eval_configs
       }
       if truth_dedup:
@@ -579,91 +933,145 @@ def evaluate_streaming_multi(
       if copy_stream is not None:
         event = torch.cuda.Event()
         event.record(copy_stream)
-    return ci, n_real, sl, moved, mask_dev, event, counter["h2d_bytes"]
+    return (ci, n_real, sl, moved, mask_dev, event, counter["h2d_bytes"],
+            host_chunks)
 
-  per_time = {c: [] for c in eval_configs}
-  sums_acc = {c: None for c in eval_configs}
-  counts_acc = {c: None for c in eval_configs}
-  chunk_list = list(enumerate(_chunk_slices(total, chunk_size)))
+  if state is None:
+    state = StreamingState()
+  _check_resume(state, eval_configs, chunk_size, total, len(lead_slices))
+  resume_lead = int(state.lead_index or 0)
+  resume_chunk = int(state.chunk_index or 0)
+  resume_configs = state.configs
+  lead_results = []
   wait_host = wait_device = 0.0
-  h2d_bytes = 0
-  inflight: list = []
-  pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
-  try:
-    pending = [pool.submit(prepare_one, ci, sl)
-               for ci, sl in chunk_list[:PREFETCH_DEPTH]]
-    for idx in range(len(chunk_list)):
-      t0 = time.perf_counter()
-      ci, n_real, sl, moved, mask_dev, event, nbytes = pending.pop(0).result()
-      wait_host += time.perf_counter() - t0
-      h2d_bytes += nbytes
-      if idx + PREFETCH_DEPTH < len(chunk_list):
-        pending.append(pool.submit(prepare_one,
-                                   *chunk_list[idx + PREFETCH_DEPTH]))
-      if event is not None:
-        compute_stream = torch.cuda.current_stream(dev)
-        compute_stream.wait_event(event)
-        # the copies were allocated on the side stream: keep their memory
-        # from being reused while this stream still reads it
-        for t in _leaves((moved, mask_dev), []):
-          t.record_stream(compute_stream)
-      f_dev, t_dev, p_dev, u_dev = moved
-      for cname, cfg in eval_configs.items():
-        sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
-                                     mask_dev, u_dev)
-        if not cfg.temporal_mean:
-          coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
-          for name, res in sums.items():
-            res = res.isel({chunk_dim: np.arange(n_real)})
-            per_time[cname].append(
-                (name, ci, res.assign_coords({chunk_dim: coord})))
-        elif sums_acc[cname] is None:
-          sums_acc[cname], counts_acc[cname] = sums, counts
-        else:
-          sums_acc[cname] = _tree_add(sums_acc[cname], sums)
-          counts_acc[cname] = _tree_add(counts_acc[cname], counts)
-      if dev.type == "cuda":
-        # bound the queue: before moving past chunk n, wait for chunk
-        # n-DEVICE_INFLIGHT to finish so its buffers free
-        done = torch.cuda.Event()
-        done.record(torch.cuda.current_stream(dev))
-        inflight.append(done)
-        if len(inflight) > DEVICE_INFLIGHT:
-          t0 = time.perf_counter()
-          inflight.pop(0).synchronize()
-          wait_device += time.perf_counter() - t0
-  finally:
-    pool.shutdown(wait=True, cancel_futures=True)
+  h2d_bytes = n_chunks_run = 0
+  from weatherbench2_torch.evaluation import merge_metric_results
 
-  t0 = time.perf_counter()
-  sums_acc, counts_acc, per_time = batched_device_get(
-      (sums_acc, counts_acc, per_time))
-  wait_device += time.perf_counter() - t0
+  for lead_i, lead_sl in enumerate(lead_slices):
+    if lead_i < resume_lead:
+      # finalized in an earlier run; carried whole inside the state
+      lead_results.append(state.completed_leads[lead_i])
+      continue
+    resuming = lead_i == resume_lead and resume_configs is not None
+    if resuming:
+      sums_acc = {c: _tree_to_device(resume_configs[c][0], dev)
+                  for c in eval_configs}
+      counts_acc = {c: _tree_to_device(resume_configs[c][1], dev)
+                    for c in eval_configs}
+    else:
+      sums_acc = {c: None for c in eval_configs}
+      counts_acc = {c: None for c in eval_configs}
+    # a state saved in another variable order is aligned to this run's
+    # chunk program at the first merge
+    needs_align = {c: resuming for c in eval_configs}
+    per_time = {c: [] for c in eval_configs}
+    chunk_list = [(ci, sl)
+                  for ci, sl in enumerate(_chunk_slices(total, chunk_size))
+                  if not (lead_i == resume_lead and ci < resume_chunk)]
+    n_chunks_run += len(chunk_list)
+    inflight: list = []
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
+    snapshots = (_Snapshots(checkpoint_path, dev)
+                 if checkpoint_path and checkpoint_every else None)
+    try:
+      pending = [pool.submit(prepare_one, ci, sl, lead_sl)
+                 for ci, sl in chunk_list[:PREFETCH_DEPTH]]
+      for idx in range(len(chunk_list)):
+        t0 = time.perf_counter()
+        (ci, n_real, sl, moved, mask_dev, event, nbytes,
+         host_chunks) = pending.pop(0).result()
+        wait_host += time.perf_counter() - t0
+        h2d_bytes += nbytes
+        if idx + PREFETCH_DEPTH < len(chunk_list):
+          pending.append(pool.submit(
+              prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl))
+        if event is not None:
+          compute_stream = torch.cuda.current_stream(dev)
+          compute_stream.wait_event(event)
+          # the copies were allocated on the side stream: keep their memory
+          # from being reused while this stream still reads it
+          for t in _leaves((moved, mask_dev), []):
+            t.record_stream(compute_stream)
+        f_dev, t_dev, p_dev, u_dev = moved
+        for cname, cfg in eval_configs.items():
+          sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
+                                       mask_dev, u_dev)
+          for name, metric in host_metrics_by[cname].items():
+            sums[name], counts[name] = _eval_host_metric(
+                metric, *host_chunks, regions_by[cname], skipna, n_real,
+                chunk_dim, cfg.temporal_mean)
+          if not cfg.temporal_mean:
+            coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
+            for name, res in sums.items():
+              res = res.isel({chunk_dim: np.arange(n_real)})
+              per_time[cname].append(
+                  (name, ci, res.assign_coords({chunk_dim: coord})))
+          elif sums_acc[cname] is None:
+            sums_acc[cname], counts_acc[cname] = sums, counts
+          else:
+            if needs_align[cname]:
+              sums_acc[cname] = _reorder_like(sums, sums_acc[cname])
+              counts_acc[cname] = _reorder_like(counts, counts_acc[cname])
+              needs_align[cname] = False
+            sums_acc[cname] = _tree_add(sums_acc[cname], sums)
+            counts_acc[cname] = _tree_add(counts_acc[cname], counts)
+        if dev.type == "cuda":
+          # bound the queue: before moving past chunk n, wait for chunk
+          # n-DEVICE_INFLIGHT to finish so its buffers free
+          done = torch.cuda.Event()
+          done.record(torch.cuda.current_stream(dev))
+          inflight.append(done)
+          if len(inflight) > DEVICE_INFLIGHT:
+            t0 = time.perf_counter()
+            inflight.pop(0).synchronize()
+            wait_device += time.perf_counter() - t0
+        if snapshots is not None and (ci + 1) % checkpoint_every == 0:
+          only = next(iter(eval_configs))
+          single = len(eval_configs) == 1
+          snapshots.submit(StreamingState(
+              # version-1 fields kept for single-config readers
+              sums_acc[only] if single else None,
+              counts_acc[only] if single else None,
+              ci + 1, chunk_size=chunk_size, total=total,
+              configs={c: (sums_acc[c], counts_acc[c]) for c in eval_configs},
+              lead_index=lead_i, n_lead_slices=len(lead_slices),
+              completed_leads=list(lead_results)))
+    finally:
+      pool.shutdown(wait=True, cancel_futures=True)
+      if snapshots is not None:
+        snapshots.close()
+
+    t0 = time.perf_counter()
+    sums_acc, counts_acc, per_time = batched_device_get(
+        (sums_acc, counts_acc, per_time))
+    wait_device += time.perf_counter() - t0
+    per_config = {}
+    for cname, cfg in eval_configs.items():
+      per_metric = []
+      if cfg.temporal_mean:
+        for name in cfg.metrics:
+          mean_ds = _finalize_mean(sums_acc[cname][name],
+                                   counts_acc[cname][name])
+          per_metric.append(mean_ds.expand_dims(
+              metric=np.asarray([name], dtype=object)))
+      else:
+        by_metric: dict = {}
+        for name, ci, res in per_time[cname]:
+          by_metric.setdefault(name, []).append((ci, res))
+        for name in cfg.metrics:
+          items = sorted(by_metric[name], key=lambda item: item[0])
+          cat = xds.concat([r for _, r in items], chunk_dim)
+          per_metric.append(cat.expand_dims(
+              metric=np.asarray([name], dtype=object)))
+      per_config[cname] = merge_metric_results(per_metric)
+    lead_results.append(per_config)
+
   if stats is not None:
-    stats["chunks"] = stats.get("chunks", 0) + len(chunk_list)
+    stats["chunks"] = stats.get("chunks", 0) + n_chunks_run
     stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + h2d_bytes
     stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + wait_host
     stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
-
-  from weatherbench2_torch.evaluation import merge_metric_results
-
-  out = {}
-  for cname, cfg in eval_configs.items():
-    per_metric = []
-    if cfg.temporal_mean:
-      for name in cfg.metrics:
-        mean_ds = _finalize_mean(sums_acc[cname][name],
-                                 counts_acc[cname][name])
-        per_metric.append(mean_ds.expand_dims(
-            metric=np.asarray([name], dtype=object)))
-    else:
-      by_metric: dict = {}
-      for name, ci, res in per_time[cname]:
-        by_metric.setdefault(name, []).append((ci, res))
-      for name in cfg.metrics:
-        items = sorted(by_metric[name], key=lambda item: item[0])
-        cat = xds.concat([r for _, r in items], chunk_dim)
-        per_metric.append(cat.expand_dims(
-            metric=np.asarray([name], dtype=object)))
-    out[cname] = merge_metric_results(per_metric)
-  return out
+  if len(lead_results) == 1:
+    return lead_results[0]
+  return {c: xds.concat([lr[c] for lr in lead_results], "lead_time")
+          for c in eval_configs}

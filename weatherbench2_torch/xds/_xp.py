@@ -30,6 +30,13 @@ def is_floating(x) -> bool:
   return np.issubdtype(np.dtype(x.dtype), np.floating)
 
 
+def torch_dtype(dtype) -> torch.dtype:
+  """A torch dtype from a torch dtype, a numpy dtype or a Python type."""
+  if isinstance(dtype, torch.dtype):
+    return dtype
+  return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
 def _axes(axis):
   if axis is None:
     return None

@@ -685,6 +685,23 @@ class DataArray:
   __ge__ = functools.partialmethod(_binop, op=lambda a, b: a >= b)
   __lt__ = functools.partialmethod(_binop, op=lambda a, b: a < b)
   __le__ = functools.partialmethod(_binop, op=lambda a, b: a <= b)
+  __and__ = functools.partialmethod(_binop, op=lambda a, b: a & b)
+
+  def notnull(self):
+    """Elementwise ``not NaN`` (every value of a non-float payload)."""
+    data = _host(self.data)
+    xp = _xp.namespace(data)
+    if _xp.is_floating(data):
+      return self.copy(data=~xp.isnan(data))
+    return self.copy(data=xp.ones_like(data) == 1)
+
+  def astype(self, dtype):
+    """The payload cast to ``dtype``: a numpy dtype for host payloads, a
+    numpy or torch dtype for tensors (``float`` means float64)."""
+    data = _host(self.data)
+    if is_tensor(data):
+      return self.copy(data=data.to(_xp.torch_dtype(dtype)))
+    return self.copy(data=data.astype(dtype))
 
   def __eq__(self, other):  # elementwise, like xarray
     return self._binop(other, op=lambda a, b: a == b)
