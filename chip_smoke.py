@@ -622,6 +622,15 @@ def kernels_phase():
   for rows, nans in ((7056, False), (9072, False), (336, True)):
     cases[("region", "official16", rows)] = kernel_case(
         "fused_region_sums", (rows, 240 * 121), 16, bench, nans, None, gen)
+  # the shapes of one 2-init chunk of the 50-member ensemble (e2e_ensemble)
+  # with its sixteen regions: kernel 2 on the probabilistic plan's five
+  # fields of a three-level variable (5 x 2 x 21 x 3 rows) and of a surface
+  # variable (5 x 2 x 21), and on the pointwise tier's largest matrix, the
+  # ignorance score's rows with their +inf indicator rows (2 x 2 thresholds
+  # x 2 inits x 21 leads x 17 variable-levels)
+  for rows in ENSEMBLE_ROWS:
+    cases[("region", "ensemble16", rows)] = kernel_case(
+        "fused_region_sums", (rows, 240 * 121), 16, bench, False, None, gen)
   path_cases(gen)
   infinite_cases(gen)
   emulation_cases(gen)
@@ -1360,24 +1369,42 @@ def run_cli(args, expect_chunks, per_chunk):
           "h2d_gib": stats["h2d_bytes"] / 2**30,
           "wait_host_s": stats["wait_host_s"],
           "wait_host_share": stats["wait_host_s"] / stats["wall_s"],
-          "wait_device_s": stats["wait_device_s"], "launches": launches,
+          "wait_device_s": stats["wait_device_s"],
+          "finalize_s": stats["finalize_s"], "write_s": stats["write_s"],
+          "launches": launches,
           "peak_device_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
 _DYING_CHILD = """
-import os, pickle, sys
+import os, sys
 sys.path.insert(0, {repo!r})
 real = os.replace
+states = []
 def replace(src, dst):
   real(src, dst)
   if dst.startswith({ckpt!r}):
-    with open(dst, "rb") as f:
-      if pickle.load(f)["chunk_index"] >= 2:
-        os._exit(9)  # the process dies here, with no clean-up at all
+    states.append(dst)
+    if len(states) == {snapshots}:
+      os._exit(9)  # the process dies here, with no clean-up at all
 os.replace = replace
 from weatherbench2_torch.cli import evaluate
 evaluate.main({argv!r})
 """
+
+
+def dying_child(argv, ckpt, snapshots):
+  """The CLI in a child process that dies right after its n-th state file
+  is in place (checkpoint_every=1: after chunk n); its wall in seconds."""
+  t0 = time.perf_counter()
+  child = subprocess.run(
+      [sys.executable, "-c", _DYING_CHILD.format(
+          repo=os.path.dirname(os.path.abspath(__file__)), ckpt=ckpt,
+          snapshots=snapshots, argv=argv)],
+      capture_output=True, text=True, timeout=600)
+  if child.returncode != 9:
+    raise AssertionError(f"the child ended with {child.returncode}: "
+                         f"{child.stderr[-2000:]}")
+  return time.perf_counter() - t0
 
 
 def kill_and_resume(paths, root):
@@ -1396,16 +1423,7 @@ def kill_and_resume(paths, root):
   argv = official_args(paths, os.path.join(root, "killed"), "2020-01-16",
                        *more, f"--checkpoint_path={ckpt}",
                        "--checkpoint_every=1")
-  t0 = time.perf_counter()
-  child = subprocess.run(
-      [sys.executable, "-c", _DYING_CHILD.format(
-          repo=os.path.dirname(os.path.abspath(__file__)), ckpt=ckpt,
-          argv=argv)],
-      capture_output=True, text=True, timeout=600)
-  if child.returncode != 9:
-    raise AssertionError(f"the child ended with {child.returncode}: "
-                         f"{child.stderr[-2000:]}")
-  child_s = time.perf_counter() - t0
+  child_s = dying_child(argv, ckpt, 2)
   if os.path.exists(os.path.join(root, "killed", "deterministic.nc")):
     raise AssertionError("the killed run wrote its results")
   kept = state_file + ".after_chunk_2"
@@ -1531,7 +1549,548 @@ def e2e_official_phase():
   return out
 
 
-def main():
+# -- e2e_ensemble -------------------------------------------------------------------
+
+ENSEMBLE_MEMBERS = 50
+ENSEMBLE_INITS = 4
+ENSEMBLE_STOP = "2020-01-02T12"  # the 4th 12-hourly init
+ENSEMBLE_QUANTILES = (0.25, 0.75)
+# kernel-2 row counts of one 2-init chunk (see kernels_phase)
+ENSEMBLE_ROWS = (630, 210, 2856)
+# the three runs of the phase: their configs and their launches per chunk of
+# 2 inits, written down in PERF.md before the first run on the card:
+# kernel 1 never (no deterministic metric); kernel 2 once per variable in
+# the probabilistic plan (7), once per metric in the pointwise tier
+# (brier, debiased brier, ignorance: 3; Gaussian crps, variance, brier,
+# ignorance: 4), never for the configs without regions
+ENSEMBLE_RUNS = {
+    "run1": ("probabilistic,probabilistic_spatial,"
+             "probabilistic_spatial_histograms,"
+             "ensemble_forecast_vs_era_experimental_metrics", (0, 7), False),
+    "run2": ("ensemble_binary,ensemble_binary_spatial", (0, 3), False),
+    "run3": ("gaussian_probabilistic,gaussian_binary", (0, 4), True),
+}
+# the first init card against CPU on two variables (four variable-levels):
+# all seventeen on the CPU would take minutes at 50 members
+ENSEMBLE_CPU_VARIABLES = ("geopotential", "2m_temperature")
+PROB_FIELDS = ["debiased", "meansq", "skill", "spread", "var"]
+
+
+def write_ensemble_stores(root):
+  """The stores of the 50-member phase, from the seed (values drawn on the
+  card, written block by block): 6-hourly truth with a land_sea_mask; the
+  ensemble, 4 12-hourly inits x 21 leads x 50 members of the CLI's seven
+  default variables at 500/700/850 hPa (one zarr chunk per init and
+  variable); a Gaussian forecast of the same variables with their `_std`;
+  an hourly climatology at 6-hour steps of `<var>_quantile` at 0.25 and
+  0.75 (N(0, 1)'s quartiles plus noise), whose later quarters of the year
+  repeat the first as the official phase's do.  The members' float32 values
+  have an even last mantissa bit and the truth's an odd one: no member ever
+  equals the truth, so the CLI's unseeded rank histogram (its tie-breaks
+  are drawn anew in every run) is the same in every run."""
+  import torch
+
+  from weatherbench2_torch import schema, xds
+
+  specs = dict(variables_3d=list(VARIABLES_3D),
+               variables_2d=list(VARIABLES_2D), levels=(500, 700, 850),
+               spatial_resolution_in_degrees=1.5)
+  fc_specs = dict(time_start="2020-01-01", time_stop="2020-01-03",
+                  time_resolution="12 hours", lead_start="0 days",
+                  lead_stop="10 days", lead_resolution="12 hours", **specs)
+  truth = schema.mock_truth_data(time_start="2020-01-01",
+                                 time_stop="2020-01-13",
+                                 time_resolution="6 hours", **specs)
+  ensemble = schema.mock_forecast_data(ensemble_size=ENSEMBLE_MEMBERS,
+                                       **fc_specs)
+  gaussian = schema.mock_forecast_data(**fc_specs)
+  clim = schema.mock_hourly_climatology_data(hour_interval=6, **specs)
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 2)
+  normal = lambda shape: torch.randn(tuple(shape), generator=gen,
+                                     device="cuda").cpu().numpy()
+  quartiles = np.asarray([-0.6745, 0.6745], np.float32)
+
+  def values(store, name, shape):
+    if name.endswith("_std"):
+      return np.abs(normal(shape)) + np.float32(0.5)
+    if name.endswith("_quantile"):
+      q = quartiles.reshape((2,) + (1,) * (len(shape) - 1))
+      return q + np.float32(0.1) * normal(shape)
+    bits = normal(shape).view(np.int32)
+    if store == "ensemble":
+      return (bits & ~1).view(np.float32)
+    return (bits | 1).view(np.float32) if store == "truth" else bits.view(
+        np.float32)
+
+  gauss_vars = dict(gaussian.variables_dict())
+  for k, v in gaussian.variables_dict().items():
+    gauss_vars[f"{k}_std"] = v
+  quantile_vars = {
+      f"{k}_quantile": xds.stub_variable(
+          ("quantile",) + v.dims, {**v.sizes, "quantile": 2}, np.float32)
+      for k, v in clim.variables_dict().items()}
+  paths = {}
+  for name, ds_vars, coords, dim, block, chunks, reuse in (
+      ("truth", truth.variables_dict(), truth.coords_dict(), "time", 48,
+       {"time": 48}, False),
+      ("ensemble", ensemble.variables_dict(), ensemble.coords_dict(), "time",
+       1, {"time": 1, "prediction_timedelta": -1}, False),
+      ("gaussian", gauss_vars, gaussian.coords_dict(), "time", 4,
+       {"time": 4, "prediction_timedelta": -1}, False),
+      ("climatology", quantile_vars,
+       {**clim.coords_dict(),
+        "quantile": np.asarray(ENSEMBLE_QUANTILES)}, "dayofyear", 92,
+       {"dayofyear": 92}, True)):
+    path = os.path.join(root, f"{name}.zarr")
+    template = xds.Dataset(
+        {k: xds.stub_variable(v.dims, v.sizes, np.float32)
+         for k, v in ds_vars.items()}, coords=dict(coords))
+    if name == "truth":
+      template["land_sea_mask"] = xds.stub_variable(
+          ("longitude", "latitude"), template.sizes, np.float32)
+    writer = xds.RegionWriter(path, template, chunks=chunks)
+    if name == "truth":
+      writer.write_array("land_sea_mask", (slice(None), slice(None)),
+                         np.random.default_rng(SEED + 3).random(
+                             (truth.sizes["longitude"],
+                              truth.sizes["latitude"]), dtype=np.float32))
+    n = template.sizes[dim]
+    cache = {}
+    for start in range(0, n, block):
+      sl = slice(start, min(start + block, n))
+      for vname, v in template.variables_dict().items():
+        if vname == "land_sea_mask":
+          continue
+        shape = [sl.stop - sl.start if d == dim else v.sizes[d]
+                 for d in v.dims]
+        if not (reuse and vname in cache and cache[vname].shape == tuple(
+            shape)):
+          cache[vname] = values(name, vname, shape)
+        writer.write_array(
+            vname, tuple(sl if d == dim else slice(None) for d in v.dims),
+            cache[vname])
+        if not reuse:
+          del cache[vname]
+    writer.finish()
+    paths[name] = path
+  return paths
+
+
+def ensemble_args(paths, out_dir, configs, stop=ENSEMBLE_STOP, gaussian=False,
+                  variables=VARIABLES_3D + VARIABLES_2D, *more):
+  """The CLI's arguments for the ensemble phase (thresholds for every run:
+  the configs without threshold metrics ignore them)."""
+  args = [
+      f"--forecast_path={paths['gaussian' if gaussian else 'ensemble']}",
+      f"--obs_path={paths['truth']}",
+      f"--climatology_path={paths['climatology']}",
+      f"--output_dir={out_dir}", "--variables=" + ",".join(variables),
+      "--time_start=2020-01-01", f"--time_stop={stop}", "--regions=all",
+      "--use_mesh", "--ensemble_dim=realization",
+      "--input_chunks=init_time=2", f"--eval_configs={configs}",
+      "--quantile_thresholds=" + ",".join(map(str, ENSEMBLE_QUANTILES)),
+      *more]
+  if gaussian:
+    args.append("--aux_variables=" + ",".join(f"{v}_std" for v in variables))
+  return args
+
+
+ENSEMBLE_METRICS = {
+    "probabilistic": ["crps", "crps_spread", "crps_skill",
+                      "ensemble_mean_mse", "debiased_ensemble_mean_mse",
+                      "ensemble_variance"],
+    "probabilistic_spatial": ["crps", "crps_spread", "crps_skill",
+                              "ensemble_mean_mse",
+                              "debiased_ensemble_mean_mse",
+                              "ensemble_variance"],
+    "probabilistic_spatial_histograms": ["rank_histogram"],
+    "ensemble_forecast_vs_era_experimental_metrics": [
+        "energy_score", "energy_score_spread", "energy_score_skill",
+        "ensemble_mean_rmse_sqrt_before_time_avg",
+        "ensemble_stddev_sqrt_before_time_avg"],
+    "ensemble_binary": ["brier_score", "debiased_brier_score",
+                        "ignorance_score"],
+    "ensemble_binary_spatial": ["brier_score", "debiased_brier_score",
+                                "ignorance_score"],
+    "gaussian_probabilistic": ["crps", "ensemble_variance"],
+    "gaussian_binary": ["brier_score", "ignorance_score"],
+}
+SPATIAL_CONFIGS = ("probabilistic_spatial", "ensemble_binary_spatial",
+                   "probabilistic_spatial_histograms")
+
+
+def open_ensemble_results(out_dir, configs, variables):
+  """Each config's results, checked: metric names, sizes (sixteen regions,
+  21 leads, 3 levels, the two quantiles, 51 bins or the 240x121 cells), no
+  NaN (the stores have none); +inf only in ignorance scores, where a whole
+  ensemble or a Gaussian's tail misses the observed side; rank-histogram
+  frequencies that sum to one in every cell."""
+  from weatherbench2_torch import xds
+
+  results = {}
+  for cname in configs.split(","):
+    spatial = cname in SPATIAL_CONFIGS
+    path = os.path.join(out_dir, cname + (".zarr" if spatial else ".nc"))
+    ds = xds.open_zarr(path) if spatial else xds.open_netcdf(path)
+    metrics = [str(m) for m in np.asarray(ds.coords_dict()["metric"].data)]
+    if metrics != ENSEMBLE_METRICS[cname]:
+      raise AssertionError(f"{cname}: metrics {metrics}")
+    if set(ds.keys()) != set(variables):
+      raise AssertionError(f"{cname}: variables {sorted(ds.keys())}")
+    for v in ds.keys():
+      sizes = {"metric": len(metrics), "lead_time": 21}
+      if v in VARIABLES_3D:
+        sizes["level"] = 3
+      if spatial:
+        sizes.update(longitude=240, latitude=121)
+      elif cname != "ensemble_forecast_vs_era_experimental_metrics":
+        sizes["region"] = 16  # the one config without regions: per metric
+      if "binary" in cname:
+        sizes["quantile"] = 2
+      if cname == "probabilistic_spatial_histograms":
+        sizes["bins"] = ENSEMBLE_MEMBERS + 1
+      if ds[v].sizes != sizes:
+        raise AssertionError(f"{cname}/{v}: sizes {ds[v].sizes}, expected "
+                             f"{sizes}")
+      for i, m in enumerate(metrics):
+        vals = np.asarray(ds[v].isel(metric=i).values)
+        ok = np.isfinite(vals) | (np.isposinf(vals) if m == "ignorance_score"
+                                  else False)
+        if not ok.all():
+          raise AssertionError(f"{cname}/{v}/{m}: {int((~ok).sum())} "
+                               "values NaN or infinite")
+      if cname == "probabilistic_spatial_histograms":
+        total = np.asarray(ds[v].values, np.float64).sum(axis=ds[v].dims.index(
+            "bins"))
+        if not np.allclose(total, 1.0, rtol=0, atol=1e-6):
+          raise AssertionError(f"{cname}/{v}: frequencies do not sum to 1")
+    if "binary" in cname and not np.array_equal(
+        np.asarray(ds.coords_dict()["quantile"].data), ENSEMBLE_QUANTILES):
+      raise AssertionError(f"{cname}: quantiles "
+                           f"{ds.coords_dict()['quantile'].data}")
+    results[cname] = ds
+  return results
+
+
+def hold_with_infs(got, want, what):
+  """``hold`` where +inf (ignorance) must be in the same places."""
+  inf = np.isinf(want)
+  if not np.array_equal(np.isinf(got), inf) or not np.array_equal(
+      got[inf], want[inf]):
+    raise AssertionError(f"{what}: infinities in other places")
+  report = hold(np.where(inf, np.nan, got), np.where(inf, np.nan, want), what)
+  report["infinite_values"] = int(inf.sum())
+  return report
+
+
+def compare_ensemble_results(got, want, what):
+  """{config/variable: errors}: rank histograms equal (the stores hold no
+  ties, so the CLI's unseeded tie-breaks never act), the rest within the
+  tolerance."""
+  errs = {}
+  for cname in want:
+    for k in want[cname].keys():
+      w = np.asarray(want[cname][k].values, np.float64)
+      g = np.asarray(got[cname][k].transpose(*want[cname][k].dims).values,
+                     np.float64)
+      if cname == "probabilistic_spatial_histograms":
+        if not np.array_equal(g, w):
+          raise AssertionError(f"{what}, {cname}/{k}: histograms differ")
+        errs[f"{cname}/{k}"] = {"max_abs_err": 0.0, "max_err_over_bound": 0.0,
+                                "equal": True}
+      else:
+        errs[f"{cname}/{k}"] = hold_with_infs(g, w, f"{what}, {cname}/{k}")
+  worst = max(errs.values(), key=lambda e: e["max_err_over_bound"])
+  return {"compared": len(errs), "worst": worst,
+          "infinite_values": sum(e.get("infinite_values", 0)
+                                 for e in errs.values())}
+
+
+def ensemble_first_chunk_tensors(paths, name, n_inits=2, device="cuda"):
+  """(members (M, lead, init, [level,] lon, lat), truth (lead, init, ...))
+  of one variable's first `n_inits` inits on the card, read with numpy."""
+  import torch
+
+  from weatherbench2_torch import xds
+
+  forecast = xds.open_zarr(paths["ensemble"], lazy=True)
+  truth = xds.open_zarr(paths["truth"], lazy=True)
+  inits = np.asarray(forecast.coords_dict()["time"].data)[:n_inits]
+  leads = np.asarray(forecast.coords_dict()["prediction_timedelta"].data)
+  valid = leads[:, None] + inits[None, :]  # (lead, init), as the store
+  truth_times = np.asarray(truth.coords_dict()["time"].data)
+  t_index = np.searchsorted(truth_times, valid)
+  if not np.array_equal(truth_times[t_index], valid):
+    raise AssertionError("valid times missing from the truth store")
+  dims = forecast[name].dims
+  if dims[:3] != ("realization", "prediction_timedelta", "time"):
+    raise AssertionError(f"{name}: dims {dims}")
+  f = np.asarray(forecast[name].isel(time=slice(0, n_inits)).values)
+  t = np.asarray(truth[name].values)[t_index]
+  return torch.as_tensor(f, device=device), torch.as_tensor(t, device=device)
+
+
+def plain_probabilistic_first_chunk(paths, regions, device="cuda"):
+  """The `probabilistic` config's six metrics over the first chunk (2
+  inits), written independently of the package: the member fields from
+  torch.sort and torch's means, reduced by kernel 2's plain version on the
+  card; {variable: (metric, region, lead[, level])}."""
+  import torch
+
+  from weatherbench2_torch import metrics, ops, xds
+
+  forecast = xds.open_zarr(paths["ensemble"], lazy=True)
+  lat = np.asarray(forecast.coords_dict()["latitude"].data)
+  lon = np.asarray(forecast.coords_dict()["longitude"].data)
+  w = metrics._cell_area_from_latitude(np.deg2rad(lat))
+  w = (w / w.mean()).astype(np.float32)
+  region_w = torch.as_tensor(ops.make_region_weight_matrix(
+      w, [r.mask_weights(lat, lon) for r in regions.values()], len(lon)),
+      device=device)
+  out = {}
+  for name in VARIABLES_3D + VARIABLES_2D:
+    f, t = ensemble_first_chunk_tensors(paths, name, device=device)
+    m = f.shape[0]
+    xs = torch.sort(f, dim=0).values
+    coef = (2 * torch.arange(1, m + 1, device=device) - m - 1).to(f.dtype)
+    spread = 2 * (coef.reshape((m,) + (1,) * (f.ndim - 1)) * xs).sum(0) / (
+        m * (m - 1))
+    del xs
+    skill = (f - t).abs().mean(0)
+    xbar = f.mean(0)
+    meansq = (xbar - t) ** 2
+    var = ((f - xbar) ** 2).sum(0) / (m - 1)
+    fields = {"crps": skill - 0.5 * spread, "crps_spread": spread,
+              "crps_skill": skill, "ensemble_mean_mse": meansq,
+              "debiased_ensemble_mean_mse": meansq - var / m,
+              "ensemble_variance": var}
+    other = tuple(skill.shape[:-2])  # (lead, init[, level])
+    stack = []
+    for field in fields.values():
+      sums, wsum, _ = ops.fused_region_sums_plain(
+          field.reshape(int(np.prod(other)), -1), region_w)
+      stack.append((sums / wsum).reshape((len(regions),) + other).mean(
+          dim=2))  # over the inits
+    out[name] = torch.stack(stack).cpu().numpy()
+    del f, t
+  return out
+
+
+def member_pass_timing(paths):
+  """CUDA-event medians of the member pass on the first chunk of
+  geopotential ((50, 126, 29 040) members): the sort alone, the spread,
+  and the five fields of the probabilistic plan; beside the bytes it must
+  move (members read once, fields written once)."""
+  import torch
+
+  from weatherbench2_torch import metrics
+  from weatherbench2_torch.parallel import streaming
+
+  f, t = ensemble_first_chunk_tensors(paths, "geopotential")
+  m = f.shape[0]
+  l = f.shape[-2] * f.shape[-1]
+  f3 = f.reshape(m, -1, l)
+  t2 = t.reshape(-1, l)
+  b = f3.shape[1]
+  sort = lambda x: x.movedim(0, -1).contiguous().sort(dim=-1)
+  out = {
+      "shape": [m, b, l],
+      "sort_ms": cuda_time_ms(sort, [(f3,)]),
+      "spread_ms": cuda_time_ms(
+          lambda x: metrics.pwm_spread(x, 0, False), [(f3,)]),
+      "fields_ms": cuda_time_ms(
+          lambda x, y: streaming.member_fields(x, y, PROB_FIELDS, False),
+          [(f3, t2)]),
+      "fields_skipna_ms": cuda_time_ms(
+          lambda x, y: streaming.member_fields(x, y, PROB_FIELDS, True),
+          [(f3, t2)]),
+  }
+  nbytes = 4 * (m * b * l + b * l + len(PROB_FIELDS) * b * l)
+  out["bytes_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+  out["fields_share_of_bytes_bound"] = out["bytes_bound_ms"] / out["fields_ms"]
+  del f, t, f3, t2
+  torch.cuda.empty_cache()
+  return out
+
+
+def seeded_histogram_card_vs_cpu(paths):
+  """RankHistogram(seed=771) on the first init of geopotential rounded to
+  halves (ties in most cells), on the card and on the CPU: equal counts."""
+  import torch
+
+  from weatherbench2_torch import metrics, xds
+
+  f, t = ensemble_first_chunk_tensors(paths, "geopotential", n_inits=1)
+  f, t = torch.round(2 * f) / 2, torch.round(2 * t) / 2
+  dims = ("lead_time", "init_time", "level", "longitude", "latitude")
+  hists = {}
+  for dev in ("cuda", "cpu"):
+    fc = xds.Dataset({"z": xds.Variable(("realization",) + dims, f.to(dev))})
+    tr = xds.Dataset({"z": xds.Variable(dims, t.to(dev))})
+    hists[dev] = metrics.RankHistogram(ensemble_dim="realization",
+                                       seed=771).compute_chunk(fc, tr)
+  a, b = hists["cuda"]["z"].values, hists["cpu"]["z"].values
+  if not np.array_equal(a, b):
+    raise AssertionError("seeded rank histograms differ, card against CPU")
+  ties = float((f == t).any(dim=0).float().mean())
+  return {"cells": int(a.size // a.shape[-1]), "bins": int(a.shape[-1]),
+          "share_of_cells_with_ties": ties, "counts_equal": True}
+
+
+def ensemble_kill_and_resume(paths, root, whole_dir):
+  """Run 1 in a child process that dies right after its first state file;
+  a second call resumes from it and must equal the uninterrupted run (the
+  phase's main run 1) bit for bit."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.parallel import streaming
+
+  configs, per_chunk, _ = ENSEMBLE_RUNS["run1"]
+  ckpt = os.path.join(root, "state")
+  state_file = ckpt + "." + "+".join(sorted(configs.split(",")))
+  more = (f"--checkpoint_path={ckpt}", "--checkpoint_every=1")
+  child_s = dying_child(
+      ensemble_args(paths, os.path.join(root, "killed"), configs, ENSEMBLE_STOP,
+                    False, VARIABLES_3D + VARIABLES_2D, *more), ckpt, 1)
+  if os.path.exists(os.path.join(root, "killed", "probabilistic.nc")):
+    raise AssertionError("the killed run wrote its results")
+  state_bytes = os.path.getsize(state_file)
+  state = streaming.StreamingState.load(state_file)
+  if (state.chunk_index, state.chunk_size, state.total) != (
+      1, 2, ENSEMBLE_INITS):
+    raise AssertionError(f"state at chunk {state.chunk_index} of "
+                         f"{state.chunk_size} in {state.total}")
+  del state
+  resumed_dir = os.path.join(root, "resumed")
+  resumed = run_cli(ensemble_args(paths, resumed_dir, configs, ENSEMBLE_STOP,
+                                  False, VARIABLES_3D + VARIABLES_2D, *more),
+                    1, per_chunk)
+  compared = 0
+  for cname in configs.split(","):
+    ext = ".zarr" if cname in SPATIAL_CONFIGS else ".nc"
+    opener = xds.open_zarr if ext == ".zarr" else xds.open_netcdf
+    a = opener(os.path.join(whole_dir, cname + ext))
+    b = opener(os.path.join(resumed_dir, cname + ext))
+    if list(a.keys()) != list(b.keys()):
+      raise AssertionError(f"{cname}: the resumed run's variables differ")
+    for k in a.keys():
+      if not np.array_equal(a[k].values, b[k].values, equal_nan=True):
+        raise AssertionError(f"resumed run differs from the uninterrupted "
+                             f"one in {cname}/{k}")
+      compared += 1
+  shutil.rmtree(resumed_dir)
+  os.remove(state_file)
+  return {"child_process_s": child_s, "state_bytes": state_bytes,
+          "resumed": resumed, "results_bit_identical": True,
+          "variables_compared": compared}
+
+
+def e2e_ensemble_phase():
+  """The probabilistic suite through the CLI: 50 members, 1.5 degrees,
+  sixteen regions."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import evaluate as cli
+
+  variables = VARIABLES_3D + VARIABLES_2D
+  out = {"members": ENSEMBLE_MEMBERS, "resolution_degrees": 1.5,
+         "inits": ENSEMBLE_INITS, "leads": 21, "regions": 16,
+         "variable_levels": 17,
+         "cut": "the first 4 inits of January 2020 in chunks of 2 instead "
+                "of a year; leads to 10 days (the published IFS ENS runs "
+                "to 15); the first init card against CPU on geopotential "
+                "and 2m_temperature only (four variable-levels)",
+         "predicted_launches_per_chunk": {
+             run: dict(zip(("fused_deterministic_sums", "fused_region_sums"),
+                           per_chunk))
+             for run, (_, per_chunk, _) in ENSEMBLE_RUNS.items()}}
+  with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_ensemble_") as root:
+    t0 = time.perf_counter()
+    paths = write_ensemble_stores(root)
+    out["write_stores_s"] = time.perf_counter() - t0
+    out["store_gib"] = store_gib(paths)
+
+    # the main path: three runs, counters around each
+    main_dirs = {}
+    for run, (configs, per_chunk, gaussian) in ENSEMBLE_RUNS.items():
+      main_dirs[run] = os.path.join(root, f"main_{run}")
+      out[run] = {"configs": configs.split(","), **run_cli(
+          ensemble_args(paths, main_dirs[run], configs, gaussian=gaussian),
+          ENSEMBLE_INITS // 2, per_chunk)}
+      emit("e2e_ensemble_run", run=run, **out[run])
+      open_ensemble_results(main_dirs[run], configs, variables)
+
+    # the first chunk of run 1 under the profiler; its `probabilistic`
+    # results against plain versions on the card
+    first_dir = os.path.join(root, "first_chunk")
+    configs = ENSEMBLE_RUNS["run1"][0]
+    out["first_chunk_profiled"] = profiled(lambda: cli.main(ensemble_args(
+        paths, first_dir, configs, stop="2020-01-01T12")))
+    emit("e2e_ensemble_step",
+         first_chunk_profiled=out["first_chunk_profiled"])
+    out["member_pass"] = member_pass_timing(paths)
+    emit("e2e_ensemble_step", member_pass=out["member_pass"])
+    mask = xds.open_zarr(paths["truth"])["land_sea_mask"]
+    want = plain_probabilistic_first_chunk(
+        paths, cli.predefined_regions_dict(mask))
+    got = open_ensemble_results(first_dir, "probabilistic", variables)[
+        "probabilistic"]
+    errs = {}
+    for v, w in want.items():
+      dims = ("metric", "region", "lead_time") + (
+          ("level",) if w.ndim == 4 else ())
+      errs[v] = hold(np.asarray(got[v].transpose(*dims).values, np.float64),
+                     w.astype(np.float64),
+                     f"probabilistic plan vs plain versions, {v}")
+    out["first_chunk_vs_plain"] = {"errors": errs, "tolerance": E2E_TOLERANCE}
+    emit("e2e_ensemble_step", first_chunk_vs_plain=out["first_chunk_vs_plain"])
+    shutil.rmtree(first_dir)
+
+    # the first init on the card and on the CPU, two variables
+    first = {"cuda": {}, "cpu": {}}
+    walls = {"cuda": {}, "cpu": {}}
+    for run, (configs, per_chunk, gaussian) in ENSEMBLE_RUNS.items():
+      for dev in ("cuda", "cpu"):
+        dev_dir = os.path.join(root, f"first_{run}_{dev}")
+        args = ensemble_args(paths, dev_dir, configs, "2020-01-01T00",
+                             gaussian, ENSEMBLE_CPU_VARIABLES)
+        if dev == "cuda":
+          n_vars = len(ENSEMBLE_CPU_VARIABLES)
+          walls[dev][run] = run_cli(
+              args, 1, (0, n_vars if run == "run1" else per_chunk[1]))["wall_s"]
+        else:
+          reset_launches()
+          stats = cli.main(args + ["--device=cpu"])
+          read_launches(stats["chunks"], 0, 0)
+          walls[dev][run] = stats["wall_s"]
+        first[dev].update(open_ensemble_results(dev_dir, configs,
+                                                ENSEMBLE_CPU_VARIABLES))
+    out["first_init_card_vs_cpu"] = {
+        **compare_ensemble_results(first["cuda"], first["cpu"],
+                                   "card vs CPU"),
+        "wall_s": walls, "tolerance": E2E_TOLERANCE,
+        "rank_histograms": "equal"}
+    emit("e2e_ensemble_step", first_init_card_vs_cpu=out[
+        "first_init_card_vs_cpu"])
+    out["seeded_rank_histogram"] = seeded_histogram_card_vs_cpu(paths)
+    emit("e2e_ensemble_step",
+         seeded_rank_histogram=out["seeded_rank_histogram"])
+
+    out["kill_and_resume"] = ensemble_kill_and_resume(paths, root,
+                                                      main_dirs["run1"])
+    out["disk_free_gib"] = shutil.disk_usage(root).free / 2**30
+    torch.cuda.empty_cache()
+  emit("e2e_ensemble", **out)
+  return out
+
+
+PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
+          "e2e_official": e2e_official_phase,
+          "e2e_ensemble": e2e_ensemble_phase}
+
+
+def main(argv):
   t_start = time.perf_counter()
   import torch
 
@@ -1555,18 +2114,30 @@ def main():
   _build.build(verbose=True)
   emit("build", seconds=time.perf_counter() - t0, source=SOURCE)
 
-  t0 = time.perf_counter()
-  cases = kernels_phase()
-  t_kernels = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  e2e, e2e13 = e2e_phase()
-  t_e2e = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  e2e025 = e2e025_phase()
-  t_e2e025 = time.perf_counter() - t0
-  t0 = time.perf_counter()
-  official_run = e2e_official_phase()
-  t_official = time.perf_counter() - t0
+  # every phase with no arguments (as the contract runs it); a list of phase
+  # names runs those only and prints no kernel summary
+  wanted = set(argv) or set(PHASES)
+  if not wanted <= set(PHASES):
+    print(f"chip_smoke: phases are {PHASES}", file=sys.stderr)
+    return 2
+  results, seconds = {}, {}
+  for name in PHASES:
+    if name in wanted:
+      t0 = time.perf_counter()
+      results[name] = PHASES[name]()
+      seconds[f"{name}_s"] = time.perf_counter() - t0
+  emit("times", **seconds, total_s=time.perf_counter() - t_start)
+  if wanted != set(PHASES):
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+  cases = results["kernels"]
+  e2e, e2e13 = results["e2e"]
+  e2e025 = results["e2e025"]
+  official_run = results["e2e_official"]
+  ensemble_run = results["e2e_ensemble"]
 
   summary = []
   for name, key, official, replaces in (
@@ -1584,6 +2155,8 @@ def main():
         "launches_e2e13": e2e13["launches"][name],
         "launches_e2e025": e2e025["launches"][name],
         "launches_e2e_official": official_run["main"]["launches"][name],
+        "launches_e2e_ensemble": sum(
+            ensemble_run[run]["launches"][name] for run in ENSEMBLE_RUNS),
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
@@ -1591,8 +2164,6 @@ def main():
         "official_shape": o["shape"] + [o["regions"]],
         "official_ms": o["kernel_ms"], "official_bound_ms": o["bound_ms"],
         "official_library_ms": o["library_ms"]})
-  emit("times", kernels_s=t_kernels, e2e_s=t_e2e, e2e025_s=t_e2e025,
-       e2e_official_s=t_official, total_s=time.perf_counter() - t_start)
   print(json.dumps({"kernels": summary}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {
@@ -1602,4 +2173,4 @@ def main():
 
 
 if __name__ == "__main__":
-  sys.exit(main())
+  sys.exit(main(sys.argv[1:]))

@@ -2,7 +2,10 @@
 
 Both CLIs run on the same uncompressed stores (those of
 ``tests/test_torch_official_configs.py``: wind components, precipitation
-with NaNs, SEEPS climatology, a ``land_sea_mask`` in the obs store), the
+with NaNs, SEEPS climatology, a ``land_sea_mask`` in the obs store; for the
+eight probabilistic configs those of ``tests/test_torch_probabilistic.py``:
+a 5-member ensemble and a Gaussian forecast with NaNs, a climatology with
+``_std`` and ``_quantile`` fields), the
 reference one under ``flagsaver`` as ``tests/test_evaluate_cli.py`` runs
 it, the port's through ``weatherbench2_torch.cli.evaluate.main`` with
 ``--device=cpu``.  Results are held to ``rtol=1e-5`` plus
@@ -24,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
 import evaluate as reference_cli  # noqa: E402
 
+from tests import test_torch_probabilistic as probabilistic  # noqa: E402
 from tests.test_torch_official_configs import (  # noqa: E402
     PRECIP, VARIABLES, assert_results_close, build_stores, open_result)
 from weatherbench2_tpu import flag_utils as jflag_utils  # noqa: E402
@@ -181,21 +185,97 @@ def test_cli_missing_climatology_clear_error(stores):
   assert os.path.exists(tmp / "noclim" / "deterministic_spatial.zarr")
 
 
-@pytest.mark.parametrize("name", sorted(cli._UNPORTED_CONFIGS))
-def test_cli_unported_config_names_its_roadmap_item(stores, name):
-  tmp, paths = stores
+# -- the eight probabilistic configs ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def prob_stores(tmp_path_factory):
+  tmp = tmp_path_factory.mktemp("torch_cli_probabilistic")
+  return tmp, probabilistic.build_stores(str(tmp))
+
+
+def _prob_flags(paths, out_dir, names, method):
+  gaussian = names[0].startswith("gaussian")
+  return dict(
+      forecast_path=paths["gaussian" if gaussian else "ensemble"],
+      obs_path=paths["truth"], climatology_path=paths["climatology"],
+      output_dir=str(out_dir), variables=probabilistic.VARIABLES,
+      aux_variables=probabilistic.AUX if gaussian else None,
+      levels=["500", "850"], time_start="2020-01-01",
+      time_stop="2020-01-10", eval_configs=",".join(names),
+      regions=["global", "tropics", "extra-tropics"],
+      ensemble_dim="realization", threshold_method=method,
+      quantile_thresholds=[str(q) for q in probabilistic.QUANTILES])
+
+
+def _port_prob_args(flags, use_mesh):
+  args = [f"--{k}={','.join(v) if isinstance(v, list) else v}"
+          for k, v in flags.items() if v is not None]
+  return args + ["--device=cpu", "--input_chunks=init_time=4"] + (
+      ["--use_mesh"] if use_mesh else [])
+
+
+def _run_prob_clis(tmp, paths, tag, method, use_mesh):
+  """The eight configs through both CLIs (the ensemble configs in one call,
+  the Gaussian ones in another); {side: {config: results}}."""
+  out = {}
+  for side in ("ref", "port"):
+    out_dir = tmp / f"{side}_{tag}"
+    for names in (probabilistic.ENSEMBLE_CONFIGS,
+                  probabilistic.GAUSSIAN_CONFIGS):
+      flags = _prob_flags(paths, out_dir, names, method)
+      if side == "ref":
+        with flagsaver.flagsaver(**flags, use_mesh=use_mesh,
+                                 input_chunks={"init_time": 4}):
+          reference_cli.main([])
+      else:
+        cli.main(_port_prob_args(flags, use_mesh))
+    out[side] = {n: open_result(out_dir, n) for n in probabilistic.CONFIGS}
+  return out
+
+
+@pytest.fixture(scope="module")
+def prob_cli_runs(prob_stores):
+  tmp, paths = prob_stores
+  return {engine: _run_prob_clis(tmp, paths, engine, "quantile",
+                                 engine == "mesh")
+          for engine in ("mesh", "memory")}
+
+
+@pytest.mark.parametrize("name", probabilistic.CONFIGS)
+@pytest.mark.parametrize("engine", ["mesh", "memory"])
+def test_cli_probabilistic_config_matches_reference_cli(prob_cli_runs,
+                                                        engine, name):
+  """Each of the eight config names, with --ensemble_dim and the quantile
+  thresholds of --quantile_thresholds, through both CLIs."""
   # the name is one of the reference CLI's
   assert f'"{name}": config.Eval(' in open(
       os.path.join(REPO, "scripts", "evaluate.py")).read()
-  with pytest.raises(NotImplementedError, match=r"ROADMAP A\.8"):
-    cli.main(_port_args(paths, tmp / "unported",
-                        f"--eval_configs=deterministic,{name}"))
-  assert not os.path.exists(tmp / "unported")
+  got = prob_cli_runs[engine]["port"][name]
+  want = prob_cli_runs[engine]["ref"][name]
+  assert_results_close(got, want, f"{engine}/{name}")
+  if name in ("ensemble_binary", "gaussian_binary",
+              "ensemble_binary_spatial"):
+    np.testing.assert_array_equal(
+        np.asarray(got.coords_dict()["quantile"].data),
+        probabilistic.QUANTILES)
+
+
+def test_cli_gaussian_quantile_thresholds_match_reference_cli(prob_stores):
+  """--threshold_method=gaussian_quantile: thresholds from the
+  climatology's mean and ``_std``."""
+  tmp, paths = prob_stores
+  runs = _run_prob_clis(tmp, paths, "gaussian_quantile", "gaussian_quantile",
+                        True)
+  for name in ("ensemble_binary", "gaussian_binary"):
+    assert_results_close(runs["port"][name], runs["ref"][name], name)
+  with pytest.raises(NotImplementedError, match="Unknown threshold method"):
+    cli.main(_port_prob_args(_prob_flags(
+        paths, tmp / "bad_method", ["ensemble_binary"], "other"), True))
 
 
 @pytest.mark.parametrize("flag,item", [
     ("--derived_variables=wind_speed", "A.9"),
-    ("--quantile_thresholds=0.9", "A.8"),
     ("--evaluate_probabilistic_climatology", "A.9"),
     ("--n_devices=4", "A.12")])
 def test_cli_unported_flag_names_its_roadmap_item(stores, flag, item):

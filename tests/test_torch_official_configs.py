@@ -648,7 +648,7 @@ def test_unfused_loop_equals_fused_tiers(stores, skipna):
         suite, cfgs["d"].regions,
         evaluation.open_forecast_and_truth_datasets(dc, cfgs["d"],
                                                     lazy=True)[0])
-    assert list(plans[2]) == ([] if tag == "fused" else list(suite))
+    assert list(plans[3]) == ([] if tag == "fused" else list(suite))
     evaluation.evaluate_with_mesh(dc, cfgs, device="cpu", skipna=skipna,
                                   input_chunks={"init_time": 8})
     results[tag] = open_result(out, "d")
@@ -870,7 +870,7 @@ def test_pointwise_tier_honours_fused_nan_mode(skipna):
       {"x": (dims, np.zeros_like(f))}, coords), torch.device("cpu"))
   suite = {"global": SkipNaNField(), "skip": AlwaysSkip()}
   from weatherbench2_torch.regions import SliceRegion as PortSlice
-  _, plan, rest = streaming._partition_fused(
+  _, _, plan, rest = streaming._partition_fused(
       suite, {"all": PortSlice(), "north": PortSlice(
           lat_slice=slice(50, 90))}, f_c)
   assert not rest

@@ -212,9 +212,24 @@ def test_convert_round_trips_golden_configs(tmp_path):
     if "acc" in port.metrics:
       np.testing.assert_array_equal(
           port.metrics["acc"].climatology["z"].values, clim["z"].values)
-  with pytest.raises(NotImplementedError, match="CRPS"):
-    convert.eval_configs_from_reference(
-        {"probabilistic": ref["probabilistic"]})
+  # the probabilistic configs cross too, thresholds and seeds included
+  qclim = jxds.Dataset(
+      {"z_quantile": (("quantile", "dayofyear", "latitude"),
+                      np.ones((2, 2, 3)))},
+      coords={"quantile": [0.25, 0.75], "dayofyear": [1, 2],
+              "latitude": [-1.0, 0.0, 1.0]})
+  ref = common.eval_configs(clim, qclim)
+  for name in ("probabilistic", "ensemble_binary", "gaussian_binary",
+               "probabilistic_spatial_histograms"):
+    port = convert.eval_configs_from_reference({name: ref[name]})[name]
+    for k, m in port.metrics.items():
+      assert type(m).__name__ == type(ref[name].metrics[k]).__name__
+      assert type(m).__module__ == "weatherbench2_torch.metrics"
+      for t in getattr(m, "thresholds", ()):
+        assert type(t).__module__ == "weatherbench2_torch.thresholds"
+        np.testing.assert_array_equal(t.climatology["z_quantile"].values,
+                                      qclim["z_quantile"].values)
+  assert port.metrics["rank_histogram"]._seed == 771
 
 
 def test_unported_config_fields_raise():

@@ -16,11 +16,16 @@ Example:
     --regions=all \
     --use_mesh
 
-Ported: the four deterministic configs (``deterministic``,
-``deterministic_spatial``, ``deterministic_temporal``,
-``deterministic_vs_analysis``), wind-vector errors, ``--compute_seeps``,
-the persistence and climatology baselines, checkpoint/resume.  The other
-config names, ``--derived_variables``, ``--quantile_thresholds``,
+All twelve eval configs of the reference CLI: the four deterministic ones
+(``deterministic``, ``deterministic_spatial``, ``deterministic_temporal``,
+``deterministic_vs_analysis``), with wind-vector errors and
+``--compute_seeps``, and the eight probabilistic ones (``probabilistic``,
+``ensemble_binary``, ``ensemble_forecast_vs_era_experimental_metrics``,
+``probabilistic_spatial``, ``ensemble_binary_spatial``,
+``probabilistic_spatial_histograms``, ``gaussian_probabilistic``,
+``gaussian_binary``), with ``--ensemble_dim`` and the thresholds of
+``--quantile_thresholds``/``--threshold_method``; the persistence and
+climatology baselines; checkpoint/resume.  ``--derived_variables``,
 ``--evaluate_probabilistic_climatology`` and ``--n_devices`` raise and name
 the ROADMAP item that will bring them.
 """
@@ -33,6 +38,7 @@ from weatherbench2_torch import config
 from weatherbench2_torch import evaluation
 from weatherbench2_torch import flag_utils
 from weatherbench2_torch import metrics
+from weatherbench2_torch import thresholds
 from weatherbench2_torch import xds
 from weatherbench2_torch.regions import CombinedRegion, LandRegion, SliceRegion
 
@@ -55,14 +61,6 @@ _WIND_PAIRS = [
     ("u_component_of_ageostrophic_wind",
      "v_component_of_ageostrophic_wind", "ageostrophic_wind_vector"),
 ]
-
-# eval configs of scripts/evaluate.py that the port lacks: the probabilistic
-# suite, ROADMAP A.8
-_UNPORTED_CONFIGS = frozenset({
-    "probabilistic", "ensemble_binary",
-    "ensemble_forecast_vs_era_experimental_metrics", "probabilistic_spatial",
-    "ensemble_binary_spatial", "probabilistic_spatial_histograms",
-    "gaussian_probabilistic", "gaussian_binary"})
 
 
 def _bool(value: str) -> bool:
@@ -136,7 +134,7 @@ def build_parser() -> argparse.ArgumentParser:
   string("threshold_method", "quantile",
          '"quantile" or "gaussian_quantile".')
   listing("quantile_thresholds", [],
-          "Climatological quantiles for binary metrics (not ported yet).")
+          "Climatological quantiles for the binary metrics.")
   string("time_start", "2020-01-01", "Inclusive evaluation start time.")
   string("time_stop", "2020-12-31", "Inclusive evaluation stop time.")
   string("output_dir", None, "Directory for results files.")
@@ -228,8 +226,9 @@ def probe_land_sea_mask(args):
   return None
 
 
-def build_eval_configs(args, climatology, regions) -> dict:
-  """The four predefined deterministic eval configs, keyed by name."""
+def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
+  """The twelve predefined eval configs, keyed by name."""
+  ens = dict(ensemble_dim=args.ensemble_dim)
   baselines = dict(evaluate_persistence=args.evaluate_persistence,
                    evaluate_climatology=args.evaluate_climatology)
   deterministic_metrics = {
@@ -273,12 +272,81 @@ def build_eval_configs(args, climatology, regions) -> dict:
       "deterministic_vs_analysis": config.Eval(
           metrics=deterministic_metrics, against_analysis=True,
           regions=regions),
+      "probabilistic": config.Eval(
+          metrics={
+              "crps": metrics.CRPS(**ens),
+              "crps_spread": metrics.CRPSSpread(**ens),
+              "crps_skill": metrics.CRPSSkill(**ens),
+              "ensemble_mean_mse": metrics.EnsembleMeanMSE(**ens),
+              "debiased_ensemble_mean_mse": metrics.DebiasedEnsembleMeanMSE(
+                  **ens),
+              "ensemble_variance": metrics.EnsembleVariance(**ens),
+          },
+          regions=regions),
+      "ensemble_binary": config.Eval(
+          metrics={
+              "brier_score": metrics.EnsembleBrierScore(
+                  thresholds=threshold_list, **ens),
+              "debiased_brier_score": metrics.DebiasedEnsembleBrierScore(
+                  thresholds=threshold_list, **ens),
+              "ignorance_score": metrics.EnsembleIgnoranceScore(
+                  thresholds=threshold_list, **ens),
+          },
+          regions=regions),
+      "ensemble_forecast_vs_era_experimental_metrics": config.Eval(
+          metrics={
+              "energy_score": metrics.EnergyScore(**ens),
+              "energy_score_spread": metrics.EnergyScoreSpread(**ens),
+              "energy_score_skill": metrics.EnergyScoreSkill(**ens),
+              "ensemble_mean_rmse_sqrt_before_time_avg": (
+                  metrics.EnsembleMeanRMSESqrtBeforeTimeAvg(**ens)),
+              "ensemble_stddev_sqrt_before_time_avg": (
+                  metrics.EnsembleStddevSqrtBeforeTimeAvg(**ens)),
+          }),
+      "probabilistic_spatial": config.Eval(
+          metrics={
+              "crps": metrics.SpatialCRPS(**ens),
+              "crps_spread": metrics.SpatialCRPSSpread(**ens),
+              "crps_skill": metrics.SpatialCRPSSkill(**ens),
+              "ensemble_mean_mse": metrics.SpatialEnsembleMeanMSE(**ens),
+              "debiased_ensemble_mean_mse": (
+                  metrics.DebiasedSpatialEnsembleMeanMSE(**ens)),
+              "ensemble_variance": metrics.SpatialEnsembleVariance(**ens),
+          },
+          output_format="zarr"),
+      "ensemble_binary_spatial": config.Eval(
+          metrics={
+              "brier_score": metrics.SpatialEnsembleBrierScore(
+                  thresholds=threshold_list, **ens),
+              "debiased_brier_score": (
+                  metrics.SpatialDebiasedEnsembleBrierScore(
+                      thresholds=threshold_list, **ens)),
+              "ignorance_score": metrics.SpatialEnsembleIgnoranceScore(
+                  thresholds=threshold_list, **ens),
+          },
+          output_format="zarr"),
+      "probabilistic_spatial_histograms": config.Eval(
+          metrics={"rank_histogram": metrics.RankHistogram(**ens)},
+          output_format="zarr"),
+      "gaussian_probabilistic": config.Eval(
+          metrics={
+              "crps": metrics.GaussianCRPS(),
+              "ensemble_variance": metrics.GaussianVariance(),
+          },
+          regions=regions),
+      "gaussian_binary": config.Eval(
+          metrics={
+              "brier_score": metrics.GaussianBrierScore(
+                  thresholds=threshold_list),
+              "ignorance_score": metrics.GaussianIgnoranceScore(
+                  thresholds=threshold_list),
+          },
+          regions=regions),
   }
 
 
 def _refuse_unported(args) -> None:
   for flag, item in (("derived_variables", "A.9"),
-                     ("quantile_thresholds", "A.8"),
                      ("evaluate_probabilistic_climatology", "A.9"),
                      ("n_devices", "A.12")):
     if getattr(args, flag):
@@ -292,10 +360,6 @@ def main(argv=None):
   args = build_parser().parse_args(argv)
   _refuse_unported(args)
   requested = args.eval_configs.split(",")
-  for name in requested:
-    if name in _UNPORTED_CONFIGS:
-      raise NotImplementedError(
-          f"--eval_configs={name} is not ported yet (ROADMAP A.8)")
 
   data_config = config.Data(
       selection=config.Selection(
@@ -327,11 +391,18 @@ def main(argv=None):
     climatology = evaluation.make_latitude_increasing(
         xds.open_zarr(args.climatology_path, lazy=True))
 
-  eval_configs = build_eval_configs(args, climatology, regions)
+  threshold_list = []
+  if args.quantile_thresholds:
+    threshold_cls = thresholds.get_threshold_cls(args.threshold_method)
+    threshold_list = [threshold_cls(climatology=climatology, quantile=float(q))
+                      for q in args.quantile_thresholds]
+
+  eval_configs = build_eval_configs(args, climatology, regions,
+                                    threshold_list)
   if not set(requested).issubset(eval_configs):
     raise ValueError(
         f"--eval_configs={args.eval_configs} is not a subset of "
-        f"{sorted(set(eval_configs) | _UNPORTED_CONFIGS)}")
+        f"{sorted(eval_configs)}")
   eval_configs = {k: v for k, v in eval_configs.items() if k in requested}
 
   if climatology is None:

@@ -1,8 +1,8 @@
 """State carried across from the JAX package: configs and data.
 
 A verification run has no weights, but its parameters must still be the
-same on both sides: the config objects (metrics, regions, selections) and
-the data.  ``eval_configs_from_reference`` maps the reference package's
+same on both sides: the config objects (metrics, regions, thresholds,
+selections) and the data.  ``eval_configs_from_reference`` maps the reference package's
 dataclasses onto the port's by class name and dataclass fields, without
 importing that package; labeled payloads (an ACC climatology, a
 LandRegion mask) cross as numpy arrays into the port's ``xds``.
@@ -14,11 +14,11 @@ from typing import Any, Mapping
 
 import numpy as np
 
-from weatherbench2_torch import config, metrics, regions, xds
+from weatherbench2_torch import config, metrics, regions, thresholds, xds
 
 _PORT_CLASSES = {
     cls.__name__: cls
-    for module in (config, metrics, regions)
+    for module in (config, metrics, regions, thresholds)
     for cls in vars(module).values()
     if isinstance(cls, type) and dataclasses.is_dataclass(cls)
     and cls.__module__ == module.__name__
@@ -72,6 +72,9 @@ def _convert(obj):
         raise NotImplementedError(
             f"{name}.{f.name} has no counterpart in the port")
       kwargs[f.name] = _convert(value)
+    # what a class keeps outside its fields (RankHistogram's seed, bins)
+    for arg, attr in getattr(cls, "init_attributes", {}).items():
+      kwargs[arg] = _convert(getattr(obj, attr))
     return cls(**kwargs)
   raise TypeError(f"cannot convert {type(obj).__module__}."
                   f"{type(obj).__name__} to the port")

@@ -487,8 +487,12 @@ def _evaluate_all_metrics(eval_name, eval_config, data_config, skipna,
   stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
   forecast = xds.to_device(forecast, dev, stream)
   truth = xds.to_device(truth, dev, stream)
-  results = _metric_and_region_loop(forecast, truth, eval_config,
-                                    skipna=skipna)
+  try:
+    results = _metric_and_region_loop(forecast, truth, eval_config,
+                                      skipna=skipna)
+  finally:
+    # the CRPS-spread slot holds the whole forecast on the device
+    metrics_lib.clear_caches()
   logging.info("Evaluation complete")
   output_path = _get_output_path(data_config, eval_name, "netcdf")
   _to_netcdf(results, output_path)
@@ -527,8 +531,9 @@ def evaluate_with_mesh(
   Configs whose inputs are built identically share one chunk stream: each
   chunk is read and moved to the device once.  Writes one results file
   per config (``output_format``) and returns the run's counts: chunks,
-  h2d bytes, and seconds spent waiting on the host and on the device
-  (see ``streaming.evaluate_streaming_multi``), plus the wall time.
+  h2d bytes, seconds spent waiting on the host and on the device and
+  finalizing the results (see ``streaming.evaluate_streaming_multi``),
+  seconds spent writing the results files, and the wall time.
   ``device=None`` is the CUDA card; pass ``device="cpu"`` to run on the
   host.  With ``checkpoint_path`` each group of configs snapshots its
   accumulators every ``checkpoint_every`` chunks into
@@ -583,6 +588,7 @@ def evaluate_with_mesh(
         checkpoint_path=cpath,
         checkpoint_every=checkpoint_every,
     )
+    t_write = time.perf_counter()
     for eval_name, results in results_by_config.items():
       output_format = group[eval_name].output_format
       output_path = _get_output_path(data_config, eval_name, output_format)
@@ -592,5 +598,7 @@ def evaluate_with_mesh(
         os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
         xds.to_zarr(results, output_path)
       logging.info("Saved results to %s", output_path)
+    stats["write_s"] = stats.get("write_s", 0.0) + (
+        time.perf_counter() - t_write)
   stats["wall_s"] = time.perf_counter() - t0
   return stats

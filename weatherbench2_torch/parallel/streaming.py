@@ -8,12 +8,16 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     the current chunk computes;
   * per chunk, every metric × region of a config runs in the fused tiers
     where it can: MSE/RMSE/MAE/Bias without wind vectors through one
-    ``ops.fused_deterministic_sums`` launch per variable; ACC, SEEPS,
-    MSE/RMSE with wind vectors (and any other pointwise-fused metric)
+    ``ops.fused_deterministic_sums`` launch per variable; the CRPS family
+    and the ensemble mean/variance metrics through the probabilistic plan
+    (one member pass of torch ops, then one ``ops.fused_region_sums``
+    launch per variable); ACC, SEEPS, MSE/RMSE with wind vectors, the
+    Gaussian, threshold and energy scores (any pointwise-fused metric)
     through ``ops.fused_region_sums`` over row groups of their per-cell
-    fields; whatever is left (``Spatial*`` metrics, configs without
-    regions, a metric that declines) through the per-metric × region loop;
-    metrics with ``supports_jit = False`` run on the host on numpy chunks;
+    fields; whatever is left (``Spatial*`` metrics, rank histograms,
+    configs without regions, a metric that declines) through the
+    per-metric × region loop; metrics with ``supports_jit = False`` run on
+    the host on numpy chunks;
   * running (sum, count) accumulators stay on the device, and the temporal
     mean is ``sum / count`` at the end;
   * by-init truth is deduplicated to the chunk's unique valid times on the
@@ -25,7 +29,8 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     existing state resumes the run.
 
 Not ported yet, and refused with an error that names the ROADMAP item:
-the probabilistic plan and baseline, meshes and the bfloat16 transfer mode.
+the probabilistic climatology baseline, meshes and the bfloat16 transfer
+mode.
 """
 from __future__ import annotations
 
@@ -288,29 +293,73 @@ def _det_stat_of(metric):
   return None
 
 
+# the per-cell fields of the member pass that each probabilistic statistic
+# needs: spread (single-sort PWM), skill, squared ensemble-mean error,
+# ddof=1 ensemble variance and the debiased per-cell field
+_PROB_FIELD_DEPS = {
+    "crps": ("skill", "spread"),
+    "spread": ("spread",),
+    "skill": ("skill",),
+    "meansq": ("meansq",),
+    "debiased": ("meansq", "var", "debiased"),
+    "var": ("var",),
+    "rmse_mean": ("meansq",),
+    "stddev": ("var",),
+}
+
+
+def _prob_stat_of(metric):
+  """Stat name in the probabilistic plan, or None.  The type is matched
+  exactly, as in the JAX package: a subclass may compute something else."""
+  return {
+      metrics_lib.CRPS: "crps",
+      metrics_lib.CRPSSpread: "spread",
+      metrics_lib.CRPSSkill: "skill",
+      metrics_lib.EnsembleMeanMSE: "meansq",
+      metrics_lib.DebiasedEnsembleMeanMSE: "debiased",
+      metrics_lib.EnsembleVariance: "var",
+      metrics_lib.EnsembleMeanRMSESqrtBeforeTimeAvg: "rmse_mean",
+      metrics_lib.EnsembleStddevSqrtBeforeTimeAvg: "stddev",
+  }.get(type(metric))
+
+
 def _partition_fused(metrics, regions, forecast):
-  """(det_plan, pointwise_plan, remaining) covering a config's metrics.
+  """(det_plan, prob_plan, pointwise_plan, remaining) covering a config's
+  metrics, in the JAX package's order of tiers.
 
   The deterministic kernel takes MSE/RMSE/MAE/Bias without wind vectors;
-  metrics implementing the pointwise-fused protocol go to the generic
-  region kernel; ``remaining`` ({name: metric}) runs the per-metric ×
-  region loop.  Without static region masks (no regions, a variable off
-  the grid) both plans are None and every metric remains.
+  the probabilistic plan the CRPS family and the ensemble mean/variance
+  metrics, when they share one member dim of two members or more (one
+  member gives each metric its own degenerate answer); metrics implementing
+  the pointwise-fused protocol go to the generic region kernel;
+  ``remaining`` ({name: metric}) runs the per-metric × region loop.
+  Without static region masks (no regions, a variable off the grid) every
+  plan is None and every metric remains.
   """
   remaining = dict(metrics)
   setup = _region_weight_setup(regions, forecast)
   if setup is None:
-    return None, None, remaining
+    return None, None, None, remaining
   region_names, region_w = setup
   base = {"region_names": region_names, "region_w": region_w}
   det = {n: _det_stat_of(m) for n, m in metrics.items() if _det_stat_of(m)}
+  prob = {n: _prob_stat_of(m) for n, m in metrics.items()
+          if n not in det and _prob_stat_of(m)}
+  ens_dims = {metrics[n].ensemble_dim for n in prob}
+  if len(ens_dims) != 1 or forecast.sizes.get(next(iter(ens_dims)), 0) < 2:
+    prob = {}
   pointwise = [n for n, m in metrics.items()
-               if n not in det and m.supports_pointwise_fused]
-  for n in list(det) + pointwise:
+               if n not in det and n not in prob and m.supports_pointwise_fused]
+  for n in list(det) + list(prob) + pointwise:
     remaining.pop(n)
   det_plan = {**base, "stat_of": det} if det else None
+  prob_plan = None
+  if prob:
+    prob_plan = {**base, "stat_of": prob, "ensemble_dim": ens_dims.pop(),
+                 "fields": sorted({f for stat in prob.values()
+                                   for f in _PROB_FIELD_DEPS[stat]})}
   pw_plan = {**base, "names": pointwise} if pointwise else None
-  return det_plan, pw_plan, remaining
+  return det_plan, prob_plan, pw_plan, remaining
 
 
 def _fused_chunk_results(plan, f_c, t_c, skipna):
@@ -360,6 +409,97 @@ def _fused_chunk_results(plan, f_c, t_c, skipna):
   return results
 
 
+def member_fields(f3, t2, fields, skipna):
+  """The probabilistic plan's member pass: {field: (B, L)} of ``fields``.
+
+  ``f3`` holds the members (M, B, L), ``t2`` the truth (B, L).  Under
+  ``skipna`` the means run over each cell's valid members (xarray's
+  NaN-skipping member means) while the PWM coefficients and the debiased
+  correction keep the global M, as in ``metrics``; without it member NaNs
+  propagate as the generic path's means do.
+  """
+  m = f3.shape[0]
+  out = {}
+  if skipna:
+    valid = ~torch.isnan(f3)
+    count = valid.sum(dim=0).to(f3.dtype)
+  if "spread" in fields:
+    out["spread"] = metrics_lib.pwm_spread(f3, 0, skipna)
+  if "skill" in fields:
+    ad = torch.abs(f3 - t2)
+    out["skill"] = (torch.where(valid, ad, 0.0).sum(dim=0) / count if skipna
+                    else ad.mean(dim=0))
+  if "meansq" in fields or "var" in fields:
+    xbar = (torch.where(valid, f3, 0.0).sum(dim=0) / count if skipna
+            else f3.mean(dim=0))
+    if "meansq" in fields:
+      out["meansq"] = (xbar - t2) ** 2
+    if "var" in fields:
+      sq = (f3 - xbar) ** 2
+      out["var"] = (torch.where(valid, sq, 0.0).sum(dim=0) / (count - 1)
+                    if skipna else sq.sum(dim=0) / (m - 1))
+    if "debiased" in fields:
+      # per CELL: the regional means of meansq and var would average the
+      # two terms over different NaN cells under skipna
+      out["debiased"] = out["meansq"] - out["var"] / m
+  return out
+
+
+_PROB_RESULT = {
+    "crps": lambda f: f["skill"] - 0.5 * f["spread"],
+    "rmse_mean": lambda f: torch.sqrt(f["meansq"]),
+    "stddev": lambda f: torch.sqrt(f["var"]),
+}
+
+
+def _fused_prob_chunk_results(plan, f_c, t_c, skipna):
+  """Per-time probabilistic metric values, dims (region, ...): for each
+  variable one member pass, its K fields stacked into one (K·B, L) matrix
+  and one ``ops.fused_region_sums`` launch."""
+  ens = plan["ensemble_dim"]
+  field_names = plan["fields"]
+  region_w = plan["region_w_dev"]
+  n_regions = region_w.shape[0]
+  region_coord = xds.Variable(("region",), plan["region_names"])
+  results = {name: xds.Dataset({}, coords={"region": region_coord})
+             for name in plan["stat_of"]}
+  for v in t_c.keys():
+    if v not in f_c.keys():
+      continue  # score the common variables only (xds binop rule)
+    fvar = f_c.variables_dict()[v]
+    tvar = t_c.variables_dict()[v]
+    all_dims = xds.broadcast_dims_order(
+        tuple(d for d in fvar.dims if d != ens), tvar.dims)
+    other = [d for d in all_dims if d not in ("longitude", "latitude")]
+    all_dims = tuple(other) + ("longitude", "latitude")
+    sizes = {**tvar.sizes, **fvar.sizes}
+    f_b = fvar.broadcast_to_dims((ens,) + all_dims, sizes).data
+    t_b = tvar.broadcast_to_dims(all_dims, sizes).data
+    other_shape = tuple(f_b.shape[1:-2])
+    b = int(np.prod(other_shape)) if other_shape else 1
+    l = f_b.shape[-2] * f_b.shape[-1]
+    fields = member_fields(f_b.reshape(f_b.shape[0], b, l),
+                           t_b.reshape(b, l), field_names, skipna)
+    stack = torch.stack([fields[k] for k in field_names])
+    sums, wsum, nanw = ops.fused_region_sums(
+        stack.reshape(len(field_names) * b, l), region_w)
+    means = sums / wsum
+    if not skipna:
+      means = torch.where(nanw > 0, torch.nan, means)
+    means = means.reshape(n_regions, len(field_names), b)
+    mean_of = {name: means[:, i].reshape((n_regions,) + other_shape)
+               for i, name in enumerate(field_names)}
+    coords = {k: cv for k, cv in f_c.coords_dict().items()
+              if set(cv.dims) <= set(other)}
+    coords["region"] = region_coord
+    for name, stat in plan["stat_of"].items():
+      arr = _PROB_RESULT.get(stat, lambda f, s=stat: f[s])(mean_of)
+      results[name][v] = xds.DataArray(
+          xds.Variable(("region",) + tuple(other), arr), coords=coords,
+          name=v)
+  return results
+
+
 def fused_group_bytes() -> int:
   """Row bytes per ``fused_region_sums`` launch of the pointwise tier.
 
@@ -402,7 +542,8 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
       vv = v.transpose(*(other + ("longitude", "latitude")))
       other_shape = tuple(vv.shape[:-2])
       b = int(np.prod(other_shape)) if other_shape else 1
-      rows.append(vv.data.reshape(b, vv.shape[-2] * vv.shape[-1]))
+      rows.append(vv.data.to(torch.float32).reshape(
+          b, vv.shape[-2] * vv.shape[-1]))
       coords = {k: cv for k, cv in fields.coords_dict().items()
                 if cv.dims and set(cv.dims) <= set(other)}
       entries.append((vname, other, other_shape, coords, b))
@@ -779,7 +920,9 @@ def evaluate_streaming_multi(
   All configs must build their inputs identically (``evaluate_with_mesh``
   groups them).  Returns {config_name: results dataset}.  ``stats``, when
   given, receives the run's counts: chunks, h2d bytes, and seconds the
-  main thread waited for host preparation and for the device.  ``state``
+  main thread waited for host preparation and for the device (the final
+  copy of the accumulators to the host included), and seconds spent on the
+  host turning the accumulators into results (``finalize_s``).  ``state``
   resumes a run; with ``checkpoint_path`` and ``checkpoint_every`` the
   accumulators of every config are snapshotted together every so many
   chunks, completed lead slices' results riding in the state.
@@ -846,17 +989,17 @@ def evaluate_streaming_multi(
                  and _UTIME not in truth.sizes)
   plans_by = {}
   for cname in eval_configs:
-    det_plan, pw_plan, generic = _partition_fused(
-        device_metrics_by[cname], regions_by[cname], forecast)
-    for plan in (det_plan, pw_plan):
+    *plans, generic = _partition_fused(device_metrics_by[cname],
+                                       regions_by[cname], forecast)
+    for plan in plans:
       if plan is not None:
         plan["region_w_dev"] = torch.as_tensor(plan["region_w"], device=dev)
-    plans_by[cname] = (det_plan, pw_plan, generic)
+    plans_by[cname] = (*plans, generic)
 
   def chunk_program(cname, f_c, t_c, prepared, time_mask, uinv):
     """Every device metric × region of one config on one chunk, reduced
     over the chunk dim (or per time with temporal_mean=False)."""
-    det_plan, pw_plan, generic = plans_by[cname]
+    det_plan, prob_plan, pw_plan, generic = plans_by[cname]
     metrics = device_metrics_by[cname]
     if truth_dedup:
       t_c = _expand_utime(t_c, uinv)
@@ -865,6 +1008,8 @@ def evaluate_streaming_multi(
     generic_names = list(generic)
     if det_plan is not None:
       results.update(_fused_chunk_results(det_plan, f_c, t_c, skipna))
+    if prob_plan is not None:
+      results.update(_fused_prob_chunk_results(prob_plan, f_c, t_c, skipna))
     if pw_plan is not None:
       pw_results, leftover = _pointwise_chunk_results(
           pw_plan, metrics, f_c, t_c, prepared, skipna)
@@ -875,6 +1020,7 @@ def evaluate_streaming_multi(
           lambda region, name=name: metrics[name].compute_chunk_prepared(
               f_c, t_c, prepared[name], region=region, skipna=skipna),
           regions_by[cname])
+    metrics_lib.clear_caches()  # the CRPS spread of this chunk
     if not eval_configs[cname].temporal_mean:
       return results, dict.fromkeys(results)
     sums, counts = {}, {}
@@ -943,7 +1089,7 @@ def evaluate_streaming_multi(
   resume_chunk = int(state.chunk_index or 0)
   resume_configs = state.configs
   lead_results = []
-  wait_host = wait_device = 0.0
+  wait_host = wait_device = finalize = 0.0
   h2d_bytes = n_chunks_run = 0
   from weatherbench2_torch.evaluation import merge_metric_results
 
@@ -1044,7 +1190,8 @@ def evaluate_streaming_multi(
     t0 = time.perf_counter()
     sums_acc, counts_acc, per_time = batched_device_get(
         (sums_acc, counts_acc, per_time))
-    wait_device += time.perf_counter() - t0
+    t1 = time.perf_counter()
+    wait_device += t1 - t0
     per_config = {}
     for cname, cfg in eval_configs.items():
       per_metric = []
@@ -1065,12 +1212,14 @@ def evaluate_streaming_multi(
               metric=np.asarray([name], dtype=object)))
       per_config[cname] = merge_metric_results(per_metric)
     lead_results.append(per_config)
+    finalize += time.perf_counter() - t1
 
   if stats is not None:
     stats["chunks"] = stats.get("chunks", 0) + n_chunks_run
     stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + h2d_bytes
     stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + wait_host
     stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
+    stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
   if len(lead_results) == 1:
     return lead_results[0]
   return {c: xds.concat([lr[c] for lr in lead_results], "lead_time")

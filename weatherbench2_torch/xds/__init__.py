@@ -8,6 +8,8 @@ from .core import (
     broadcast_dims_order,
     broadcast_variables,
     concat,
+    where,
+    zeros_like,
 )
 from .io_netcdf import open_netcdf, to_netcdf
 from .io_zarr import create_zarr_template, open_zarr, to_zarr
@@ -31,4 +33,6 @@ __all__ = [
     "ShapeStub",
     "stub_variable",
     "to_device",
+    "where",
+    "zeros_like",
 ]

@@ -48,12 +48,20 @@ class _Torch:
 
   @classmethod
   def asarray(cls, x, like=None):
+    """``x`` as a tensor on ``like``'s device.  A broadcast numpy view (a
+    latitude weight or a region mask broadcast against member-sized data)
+    crosses as its distinct values and is expanded on the device: made
+    contiguous on the host it would be the size of the data."""
     if is_tensor(x):
       return x
     dev = like.device if is_tensor(like) else None
     arr = np.asarray(x)
     if arr.dtype.kind in "Mm" or arr.dtype == object:
       raise TypeError(f"{arr.dtype} payloads have no device representation")
+    if arr.size and 0 in arr.strides:
+      distinct = arr[tuple(slice(0, 1) if st == 0 else slice(None)
+                           for st in arr.strides)]
+      return torch.as_tensor(np.array(distinct), device=dev).expand(arr.shape)
     return torch.as_tensor(np.ascontiguousarray(arr), device=dev)
 
   @classmethod
@@ -82,6 +90,8 @@ class _Torch:
   @classmethod
   def where(cls, cond, a, b):
     cond, a, b = cls.coerce(cond, a, b)
+    if is_tensor(cond) and cond.dtype != torch.bool:
+      cond = cond != 0  # numpy's truth of a number (NaN is true)
     return torch.where(cond, a, b)
 
   @staticmethod
@@ -123,6 +133,50 @@ class _Torch:
   @staticmethod
   def nanmean(x, axis=None):
     return torch.nanmean(x, dim=_axes(axis))
+
+  @staticmethod
+  def var(x, axis=None, ddof=0):
+    return torch.var(x, dim=_axes(axis), correction=ddof)
+
+  @classmethod
+  def std(cls, x, axis=None, ddof=0):
+    return torch.sqrt(cls.var(x, axis, ddof))
+
+  @staticmethod
+  def nanvar(x, axis=None, ddof=0):
+    """numpy's nanvar: NaN where fewer than ``ddof + 1`` values are valid."""
+    dims = _axes(axis) or tuple(range(x.ndim))
+    valid = ~torch.isnan(x)
+    count = valid.sum(dim=dims, keepdim=True).to(x.dtype)
+    mean = torch.nansum(x, dim=dims, keepdim=True) / count
+    sq = torch.where(valid, (x - mean) ** 2, 0.0).sum(dim=dims, keepdim=True)
+    dof = count - ddof
+    out = torch.where(dof > 0, sq / dof, torch.nan)
+    return out.squeeze(dims) if dims else out
+
+  @classmethod
+  def nanstd(cls, x, axis=None, ddof=0):
+    return torch.sqrt(cls.nanvar(x, axis, ddof))
+
+  @staticmethod
+  def cumsum(x, axis):
+    return torch.cumsum(x, dim=axis)
+
+  @staticmethod
+  def nancumsum(x, axis):
+    return torch.cumsum(torch.where(torch.isnan(x), 0.0, x), dim=axis)
+
+  @staticmethod
+  def zeros_like(x):
+    return torch.zeros_like(x)
+
+  @staticmethod
+  def log(x):
+    return torch.log(x)
+
+  @staticmethod
+  def exp(x):
+    return torch.exp(x)
 
 
 TORCH = _Torch()

@@ -506,18 +506,19 @@ class _DTAccessor:
     return self._component("hour", hours)
 
 
-def _reduce_data(xp_name, nan_name, data, axes, skipna):
+def _reduce_data(xp_name, nan_name, data, axes, skipna, **kwargs):
   xp = _xp.namespace(data)
   fname = nan_name if (skipna and _xp.is_floating(data)) else xp_name
   if xp is np and fname.startswith("nan"):
     import warnings
 
-    # all-NaN slices legitimately reduce to NaN under skipna; silence
-    # numpy's "Mean of empty slice" warning like xarray does
+    # all-NaN slices legitimately reduce to NaN under skipna (and slices
+    # with no more valid values than ddof); silence numpy's warnings about
+    # them like xarray does
     with warnings.catch_warnings():
       warnings.simplefilter("ignore", RuntimeWarning)
-      return getattr(np, fname)(data, axis=axes)
-  return getattr(xp, fname)(data, axis=axes)
+      return getattr(np, fname)(data, axis=axes, **kwargs)
+  return getattr(xp, fname)(data, axis=axes, **kwargs)
 
 
 class DataArray:
@@ -686,14 +687,21 @@ class DataArray:
   __lt__ = functools.partialmethod(_binop, op=lambda a, b: a < b)
   __le__ = functools.partialmethod(_binop, op=lambda a, b: a <= b)
   __and__ = functools.partialmethod(_binop, op=lambda a, b: a & b)
+  __or__ = functools.partialmethod(_binop, op=lambda a, b: a | b)
+  __floordiv__ = functools.partialmethod(_binop, op=lambda a, b: a // b)
 
-  def notnull(self):
-    """Elementwise ``not NaN`` (every value of a non-float payload)."""
+  def isnull(self):
+    """Elementwise NaN (nothing of a non-float payload)."""
     data = _host(self.data)
     xp = _xp.namespace(data)
     if _xp.is_floating(data):
-      return self.copy(data=~xp.isnan(data))
-    return self.copy(data=xp.ones_like(data) == 1)
+      return self.copy(data=xp.isnan(data))
+    return self.copy(data=xp.ones_like(data) == 0)
+
+  def notnull(self):
+    """Elementwise ``not NaN`` (every value of a non-float payload)."""
+    null = self.isnull()
+    return null.copy(data=~null.data)
 
   def astype(self, dtype):
     """The payload cast to ``dtype``: a numpy dtype for host payloads, a
@@ -748,7 +756,7 @@ class DataArray:
                      name=self.name)
 
   # -- reductions ------------------------------------------------------------
-  def _reduce(self, xp_name, nan_name, dim, skipna):
+  def _reduce(self, xp_name, nan_name, dim, skipna, **kwargs):
     if dim is None:
       axes = tuple(range(self.ndim))
       dims = []
@@ -757,7 +765,8 @@ class DataArray:
         dim = [dim]
       axes = tuple(self.dims.index(d) for d in dim)
       dims = [d for d in self.dims if d not in dim]
-    data = _reduce_data(xp_name, nan_name, _host(self.data), axes, skipna)
+    data = _reduce_data(xp_name, nan_name, _host(self.data), axes, skipna,
+                        **kwargs)
     coords = {k: v for k, v in self.coords.items() if set(v.dims) <= set(dims)}
     return DataArray(Variable(tuple(dims), data), coords=coords,
                      name=self.name)
@@ -767,6 +776,18 @@ class DataArray:
 
   def sum(self, dim=None, skipna=False, **kw):
     return self._reduce("sum", "nansum", dim, skipna)
+
+  def std(self, dim=None, ddof=0, skipna=False, **kw):
+    return self._reduce("std", "nanstd", dim, skipna, ddof=ddof)
+
+  def var(self, dim=None, ddof=0, skipna=False, **kw):
+    return self._reduce("var", "nanvar", dim, skipna, ddof=ddof)
+
+  def cumsum(self, dim, skipna=False):
+    data = _host(self.data)
+    xp = _xp.namespace(data)
+    fn = xp.nancumsum if skipna else xp.cumsum
+    return self.copy(data=fn(data, axis=self.dims.index(dim)))
 
   def weighted(self, weights: "DataArray"):
     return Weighted(self, weights)
@@ -1320,7 +1341,26 @@ class Dataset:
       return out
     return self.map(lambda da: da.where(cond, other))
 
-  def _reduce_ds(self, method_name, dim, skipna=False):
+  def isnull(self):
+    return self.map(lambda da: da.isnull())
+
+  def notnull(self):
+    return self.map(lambda da: da.notnull())
+
+  def swap_dims(self, mapping):
+    """Swap a dim to an existing coord, e.g. {'time': 'dayofyear'}; the old
+    index coord stays as a non-dim coord on the new dim (xarray)."""
+    out = self
+    for old, new in mapping.items():
+      if new not in out._coords:
+        raise KeyError(new)
+      out = Dataset(
+          {k: v.rename_dims({old: new}) for k, v in out._variables.items()},
+          {k: v.rename_dims({old: new}) for k, v in out._coords.items()},
+          out.attrs)
+    return out
+
+  def _reduce_ds(self, method_name, dim, skipna=False, **kwargs):
     def f(da):
       dims = ([dim] if isinstance(dim, str)
               else (list(dim) if dim is not None else None))
@@ -1328,7 +1368,7 @@ class Dataset:
         dims = [d for d in dims if d in da.dims]
         if not dims:
           return da
-      return getattr(da, method_name)(dims, skipna=skipna)
+      return getattr(da, method_name)(dims, skipna=skipna, **kwargs)
 
     return self.map(f)
 
@@ -1337,6 +1377,16 @@ class Dataset:
 
   def sum(self, dim=None, skipna=False, **kw):
     return self._reduce_ds("sum", dim, skipna)
+
+  def std(self, dim=None, ddof=0, skipna=False, **kw):
+    return self._reduce_ds("std", dim, skipna, ddof=ddof)
+
+  def var(self, dim=None, ddof=0, skipna=False, **kw):
+    return self._reduce_ds("var", dim, skipna, ddof=ddof)
+
+  def cumsum(self, dim, skipna=False):
+    return self.map(
+        lambda da: da.cumsum(dim, skipna) if dim in da.dims else da)
 
   def weighted(self, weights):
     return Weighted(self, weights)
@@ -1387,6 +1437,42 @@ def _expand_dims_impl(obj, dim, axis, dim_kwargs, is_dataset):
 # ---------------------------------------------------------------------------
 # concat
 # ---------------------------------------------------------------------------
+
+
+def zeros_like(obj):
+  """Zeros shaped, labeled and typed like a DataArray or Dataset."""
+  if isinstance(obj, Dataset):
+    return obj.map(zeros_like)
+  data = _host(obj.data)
+  return obj.copy(data=_xp.namespace(data).zeros_like(data))
+
+
+def where(cond, x, y):
+  """``x`` where ``cond`` else ``y``, broadcast by dimension name; a
+  Dataset among the operands maps over its variables."""
+  if isinstance(cond, Dataset):
+    out = Dataset({}, coords=dict(cond.coords_dict()))
+    for k in cond.keys():
+      out[k] = where(cond[k], x[k] if isinstance(x, Dataset) else x,
+                     y[k] if isinstance(y, Dataset) else y)
+    return out
+  if isinstance(x, Dataset):
+    out = Dataset({}, coords=dict(x.coords_dict()))
+    for k in x.keys():
+      out[k] = where(cond, x[k], y[k] if isinstance(y, Dataset) else y)
+    return out
+  operands = [o for o in (cond, x, y) if isinstance(o, DataArray)]
+  if not operands:
+    return _xp.namespace(cond, x, y).where(cond, x, y)
+  bvars = iter(broadcast_variables(*(o.variable for o in operands)))
+  vals = [_host(next(bvars).data) if isinstance(o, DataArray) else o
+          for o in (cond, x, y)]
+  dims = broadcast_dims_order(*(o.dims for o in operands))
+  data = _xp.namespace(*vals).where(*vals)
+  coords = _coords_for_dims(_merge_coords_dicts(*(o.coords for o in operands)),
+                            dims)
+  name = next((o.name for o in operands if o.name), None)
+  return DataArray(Variable(dims, data), coords=coords, name=name)
 
 
 def concat(objs, dim: str):

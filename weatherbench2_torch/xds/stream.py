@@ -105,12 +105,18 @@ def to_device(obj, device: torch.device, stream=None, counter=None):
   On a CUDA device each payload is staged in pinned host memory and copied
   with ``non_blocking=True`` on ``stream`` (a side stream, so the copy
   overlaps kernels of the previous chunk); the caller makes its compute
-  stream wait for ``stream`` before reading the tensors.  ``counter``, a
-  dict, receives the bytes moved under ``"h2d_bytes"``.
+  stream wait for ``stream`` before reading the tensors.  A payload that
+  appears more than once in ``obj`` (the thresholds that several metrics
+  prepared) crosses once.  ``counter``, a dict, receives the bytes moved
+  under ``"h2d_bytes"``.
   """
+  moved = {}  # id of a host payload -> (payload, its tensor)
+
   def put(x):
     if core.is_tensor(x):
       return x
+    if id(x) in moved:
+      return moved[id(x)][1]
     arr = np.ascontiguousarray(np.asarray(x))
     if arr.dtype.kind in "Mm" or arr.dtype == object:
       return arr
@@ -118,17 +124,23 @@ def to_device(obj, device: torch.device, stream=None, counter=None):
       counter["h2d_bytes"] = counter.get("h2d_bytes", 0) + arr.nbytes
     host = torch.from_numpy(arr)
     if device.type != "cuda":
-      return host
-    with torch.cuda.stream(stream):
-      return host.pin_memory().to(device, non_blocking=True)
+      out = host
+    else:
+      with torch.cuda.stream(stream):
+        out = host.pin_memory().to(device, non_blocking=True)
+    moved[id(x)] = (x, out)
+    return out
 
-  if isinstance(obj, core.Dataset):
-    return obj.copy(data={k: put(v.data)
-                          for k, v in obj.variables_dict().items()})
-  if isinstance(obj, core.DataArray):
-    return obj.copy(data=put(obj.data))
-  if isinstance(obj, dict):
-    return {k: to_device(v, device, stream, counter) for k, v in obj.items()}
-  if isinstance(obj, (list, tuple)):
-    return type(obj)(to_device(v, device, stream, counter) for v in obj)
-  return obj
+  def walk(obj):
+    if isinstance(obj, core.Dataset):
+      return obj.copy(data={k: put(v.data)
+                            for k, v in obj.variables_dict().items()})
+    if isinstance(obj, core.DataArray):
+      return obj.copy(data=put(obj.data))
+    if isinstance(obj, dict):
+      return {k: walk(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+      return type(obj)(walk(v) for v in obj)
+    return obj
+
+  return walk(obj)
