@@ -51,7 +51,34 @@ exits non-zero without the final line):
            versions run on the card; a run whose process dies after its
            second chunk, resumed from the state file, equal to the
            uninterrupted run bit for bit; the persistence baseline on the
-           card and on the CPU.
+           card and on the CPU;
+  e2e_ensemble  the probabilistic suite through the CLI at IFS ENS's width
+           (50 members, the seven variables at 500/700/850 hPa, sixteen
+           regions, the first 4 inits of January 2020 x 21 leads in chunks
+           of 2): three runs (the plan and the per-cell configs; the
+           ensemble threshold scores; the Gaussian configs) with launch
+           counters against the prediction; the first chunk profiled and
+           held against plain versions; the member pass timed; the first
+           init on the card and on the CPU on two variables; a seeded rank
+           histogram with ties, card against CPU; run 1 killed after its
+           first chunk and resumed bit for bit;
+  e2e_derived   three runs at full width: (1) the official configuration
+           of e2e_official with `--derived_variables=wind_speed,
+           10m_wind_speed` (the 10 m winds and the derived variables'
+           climatology rows added to the stores), launch counters against
+           the prediction, the first 16 inits card against CPU, the first
+           chunk's wind_speed mse and ACC against plain versions; (2) the
+           probabilistic-climatology baseline of 1990-2019 (30 members,
+           the seven variables, sixteen regions, hour interval 6) with
+           `probabilistic` and `probabilistic_spatial` over the first 4
+           inits in chunks of 2, the fair CRPS and spread/skill of
+           independent N(0, 1) members and truth against their closed
+           forms, the first init card against CPU on two variables; (3) at
+           1440x721 over the first week of 2020: compute_derived_variables
+           with its default list, then compute_zonal_energy_spectrum of the
+           official thirteen variables, time-averaged; the first day card
+           against CPU for both CLIs, the week's blocks against the day's
+           run, Parseval, and cuFFT's time beside its byte bound.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
@@ -631,6 +658,11 @@ def kernels_phase():
   for rows in ENSEMBLE_ROWS:
     cases[("region", "ensemble16", rows)] = kernel_case(
         "fused_region_sums", (rows, 240 * 121), 16, bench, False, None, gen)
+  # the official chunk with the two derived variables (e2e_derived run 1):
+  # ACC's row groups that the official chunk does not have
+  for rows in DERIVED_ROWS:
+    cases[("region", "derived16", rows)] = kernel_case(
+        "fused_region_sums", (rows, 240 * 121), 16, bench, False, None, gen)
   path_cases(gen)
   infinite_cases(gen)
   emulation_cases(gen)
@@ -1074,7 +1106,7 @@ DETERMINISTIC_LAUNCHES = (8, 4)
 DETERMINISTIC_LAUNCHES_8 = (8, 3)
 
 
-def write_official_stores(root):
+def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=()):
   """The official 1.5-degree configuration's stores, from the seed: the
   CLI's seven default variables at 500/700/850 hPa and 24 h precipitation
   (non-negative, half of it dry); 32 12-hourly inits x 21 leads; 6-hourly
@@ -1082,11 +1114,13 @@ def write_official_stores(root):
   the SEEPS threshold and dry fraction (the fraction is uniform over (0, 1)
   from cell to cell, so the p1 mask bites).  The climatology's later
   quarters of the year repeat the values of the first: only its size has
-  to be real, and a quarter of the random draws is enough."""
+  to be real, and a quarter of the random draws is enough.  ``extra_2d``
+  adds surface variables to all three stores, ``clim_3d``/``clim_2d`` rows
+  to the climatology alone (the derived variables')."""
   from weatherbench2_torch import schema, xds
 
   specs = dict(variables_3d=list(VARIABLES_3D),
-               variables_2d=list(VARIABLES_2D) + [PRECIP],
+               variables_2d=list(VARIABLES_2D) + [PRECIP] + list(extra_2d),
                levels=(500, 700, 850), spatial_resolution_in_degrees=1.5)
   truth = schema.mock_truth_data(time_start="2020-01-01",
                                  time_stop="2020-01-27",
@@ -1095,7 +1129,9 @@ def write_official_stores(root):
       time_start="2020-01-01", time_stop="2020-01-17",
       time_resolution="12 hours", lead_start="0 days", lead_stop="10 days",
       lead_resolution="12 hours", **specs)
-  clim = schema.mock_hourly_climatology_data(hour_interval=6, **specs)
+  clim = schema.mock_hourly_climatology_data(hour_interval=6, **dict(
+      specs, variables_3d=specs["variables_3d"] + list(clim_3d),
+      variables_2d=specs["variables_2d"] + list(clim_2d)))
   n_lon, n_lat = truth.sizes["longitude"], truth.sizes["latitude"]
   rng = np.random.default_rng(SEED + 1)
   dry_fraction = rng.random((n_lon, n_lat), dtype=np.float32)
@@ -1171,15 +1207,18 @@ OFFICIAL_CONFIGS = "deterministic,deterministic_temporal,deterministic_spatial"
 DETERMINISTIC_METRICS = ["mse", "acc", "bias", "mae", "seeps_24hr"]
 
 
-def open_official_results(out_dir, n_inits, grid=(240, 121)):
+def open_official_results(out_dir, n_inits, grid=(240, 121), extra_3d=(),
+                          extra_2d=()):
   """The three configs' results, checked: shapes, sixteen regions, the
   wind_vector variable, and finite values exactly where a metric has the
   variable (mse: all; acc/bias/mae: all but wind_vector; SEEPS:
-  precipitation only)."""
+  precipitation only).  ``extra_3d``/``extra_2d`` name more variables (the
+  derived ones and their bases)."""
   from weatherbench2_torch import xds
 
-  levels = {v: (3,) for v in VARIABLES_3D + ("wind_vector",)}
-  names = VARIABLES_3D + VARIABLES_2D + (PRECIP, "wind_vector")
+  levels = {v: (3,) for v in VARIABLES_3D + ("wind_vector",) + extra_3d}
+  names = (VARIABLES_3D + VARIABLES_2D + (PRECIP, "wind_vector") + extra_3d
+           + extra_2d)
   results = {
       "deterministic": xds.open_netcdf(
           os.path.join(out_dir, "deterministic.nc")),
@@ -2085,9 +2124,495 @@ def e2e_ensemble_phase():
   return out
 
 
+# -- e2e_derived --------------------------------------------------------------
+
+WIND_10M = ("10m_u_component_of_wind", "10m_v_component_of_wind")
+DERIVED = ("wind_speed", "10m_wind_speed")
+# launches per 16-init chunk of run 1 (the three official configs with the
+# two derived variables), written down in PERF.md before the first run on
+# the card: kernel 1 once per variable (8 + the two 10 m components + the
+# two derived = 12) for bias/mae of `deterministic` and of
+# `deterministic_temporal`; kernel 2 for mse (1 group), ACC (3 groups under
+# the 1 GiB cap) and SEEPS (1) of each, and the temporal config's rmse (1)
+DERIVED_LAUNCHES = (24, 11)
+# the rows of run 1's one new kernel-2 group: ACC's third (the 10 m winds
+# and the two derived variables); its first two hold 9072 rows, as mse's
+DERIVED_ROWS = (6048,)
+# run 2: the probabilistic plan, one launch per variable a 2-init chunk
+PROB_CLIM_LAUNCHES = (0, 7)
+PROB_CLIM_YEARS = (1990, 2019)  # the official climatology's span
+PROB_CLIM_CONFIGS = "probabilistic,probabilistic_spatial"
+# run 3: the official spectra job's thirteen base variables
+SPECTRUM_VARIABLES = (
+    "geopotential", "specific_humidity", "temperature", "u_component_of_wind",
+    "v_component_of_wind", "wind_speed", "10m_u_component_of_wind",
+    "10m_v_component_of_wind", "10m_wind_speed", "2m_temperature",
+    "mean_sea_level_pressure", "total_precipitation_6hr",
+    "total_precipitation_24hr")
+WIDE_TIMES = 28  # the first 7 days of 2020, 6-hourly
+
+
+def plain_wind_speed_first_chunk(paths, regions, n_inits=16, device="cuda"):
+  """mse and ACC of wind_speed over the first `n_inits` inits by plain
+  PyTorch on the card, written independently of the package: the speed
+  from the stores' u and v, the climatology's wind_speed rows at each valid
+  time's (dayofyear, hour), kernel 2's plain version for the regional
+  means; {metric: (region, lead, level)}."""
+  import torch
+
+  from weatherbench2_torch import metrics, ops, xds
+
+  forecast = xds.open_zarr(paths["forecast"], lazy=True)
+  truth = xds.open_zarr(paths["truth"], lazy=True)
+  clim = xds.open_zarr(paths["climatology"], lazy=True)
+  lat = np.asarray(forecast.coords_dict()["latitude"].data)
+  lon = np.asarray(forecast.coords_dict()["longitude"].data)
+  w = metrics._cell_area_from_latitude(np.deg2rad(lat))
+  w = (w / w.mean()).astype(np.float32)
+  region_w = torch.as_tensor(ops.make_region_weight_matrix(
+      w, [r.mask_weights(lat, lon) for r in regions.values()], len(lon)),
+      device=device)
+  inits = np.asarray(forecast.coords_dict()["time"].data)[:n_inits]
+  leads = np.asarray(forecast.coords_dict()["prediction_timedelta"].data)
+  valid = leads[:, None] + inits[None, :]  # (lead, init), as the store
+  truth_times = np.asarray(truth.coords_dict()["time"].data)
+  t_index = np.searchsorted(truth_times, valid)
+
+  def speed(ds, index):
+    parts = []
+    for name in ("u_component_of_wind", "v_component_of_wind"):
+      v = ds[name]
+      arr = (np.asarray(v.isel(time=slice(0, n_inits)).values)
+             if index is None else np.asarray(v.values)[index])
+      parts.append(torch.as_tensor(arr, device=device))
+    return torch.sqrt(parts[0] ** 2 + parts[1] ** 2)
+
+  f, t = speed(forecast, None), speed(truth, t_index)
+  days = valid.astype("datetime64[D]")
+  doy = (days - valid.astype("datetime64[Y]")).astype(np.int64)
+  hour = (valid.astype("datetime64[h]") - days).astype(np.int64)
+  c_da = clim["wind_speed"]
+  if c_da.dims != ("dayofyear", "hour", "level", "longitude", "latitude"):
+    raise AssertionError(f"climatology dims {c_da.dims}")
+  hours = np.asarray(clim.coords_dict()["hour"].data)
+  c = torch.as_tensor(np.asarray(c_da.isel(
+      dayofyear=slice(0, int(doy.max()) + 1)).values)[
+          doy, np.searchsorted(hours, hour)], device=device)
+
+  def region_means(field):
+    other = tuple(field.shape[:-2])
+    sums, wsum, _ = ops.fused_region_sums_plain(
+        field.reshape(int(np.prod(other)), -1), region_w)
+    return (sums / wsum).reshape((len(regions),) + other)
+
+  fa, ta = f - c, t - c
+  acc = region_means(fa * ta) / torch.sqrt(
+      region_means(fa ** 2) * region_means(ta ** 2))
+  return {"mse": region_means((f - t) ** 2).mean(dim=2).cpu().numpy(),
+          "acc": acc.mean(dim=2).cpu().numpy()}
+
+
+def derived_run(root):
+  """Run 1: the official configuration with wind_speed and 10m_wind_speed
+  through the CLI; first 16 inits card against CPU; the first chunk's
+  wind_speed mse and ACC against plain versions on the card."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import evaluate as cli
+
+  out = {"predicted_launches_per_chunk": dict(zip(
+      ("fused_deterministic_sums", "fused_region_sums"), DERIVED_LAUNCHES))}
+  t0 = time.perf_counter()
+  paths = write_official_stores(root, extra_2d=WIND_10M,
+                                clim_3d=("wind_speed",),
+                                clim_2d=("10m_wind_speed",))
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib(paths)
+  more = (f"--eval_configs={OFFICIAL_CONFIGS}", "--input_chunks=init_time=16",
+          "--derived_variables=" + ",".join(DERIVED))
+  extra = dict(extra_3d=("wind_speed",), extra_2d=WIND_10M + (DERIVED[1],))
+  main_dir = os.path.join(root, "main")
+  out["main"] = run_cli(official_args(paths, main_dir, "2020-01-16", *more),
+                        OFFICIAL_INITS // 16, DERIVED_LAUNCHES)
+  open_official_results(main_dir, OFFICIAL_INITS, **extra)
+  emit("e2e_derived_run", run="run1", **out["main"])
+
+  first = {}
+  for dev in ("cuda", "cpu"):
+    dev_dir = os.path.join(root, f"first16_{dev}")
+    args = official_args(paths, dev_dir, "2020-01-08", *more)
+    if dev == "cuda":
+      out["first16_card"] = run_cli(args, 1, DERIVED_LAUNCHES)
+    else:
+      reset_launches()
+      stats = cli.main(args + ["--device=cpu"])
+      read_launches(stats["chunks"], 0, 0)
+      out["first16_cpu_wall_s"] = stats["wall_s"]
+    first[dev] = open_official_results(dev_dir, 16, **extra)
+  out["first16_card_vs_cpu"] = {
+      **compare_results(first["cuda"], first["cpu"], "card vs CPU"),
+      "tolerance": E2E_TOLERANCE}
+
+  mask = xds.open_zarr(paths["truth"])["land_sea_mask"]
+  want = plain_wind_speed_first_chunk(paths, cli.predefined_regions_dict(mask))
+  det = first["cuda"]["deterministic"]
+  out["first_chunk_vs_plain"] = {"errors": {
+      m: hold(np.asarray(det["wind_speed"].isel(
+          metric=DETERMINISTIC_METRICS.index(m)).transpose(
+              "region", "lead_time", "level").values, np.float64),
+              want[m].astype(np.float64),
+              f"wind_speed {m} vs its plain version")
+      for m in ("mse", "acc")}, "tolerance": E2E_TOLERANCE}
+  return out
+
+
+def write_prob_clim_stores(root):
+  """Run 2's stores, from the seed (values drawn on the card): a truth of
+  1-15 January of each year 1990-2020, 6-hourly, the CLI's seven variables
+  at 500/700/850 hPa, each year drawn independently, with a land_sea_mask;
+  a forecast of 4 12-hourly inits x 21 leads (its values are replaced by
+  the members; only its coordinates are read)."""
+  import torch
+
+  from weatherbench2_torch import schema, xds
+
+  specs = dict(variables_3d=list(VARIABLES_3D),
+               variables_2d=list(VARIABLES_2D), levels=(500, 700, 850),
+               spatial_resolution_in_degrees=1.5)
+  year = schema.mock_truth_data(time_start="2020-01-01",
+                                time_stop="2020-01-16",
+                                time_resolution="6 hours", **specs)
+  per_year = year.sizes["time"]
+  first, last = PROB_CLIM_YEARS[0], 2020
+  times = np.concatenate([
+      np.datetime64(f"{y}-01-01", "ns") + np.arange(per_year)
+      * np.timedelta64(6, "h") for y in range(first, last + 1)])
+  forecast = schema.mock_forecast_data(
+      time_start="2020-01-01", time_stop="2020-01-03",
+      time_resolution="12 hours", lead_start="0 days", lead_stop="10 days",
+      lead_resolution="12 hours", **specs)
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 4)
+  paths = {}
+  for name, ds, block in (("truth", year, per_year), ("forecast", forecast,
+                                                      4)):
+    coords = dict(ds.coords_dict())
+    sizes = dict(ds.sizes)
+    if name == "truth":
+      coords["time"] = times
+      sizes["time"] = len(times)
+    template = xds.Dataset(
+        {k: xds.stub_variable(v.dims, sizes, np.float32)
+         for k, v in ds.variables_dict().items()}, coords=coords)
+    if name == "truth":
+      template["land_sea_mask"] = xds.stub_variable(
+          ("longitude", "latitude"), sizes, np.float32)
+    path = os.path.join(root, f"{name}.zarr")
+    writer = xds.RegionWriter(path, template, chunks={"time": block})
+    if name == "truth":
+      writer.write_array("land_sea_mask", (slice(None), slice(None)),
+                         np.random.default_rng(SEED + 5).random(
+                             (sizes["longitude"], sizes["latitude"]),
+                             dtype=np.float32))
+    for start in range(0, sizes["time"], block):
+      sl = slice(start, min(start + block, sizes["time"]))
+      for vname, v in ds.variables_dict().items():
+        shape = [sl.stop - sl.start if d == "time" else sizes[d]
+                 for d in v.dims]
+        writer.write_array(
+            vname, tuple(sl if d == "time" else slice(None) for d in v.dims),
+            torch.randn(tuple(shape), generator=gen,
+                        device="cuda").cpu().numpy())
+    writer.finish()
+    paths[name] = path
+  return paths
+
+
+def prob_clim_args(paths, out_dir, stop=ENSEMBLE_STOP,
+                   variables=VARIABLES_3D + VARIABLES_2D):
+  return [
+      f"--forecast_path={paths['forecast']}", f"--obs_path={paths['truth']}",
+      f"--output_dir={out_dir}", "--variables=" + ",".join(variables),
+      "--time_start=2020-01-01", f"--time_stop={stop}", "--regions=all",
+      "--use_mesh", "--input_chunks=init_time=2",
+      f"--eval_configs={PROB_CLIM_CONFIGS}",
+      "--evaluate_probabilistic_climatology",
+      f"--probabilistic_climatology_start_year={PROB_CLIM_YEARS[0]}",
+      f"--probabilistic_climatology_end_year={PROB_CLIM_YEARS[1]}",
+      "--probabilistic_climatology_hour_interval=6"]
+
+
+def prob_clim_run(root):
+  """Run 2: the probabilistic-climatology baseline (30 years as members)
+  through the CLI, `probabilistic` and `probabilistic_spatial`; the first
+  init card against CPU on two variables; the closed forms of independent
+  N(0, 1) members and truth: the fair CRPS averages 1/sqrt(pi), the
+  spread/skill ratio 1."""
+  from weatherbench2_torch.cli import evaluate as cli
+
+  out = {"members": PROB_CLIM_YEARS[1] - PROB_CLIM_YEARS[0] + 1,
+         "predicted_launches_per_chunk": dict(zip(
+             ("fused_deterministic_sums", "fused_region_sums"),
+             PROB_CLIM_LAUNCHES))}
+  t0 = time.perf_counter()
+  paths = write_prob_clim_stores(root)
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib(paths)
+  main_dir = os.path.join(root, "main")
+  out["main"] = run_cli(prob_clim_args(paths, main_dir), ENSEMBLE_INITS // 2,
+                        PROB_CLIM_LAUNCHES)
+  emit("e2e_derived_run", run="run2", **out["main"])
+  variables = VARIABLES_3D + VARIABLES_2D
+  results = open_ensemble_results(main_dir, PROB_CLIM_CONFIGS, variables)
+  prob = results["probabilistic"]
+  metrics = list(np.asarray(prob.coords_dict()["metric"].data))
+  closed = {}
+  for v in variables:
+    glob = prob[v].isel(region=0)
+    mean = lambda m: float(np.mean(np.asarray(
+        glob.isel(metric=metrics.index(m)).values, np.float64)))
+    crps = mean("crps")
+    ratio = np.sqrt(mean("ensemble_variance")
+                    / mean("debiased_ensemble_mean_mse"))
+    if abs(crps - 1 / np.sqrt(np.pi)) > 0.01 or abs(ratio - 1) > 0.02:
+      raise AssertionError(f"{v}: fair CRPS {crps}, spread/skill {ratio}")
+    closed[v] = {"crps": crps, "spread_skill": float(ratio)}
+  out["closed_forms"] = {"crps_want": 1 / np.sqrt(np.pi),
+                         "spread_skill_want": 1.0, "global": closed}
+
+  first = {}
+  for dev in ("cuda", "cpu"):
+    dev_dir = os.path.join(root, f"first_{dev}")
+    args = prob_clim_args(paths, dev_dir, "2020-01-01T00",
+                          ENSEMBLE_CPU_VARIABLES)
+    if dev == "cuda":
+      out["first_init_card"] = run_cli(
+          args, 1, (0, len(ENSEMBLE_CPU_VARIABLES)))
+    else:
+      reset_launches()
+      stats = cli.main(args + ["--device=cpu"])
+      read_launches(stats["chunks"], 0, 0)
+      out["first_init_cpu_wall_s"] = stats["wall_s"]
+    first[dev] = open_ensemble_results(dev_dir, PROB_CLIM_CONFIGS,
+                                       ENSEMBLE_CPU_VARIABLES)
+  out["first_init_card_vs_cpu"] = {
+      **compare_results(first["cuda"], first["cpu"], "card vs CPU"),
+      "tolerance": E2E_TOLERANCE}
+  return out
+
+
+def write_wide_store(root, n_times=WIDE_TIMES, name="wide"):
+  """Run 3's 1440x721 truth-like store, 6-hourly from 2020-01-01, from the
+  seed (values drawn on the card): the five 3-d variables at 500/700/850
+  hPa (temperatures near 250 K, humidities in (0, 5e-3), geopotentials
+  near 49 000 m2/s2), 2 m temperature, mean sea level pressure, the 10 m
+  winds and the 6 h and 24 h precipitation."""
+  import torch
+
+  from weatherbench2_torch import schema, xds
+
+  variables_2d = ["2m_temperature", "mean_sea_level_pressure", *WIND_10M,
+                  "total_precipitation_6hr", "total_precipitation_24hr"]
+  ds = schema.mock_truth_data(
+      variables_3d=list(VARIABLES_3D), variables_2d=variables_2d,
+      levels=(500, 700, 850), spatial_resolution_in_degrees=WIDE_RESOLUTION,
+      time_start="2020-01-01", time_stop="2020-01-08",
+      time_resolution="6 hours")
+  ds = ds.isel(time=slice(0, n_times))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 6)
+  scale = {"temperature": (250.0, 10.0), "geopotential": (49050.0, 981.0)}
+  path = os.path.join(root, f"{name}.zarr")
+  template = xds.Dataset(
+      {k: xds.stub_variable(v.dims, v.sizes, np.float32)
+       for k, v in ds.variables_dict().items()}, coords=dict(ds.coords_dict()))
+  writer = xds.RegionWriter(path, template, chunks={"time": 4})
+  for start in range(0, n_times, 4):
+    sl = slice(start, min(start + 4, n_times))
+    for vname, v in ds.variables_dict().items():
+      shape = tuple(sl.stop - sl.start if d == "time" else v.sizes[d]
+                    for d in v.dims)
+      x = torch.randn(shape, generator=gen, device="cuda")
+      if vname == "specific_humidity":
+        x = 5e-3 * torch.rand(shape, generator=gen, device="cuda")
+      elif vname.startswith("total_precipitation"):
+        x = 1e-3 * x.abs()
+      elif vname in scale:
+        x = scale[vname][0] + scale[vname][1] * x
+      writer.write_array(
+          vname, tuple(sl if d == "time" else slice(None) for d in v.dims),
+          x.cpu().numpy())
+  writer.finish()
+  return path
+
+
+def compare_stores(got, want, what, names=None):
+  """{variable: errors} of two stores; ±inf and NaN in the same places."""
+  errs = {}
+  for k in names or want.keys():
+    w = np.asarray(want[k].values, np.float64)
+    g = np.asarray(got[k].transpose(*want[k].dims).values, np.float64)
+    errs[k] = hold_with_infs(g, w, f"{what}, {k}")
+  worst = max(errs.values(), key=lambda e: e["max_err_over_bound"])
+  return {"compared": len(errs), "worst": worst,
+          "infinite_values": sum(e["infinite_values"] for e in errs.values())}
+
+
+def spectrum_timing(path):
+  """CUDA-event median of the spectrum of one block of geopotential (the
+  first 4 times, 3 levels, 1440x721) beside its byte bound (the field read
+  once, the power written once)."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.derived_variables import ZonalEnergySpectrum
+
+  block = xds.to_device(xds.open_zarr(path, lazy=True)[["geopotential"]].isel(
+      time=slice(0, 4)), torch.device("cuda"))
+  x = block["geopotential"]
+  ax = x.dims.index("longitude")
+  data = x.data.contiguous()
+
+  def power(d):
+    f_k = torch.fft.rfft(d, dim=ax, norm="forward")
+    return f_k.real ** 2 + f_k.imag ** 2
+
+  out_elems = data.numel() // data.shape[ax] * (data.shape[ax] // 2 + 1)
+  nbytes = 4 * (data.numel() + out_elems)
+  res = {"shape": list(data.shape), "dims": list(x.dims),
+         "rfft_power_ms": cuda_time_ms(power, [(data,)]),
+         "compute_ms": cuda_time_ms(
+             lambda _: ZonalEnergySpectrum("geopotential").compute(block),
+             [(data,)]),
+         "bytes": nbytes,
+         "bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+         "library_call": "torch.fft.rfft (cuFFT)"}
+  res["share_of_bound"] = res["bytes_bound_ms"] / res["rfft_power_ms"]
+  return res
+
+
+def spectra_run(root):
+  """Run 3: the spectra pipeline at 0.25 degrees: compute_derived_variables
+  with its default list, then compute_zonal_energy_spectrum with the
+  official thirteen variables, time-averaged; the first day card against
+  CPU for both CLIs; Parseval on the first day's spectrum."""
+  import torch
+
+  from weatherbench2_torch import schema, xds
+  from weatherbench2_torch.cli import compute_derived_variables as derived_cli
+  from weatherbench2_torch.cli import (
+      compute_zonal_energy_spectrum as spectrum_cli)
+
+  out = {"resolution_degrees": WIDE_RESOLUTION, "times": WIDE_TIMES}
+  t0 = time.perf_counter()
+  wide = write_wide_store(root)
+  day = write_wide_store(root, 4, "first_day")
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib({"wide": wide})
+
+  def derive(src, dst, dev):
+    """The CLI's counts: wall, blocks, GiB to the device and back."""
+    counts = derived_cli.main([f"--input_path={src}", f"--output_path={dst}"]
+                              + (["--device=cpu"] if dev == "cpu" else []))
+    return {k.replace("_bytes", "_gib"): v / 2**30 if k.endswith("_bytes")
+            else v for k, v in counts.items()}
+
+  def spectrum(src, dst, dev, stop):
+    counts = spectrum_cli.main(
+        [f"--input_path={src}", f"--output_path={dst}",
+         "--base_variables=" + ",".join(SPECTRUM_VARIABLES),
+         "--time_start=2020-01-01", f"--time_stop={stop}"]
+        + (["--device=cpu"] if dev == "cpu" else []))
+    return {k.replace("_bytes", "_gib"): v / 2**30 if k.endswith("_bytes")
+            else v for k, v in counts.items()}
+
+  # the main path: both CLIs on the card over the week, counters around
+  reset_launches()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  derived = os.path.join(root, "derived.zarr")
+  out["derive"] = derive(wide, derived, "cuda")
+  out["derived_store_gib"] = store_gib({"d": derived})
+  spectra = os.path.join(root, "spectra.zarr")
+  out["spectrum"] = spectrum(derived, spectra, "cuda", "2020-01-07T18")
+  read_launches(1, 0, 0)
+  out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+  inputs = xds.open_zarr(wide, lazy=True)
+  got = xds.open_zarr(derived, lazy=True)
+  names = sorted(set(got.keys()) - set(inputs.keys()))
+  out["derived_variables"] = names
+  spec = xds.open_zarr(spectra)
+  if sorted(spec.keys()) != sorted(SPECTRUM_VARIABLES):
+    raise AssertionError(f"spectra of {sorted(spec.keys())}")
+  n_wave = inputs.sizes["longitude"] // 2 + 1
+  for k in spec.keys():
+    if not np.isfinite(spec[k].values).all() or spec[k].sizes[
+        "zonal_wavenumber"] != n_wave:
+      raise AssertionError(f"spectrum of {k}: {spec[k].sizes}")
+  emit("e2e_derived_run", run="run3", derive=out["derive"],
+       spectrum=out["spectrum"])
+
+  # the first day: card against CPU for both CLIs, and the week's first
+  # day (derived in blocks) against the day's own run
+  stores = {}
+  for dev in ("cuda", "cpu"):
+    stores[dev] = os.path.join(root, f"day_derived_{dev}.zarr")
+    out[f"day_derive_{dev}_s"] = derive(day, stores[dev], dev)["wall_s"]
+    stores[f"spec_{dev}"] = os.path.join(root, f"day_spectra_{dev}.zarr")
+    out[f"day_spectrum_{dev}_s"] = spectrum(
+        stores[dev], stores[f"spec_{dev}"], dev, "2020-01-01T18")["wall_s"]
+  day_card = xds.open_zarr(stores["cuda"], lazy=True)
+  out["day_derived_card_vs_cpu"] = {
+      **compare_stores(day_card, xds.open_zarr(stores["cpu"], lazy=True),
+                       "card vs CPU", names), "tolerance": E2E_TOLERANCE}
+  out["week_blocks_vs_day"] = compare_stores(
+      got.isel(time=slice(0, 4)), day_card, "blocks vs day", names)
+  day_spec = xds.open_zarr(stores["spec_cuda"])
+  out["day_spectra_card_vs_cpu"] = {
+      **compare_stores(day_spec, xds.open_zarr(stores["spec_cpu"]),
+                       "card vs CPU"), "tolerance": E2E_TOLERANCE}
+
+  # Parseval: the spectrum sums to the zonal mean square times the
+  # circumference, plus the Nyquist bin once more (1440 is even, and the
+  # one-sided doubling counts it twice, as the reference does)
+  x = np.asarray(xds.open_zarr(day)["2m_temperature"].transpose(
+      "time", "longitude", "latitude").values, np.float64)
+  lat = np.asarray(day_spec.coords_dict()["latitude"].data)
+  circumference = 2 * np.pi * schema.EARTH_RADIUS_M * np.cos(np.deg2rad(lat))
+  nyquist = np.abs(np.fft.rfft(x, axis=1, norm="forward")[:, -1]) ** 2
+  want = (((x ** 2).mean(axis=1) + nyquist) * circumference).mean(axis=0)
+  got_sum = np.asarray(day_spec["2m_temperature"].sum(
+      "zonal_wavenumber").values, np.float64)
+  out["parseval"] = hold(got_sum, want, "Parseval of the day's spectrum")
+  out["spectrum_timing"] = spectrum_timing(day)
+  return out
+
+
+def e2e_derived_phase():
+  """Derived variables, the probabilistic-climatology baseline and the
+  spectra pipeline, each at full width: three runs, each in a temporary
+  directory of its own."""
+  import torch
+
+  out = {"cut": "run 1: the first 32 inits of January 2020 (as e2e_official); "
+                "run 2: the first 4 inits x 21 leads in chunks of 2, a truth "
+                "of 1-15 January of each year 1990-2020 (the only days the "
+                "valid times select); run 3: the first 7 days of 2020, not "
+                "the year"}
+  t0 = time.perf_counter()
+  for run, fn in (("run1", derived_run), ("run2", prob_clim_run),
+                  ("run3", spectra_run)):
+    with tempfile.TemporaryDirectory(prefix=f"wb2_chip_smoke_{run}_") as root:
+      out[run] = fn(root)
+    torch.cuda.empty_cache()
+    emit("e2e_derived_step", run=run, seconds=time.perf_counter() - t0)
+  emit("e2e_derived", **out)
+  return out
+
+
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
-          "e2e_ensemble": e2e_ensemble_phase}
+          "e2e_ensemble": e2e_ensemble_phase,
+          "e2e_derived": e2e_derived_phase}
 
 
 def main(argv):
@@ -2138,6 +2663,7 @@ def main(argv):
   e2e025 = results["e2e025"]
   official_run = results["e2e_official"]
   ensemble_run = results["e2e_ensemble"]
+  derived_runs = results["e2e_derived"]
 
   summary = []
   for name, key, official, replaces in (
@@ -2157,6 +2683,9 @@ def main(argv):
         "launches_e2e_official": official_run["main"]["launches"][name],
         "launches_e2e_ensemble": sum(
             ensemble_run[run]["launches"][name] for run in ENSEMBLE_RUNS),
+        "launches_e2e_derived": sum(
+            derived_runs[run]["main"]["launches"][name]
+            for run in ("run1", "run2")),
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

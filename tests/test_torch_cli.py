@@ -27,6 +27,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "scripts"))
 
 import evaluate as reference_cli  # noqa: E402
 
+from tests import test_torch_derived_eval as derived  # noqa: E402
 from tests import test_torch_probabilistic as probabilistic  # noqa: E402
 from tests.test_torch_official_configs import (  # noqa: E402
     PRECIP, VARIABLES, assert_results_close, build_stores, open_result)
@@ -274,14 +275,80 @@ def test_cli_gaussian_quantile_thresholds_match_reference_cli(prob_stores):
         paths, tmp / "bad_method", ["ensemble_binary"], "other"), True))
 
 
-@pytest.mark.parametrize("flag,item", [
-    ("--derived_variables=wind_speed", "A.9"),
-    ("--evaluate_probabilistic_climatology", "A.9"),
-    ("--n_devices=4", "A.12")])
+@pytest.mark.parametrize("flag,item", [("--n_devices=4", "A.12")])
 def test_cli_unported_flag_names_its_roadmap_item(stores, flag, item):
   tmp, paths = stores
   with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
     cli.main(_port_args(paths, tmp / "unported_flag", flag))
+
+
+# -- derived variables and the probabilistic climatology ---------------------
+
+
+def _run_both_clis(flag_values, out_dir, use_mesh, configs):
+  """The reference CLI under flagsaver and the port's, on the CPU, with
+  the same flags; {side: {config: results}}."""
+  out = {}
+  for side in ("ref", "port"):
+    values = dict(flag_values, output_dir=str(out_dir / side),
+                  eval_configs=",".join(configs))
+    if side == "ref":
+      with flagsaver.flagsaver(**values, use_mesh=use_mesh):
+        reference_cli.main([])
+    else:
+      cli.main(_port_prob_args(values, use_mesh))
+    out[side] = {n: open_result(out_dir / side, n) for n in configs}
+  return out
+
+
+@pytest.fixture(scope="module")
+def derived_stores(tmp_path_factory):
+  tmp = tmp_path_factory.mktemp("torch_cli_derived")
+  return tmp, derived.build_stores(str(tmp)), derived.build_years_stores(
+      str(tmp / "years"))
+
+
+@pytest.mark.parametrize("engine", ["mesh", "memory"])
+def test_cli_derived_variables_match_reference_cli(derived_stores, engine):
+  """--derived_variables=wind_speed,10m_wind_speed: the base winds join
+  the selection, the derived ones are scored (MSE, ACC, bias, MAE, the
+  wind-vector errors of the present pairs) in every region."""
+  tmp, paths, _ = derived_stores
+  configs = ["deterministic", "deterministic_temporal"]
+  runs = _run_both_clis(dict(
+      forecast_path=paths["forecast"], obs_path=paths["truth"],
+      climatology_path=paths["climatology"], variables=["2m_temperature"],
+      derived_variables=["wind_speed", "10m_wind_speed"],
+      levels=["500", "850"], time_start="2020-01-01",
+      time_stop="2020-01-04T12", regions=["global", "tropics"]),
+      tmp / f"derived_{engine}", engine == "mesh", configs)
+  for name in configs:
+    got, want = runs["port"][name], runs["ref"][name]
+    assert_results_close(got, want, f"{engine}/{name}")
+    assert {"wind_speed", "10m_wind_speed", "u_component_of_wind",
+            "10m_v_component_of_wind"} <= set(got.keys())
+    assert np.isfinite(got["10m_wind_speed"].values).all()
+
+
+@pytest.mark.parametrize("engine", ["mesh", "memory"])
+def test_cli_probabilistic_climatology_matches_reference_cli(derived_stores,
+                                                             engine):
+  """--evaluate_probabilistic_climatology over 2018-2019 at hour interval
+  24: the `probabilistic` config scores the years as members."""
+  tmp, _, paths = derived_stores
+  configs = ["probabilistic"]
+  runs = _run_both_clis(dict(
+      forecast_path=paths["forecast"], obs_path=paths["truth"],
+      variables=["2m_temperature"], time_start="2020-01-01",
+      time_stop="2020-01-12", regions=["global", "tropics"],
+      evaluate_probabilistic_climatology=True,
+      probabilistic_climatology_start_year=2018,
+      probabilistic_climatology_end_year=2019,
+      probabilistic_climatology_hour_interval=24),
+      tmp / f"prob_clim_{engine}", engine == "mesh", configs)
+  got = runs["port"]["probabilistic"]
+  assert_results_close(got, runs["ref"]["probabilistic"], engine)
+  assert np.isfinite(got["2m_temperature"].values).all()
 
 
 def test_cli_unknown_config_name_raises(stores):

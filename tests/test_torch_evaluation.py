@@ -199,7 +199,8 @@ def test_unported_paths_raise(stores):
       evaluate_probabilistic_climatology=True,
       probabilistic_climatology_start_year=1990,
       probabilistic_climatology_end_year=2000)}
-  with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+  # the baseline is ported: years the truth lacks raise as in the JAX package
+  with pytest.raises(KeyError, match="year 1990"):
     _run_port(dc, prob_clim)
   no_regions = {"d": jconfig.Eval(metrics={"mse": jmetrics.MSE()})}
   stats = _run_port(dc, no_regions, input_chunks={"lead_time": 2},

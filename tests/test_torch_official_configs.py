@@ -756,11 +756,20 @@ def test_by_valid_persistence_matches_jax(stores):
   assert_results_close(outs["port"], outs["jax"], "by-valid persistence")
 
 
-def test_probabilistic_climatology_baseline_names_its_item():
-  with pytest.raises(NotImplementedError, match="A.9"):
-    config.Eval(metrics={}, evaluate_probabilistic_climatology=True,
-                probabilistic_climatology_start_year=1990,
-                probabilistic_climatology_end_year=2000).validate()
+def test_probabilistic_climatology_baseline_validates_its_years():
+  """The baseline runs (tests/test_torch_derived_eval.py); without its
+  years it is refused as the JAX package refuses it."""
+  config.Eval(metrics={}, evaluate_probabilistic_climatology=True,
+              probabilistic_climatology_start_year=1990,
+              probabilistic_climatology_end_year=2000).validate()
+  for missing in ("start", "end"):
+    kwargs = {"probabilistic_climatology_start_year": 1990,
+              "probabilistic_climatology_end_year": 2000}
+    del kwargs[f"probabilistic_climatology_{missing}_year"]
+    for cls in (config.Eval, jconfig.Eval):
+      with pytest.raises(ValueError, match="start and end years"):
+        cls(metrics={}, evaluate_probabilistic_climatology=True,
+            **kwargs).validate()
   config.Eval(metrics={}, evaluate_persistence=True).validate()
   config.Eval(metrics={}, evaluate_climatology=True).validate()
 

@@ -233,10 +233,10 @@ def test_convert_round_trips_golden_configs(tmp_path):
 
 
 def test_unported_config_fields_raise():
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    config.Eval(metrics={}, derived_variables={"x": object()}).validate()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    config.Eval(metrics={},
-                evaluate_probabilistic_climatology=True).validate()
+  from weatherbench2_torch.derived_variables import DERIVED_VARIABLE_DICT
+
+  # derived variables are ported (tests/test_torch_derived_eval.py)
+  config.Eval(metrics={},
+              derived_variables=dict(DERIVED_VARIABLE_DICT)).validate()
   with pytest.raises(ValueError, match="output_format"):
     config.Eval(metrics={}, output_format="csv").validate()

@@ -24,10 +24,10 @@ All twelve eval configs of the reference CLI: the four deterministic ones
 ``probabilistic_spatial``, ``ensemble_binary_spatial``,
 ``probabilistic_spatial_histograms``, ``gaussian_probabilistic``,
 ``gaussian_binary``), with ``--ensemble_dim`` and the thresholds of
-``--quantile_thresholds``/``--threshold_method``; the persistence and
-climatology baselines; checkpoint/resume.  ``--derived_variables``,
-``--evaluate_probabilistic_climatology`` and ``--n_devices`` raise and name
-the ROADMAP item that will bring them.
+``--quantile_thresholds``/``--threshold_method``; the derived variables of
+``--derived_variables``; the persistence, climatology and probabilistic
+climatology baselines; checkpoint/resume.  ``--n_devices`` raises and names
+the ROADMAP item that will bring it.
 """
 import argparse
 import ast
@@ -40,6 +40,7 @@ from weatherbench2_torch import flag_utils
 from weatherbench2_torch import metrics
 from weatherbench2_torch import thresholds
 from weatherbench2_torch import xds
+from weatherbench2_torch.derived_variables import DERIVED_VARIABLE_DICT
 from weatherbench2_torch.regions import CombinedRegion, LandRegion, SliceRegion
 
 _DEFAULT_VARIABLES = [
@@ -63,41 +64,13 @@ _WIND_PAIRS = [
 ]
 
 
-def _bool(value: str) -> bool:
-  if value.lower() in ("true", "t", "1", "yes", "y"):
-    return True
-  if value.lower() in ("false", "f", "0", "no", "n"):
-    return False
-  raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
-
-
-def _list(value: str) -> list:
-  return [v for v in value.split(",") if v]
-
-
 def build_parser() -> argparse.ArgumentParser:
   """The flags of ``scripts/evaluate.py`` with their defaults, and
   ``--device``.  Booleans take ``--flag``, ``--flag=false`` or
   ``--noflag``; lists are comma-separated."""
-  p = argparse.ArgumentParser(
-      prog="python -m weatherbench2_torch.cli.evaluate",
-      description=__doc__, allow_abbrev=False,
-      formatter_class=argparse.RawDescriptionHelpFormatter)
-
-  def string(name, default, help):
-    p.add_argument(f"--{name}", default=default, help=help)
-
-  def integer(name, default, help):
-    p.add_argument(f"--{name}", type=int, default=default, help=help)
-
-  def boolean(name, default, help):
-    p.add_argument(f"--{name}", type=_bool, nargs="?", const=True,
-                   default=default, help=help)
-    p.add_argument(f"--no{name}", dest=name, action="store_false",
-                   help=argparse.SUPPRESS)
-
-  def listing(name, default, help):
-    p.add_argument(f"--{name}", type=_list, default=default, help=help)
+  f = flag_utils.Flags("python -m weatherbench2_torch.cli.evaluate",
+                       __doc__)
+  string, integer, boolean, listing = f.string, f.integer, f.boolean, f.listing
 
   string("forecast_path", None, "Path to forecast Zarr store")
   string("obs_path", None, "Path to ground-truth Zarr store")
@@ -106,7 +79,7 @@ def build_parser() -> argparse.ArgumentParser:
   boolean("evaluate_persistence", False, "Evaluate persistence forecast.")
   boolean("evaluate_climatology", False, "Evaluate climatology forecast.")
   boolean("evaluate_probabilistic_climatology", False,
-          "Evaluate probabilistic climatology (not ported yet).")
+          "Evaluate probabilistic climatology (years as ensemble).")
   integer("probabilistic_climatology_start_year", None,
           "First ground-truth year for probabilistic climatology")
   integer("probabilistic_climatology_end_year", None,
@@ -130,7 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
   listing("variables", list(_DEFAULT_VARIABLES), "Variables to evaluate.")
   listing("aux_variables", None, "Auxiliary forecast variables.")
   listing("derived_variables", [],
-          "Derived variables to compute on the fly (not ported yet).")
+          "Derived variables to compute on the fly.")
   string("threshold_method", "quantile",
          '"quantile" or "gaussian_quantile".')
   listing("quantile_thresholds", [],
@@ -139,10 +112,9 @@ def build_parser() -> argparse.ArgumentParser:
   string("time_stop", "2020-12-31", "Inclusive evaluation stop time.")
   string("output_dir", None, "Directory for results files.")
   string("output_file_prefix", "", "Prefix for results filenames.")
-  p.add_argument("--input_chunks", type=flag_utils.parse_chunks,
-                 default={"init_time": 32},
-                 help="Chunk sizes for streaming the forecast through the "
-                      "engine, e.g. init_time=32,lead_time=7.")
+  f.chunks("input_chunks", "init_time=32",
+           "Chunk sizes for streaming the forecast through the engine, "
+           "e.g. init_time=32,lead_time=7.")
   boolean("use_mesh", False,
           "Run via the streaming engine instead of fully in memory.")
   boolean("use_beam", False, "Compatibility alias for --use_mesh.")
@@ -158,9 +130,8 @@ def build_parser() -> argparse.ArgumentParser:
          "with --use_mesh.")
   integer("checkpoint_every", 0,
           "Checkpoint the streaming accumulators every N chunks (0=off).")
-  string("device", None,
-         'Where to run: the CUDA card when not given, or "cpu".')
-  return p
+  f.device()
+  return f.parser
 
 
 def _wind_vector_error(err_type: str, args) -> list:
@@ -229,8 +200,20 @@ def probe_land_sea_mask(args):
 def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
   """The twelve predefined eval configs, keyed by name."""
   ens = dict(ensemble_dim=args.ensemble_dim)
+  derived = {name: DERIVED_VARIABLE_DICT[name]
+             for name in args.derived_variables}
+  prob_clim = dict(
+      evaluate_probabilistic_climatology=(
+          args.evaluate_probabilistic_climatology),
+      probabilistic_climatology_start_year=(
+          args.probabilistic_climatology_start_year),
+      probabilistic_climatology_end_year=(
+          args.probabilistic_climatology_end_year),
+      probabilistic_climatology_hour_interval=(
+          args.probabilistic_climatology_hour_interval))
   baselines = dict(evaluate_persistence=args.evaluate_persistence,
-                   evaluate_climatology=args.evaluate_climatology)
+                   evaluate_climatology=args.evaluate_climatology,
+                   derived_variables=derived)
   deterministic_metrics = {
       "mse": metrics.MSE(wind_vector_mse=_wind_vector_error("mse", args)),
       "acc": metrics.ACC(climatology=climatology),
@@ -271,7 +254,7 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
           regions=regions, temporal_mean=False, **baselines),
       "deterministic_vs_analysis": config.Eval(
           metrics=deterministic_metrics, against_analysis=True,
-          regions=regions),
+          regions=regions, derived_variables=derived),
       "probabilistic": config.Eval(
           metrics={
               "crps": metrics.CRPS(**ens),
@@ -282,7 +265,7 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
                   **ens),
               "ensemble_variance": metrics.EnsembleVariance(**ens),
           },
-          regions=regions),
+          regions=regions, derived_variables=derived, **prob_clim),
       "ensemble_binary": config.Eval(
           metrics={
               "brier_score": metrics.EnsembleBrierScore(
@@ -292,7 +275,7 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
               "ignorance_score": metrics.EnsembleIgnoranceScore(
                   thresholds=threshold_list, **ens),
           },
-          regions=regions),
+          regions=regions, derived_variables=derived, **prob_clim),
       "ensemble_forecast_vs_era_experimental_metrics": config.Eval(
           metrics={
               "energy_score": metrics.EnergyScore(**ens),
@@ -302,7 +285,8 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
                   metrics.EnsembleMeanRMSESqrtBeforeTimeAvg(**ens)),
               "ensemble_stddev_sqrt_before_time_avg": (
                   metrics.EnsembleStddevSqrtBeforeTimeAvg(**ens)),
-          }),
+          },
+          derived_variables=derived),
       "probabilistic_spatial": config.Eval(
           metrics={
               "crps": metrics.SpatialCRPS(**ens),
@@ -313,7 +297,7 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
                   metrics.DebiasedSpatialEnsembleMeanMSE(**ens)),
               "ensemble_variance": metrics.SpatialEnsembleVariance(**ens),
           },
-          output_format="zarr"),
+          derived_variables=derived, output_format="zarr", **prob_clim),
       "ensemble_binary_spatial": config.Eval(
           metrics={
               "brier_score": metrics.SpatialEnsembleBrierScore(
@@ -324,16 +308,16 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
               "ignorance_score": metrics.SpatialEnsembleIgnoranceScore(
                   thresholds=threshold_list, **ens),
           },
-          output_format="zarr"),
+          derived_variables=derived, output_format="zarr", **prob_clim),
       "probabilistic_spatial_histograms": config.Eval(
           metrics={"rank_histogram": metrics.RankHistogram(**ens)},
-          output_format="zarr"),
+          derived_variables=derived, output_format="zarr", **prob_clim),
       "gaussian_probabilistic": config.Eval(
           metrics={
               "crps": metrics.GaussianCRPS(),
               "ensemble_variance": metrics.GaussianVariance(),
           },
-          regions=regions),
+          regions=regions, derived_variables=derived),
       "gaussian_binary": config.Eval(
           metrics={
               "brier_score": metrics.GaussianBrierScore(
@@ -341,17 +325,13 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
               "ignorance_score": metrics.GaussianIgnoranceScore(
                   thresholds=threshold_list),
           },
-          regions=regions),
+          regions=regions, derived_variables=derived),
   }
 
 
 def _refuse_unported(args) -> None:
-  for flag, item in (("derived_variables", "A.9"),
-                     ("evaluate_probabilistic_climatology", "A.9"),
-                     ("n_devices", "A.12")):
-    if getattr(args, flag):
-      raise NotImplementedError(
-          f"--{flag} is not ported yet (ROADMAP {item})")
+  if args.n_devices:
+    raise NotImplementedError("--n_devices is not ported yet (ROADMAP A.12)")
 
 
 def main(argv=None):

@@ -2,13 +2,12 @@
 
 The fields match ``weatherbench2_tpu/config.py`` (and so the reference
 WeatherBench 2 config API), so configs translate one to one
-(``convert.eval_configs_from_reference``).  Derived variables and the
-probabilistic climatology baseline exist as fields but are not ported yet:
-setting them raises instead of being ignored.
+(``convert.eval_configs_from_reference``).
 """
 import dataclasses
 import typing as t
 
+from weatherbench2_torch.derived_variables import DerivedVariable
 from weatherbench2_torch.metrics import Metric
 from weatherbench2_torch.regions import Region
 
@@ -64,20 +63,18 @@ class Eval:
   probabilistic_climatology_end_year: t.Optional[int] = None
   probabilistic_climatology_hour_interval: t.Optional[int] = None
   against_analysis: t.Optional[bool] = False
-  derived_variables: t.Dict[str, t.Any] = dataclasses.field(
+  derived_variables: t.Dict[str, DerivedVariable] = dataclasses.field(
       default_factory=dict
   )
   temporal_mean: t.Optional[bool] = True
   output_format: str = "netcdf"
 
   def validate(self) -> None:
-    """Raise on inconsistent settings and on what the port lacks."""
-    if self.derived_variables:
-      raise NotImplementedError(
-          "derived variables are not ported yet (ROADMAP A.9)")
-    if self.evaluate_probabilistic_climatology:
-      raise NotImplementedError(
-          "the probabilistic climatology baseline is not ported yet "
-          "(ROADMAP A.9)")
+    """Raise on inconsistent settings."""
+    if self.evaluate_probabilistic_climatology and (
+        self.probabilistic_climatology_start_year is None
+        or self.probabilistic_climatology_end_year is None):
+      raise ValueError(
+          "probabilistic climatology requires start and end years")
     if self.output_format not in ("netcdf", "zarr"):
       raise ValueError(f"unrecognized output_format {self.output_format!r}")

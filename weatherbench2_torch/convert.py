@@ -2,10 +2,11 @@
 
 A verification run has no weights, but its parameters must still be the
 same on both sides: the config objects (metrics, regions, thresholds,
-selections) and the data.  ``eval_configs_from_reference`` maps the reference package's
-dataclasses onto the port's by class name and dataclass fields, without
-importing that package; labeled payloads (an ACC climatology, a
-LandRegion mask) cross as numpy arrays into the port's ``xds``.
+selections) and the data.  ``eval_configs_from_reference`` maps the
+reference package's dataclasses (derived variables included) onto the
+port's by class name and dataclass fields, without importing that package;
+labeled payloads (an ACC climatology, a LandRegion mask) cross as numpy
+arrays into the port's ``xds``.
 """
 from __future__ import annotations
 
@@ -14,11 +15,12 @@ from typing import Any, Mapping
 
 import numpy as np
 
-from weatherbench2_torch import config, metrics, regions, thresholds, xds
+from weatherbench2_torch import (config, derived_variables, metrics, regions,
+                                 thresholds, xds)
 
 _PORT_CLASSES = {
     cls.__name__: cls
-    for module in (config, metrics, regions, thresholds)
+    for module in (config, derived_variables, metrics, regions, thresholds)
     for cls in vars(module).values()
     if isinstance(cls, type) and dataclasses.is_dataclass(cls)
     and cls.__module__ == module.__name__

@@ -4,13 +4,16 @@ Counterpart of ``weatherbench2_tpu/evaluation.py``, on one device:
 ``evaluate_with_mesh`` streams chunks of (init_)time to the card, where
 every metric × region runs in the tiers of ``parallel/streaming.py``, with
 checkpoint/resume; ``evaluate_in_memory`` loads the selection whole and
-loops over metrics and regions.  Both substitute the persistence and
-climatology baselines for the forecast where a config asks.  Results are
+loops over metrics and regions.  Both substitute the persistence,
+climatology and probabilistic-climatology baselines for the forecast where
+a config asks, and compute its derived variables on the device after the
+copy (the JAX package derives on the host before it).  Results are
 written as NetCDF3 (``scipy.io``), which
 ``weatherbench2_tpu.xds.open_netcdf`` also reads, or as Zarr.
 """
 from __future__ import annotations
 
+import copy
 import logging
 import os
 import time
@@ -20,9 +23,11 @@ import numpy as np
 import torch
 
 from weatherbench2_torch import config
+from weatherbench2_torch import derived_variables
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import schema
+from weatherbench2_torch import utils
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds.core import LazyArrayBase, LazyStack
 
@@ -199,7 +204,20 @@ def substitute_climatology_forecast(forecast_like: xds.Dataset,
   sel = dict(dayofyear=times.dt.dayofyear)
   if "hour" in climatology.sizes:
     sel["hour"] = times.dt.hour
-  new_f = clim.sel(sel)
+  return with_forecast_coords(clim.sel(sel), forecast_like)
+
+
+def probabilistic_climatology(truth, eval_config):
+  """The config's probabilistic climatology over ``truth``."""
+  return utils.ProbabilisticClimatology(
+      truth, eval_config.probabilistic_climatology_start_year,
+      eval_config.probabilistic_climatology_end_year,
+      eval_config.probabilistic_climatology_hour_interval)
+
+
+def with_forecast_coords(new_f: xds.Dataset,
+                         forecast_like: xds.Dataset) -> xds.Dataset:
+  """``new_f`` with the coordinates of ``forecast_like`` it lacks."""
   for cn, cv in forecast_like.coords_dict().items():
     if cn not in new_f.coords_dict():
       new_f = new_f.assign_coords({cn: cv})
@@ -208,15 +226,16 @@ def substitute_climatology_forecast(forecast_like: xds.Dataset,
 
 def _build_baseline_forecast(forecast, truth, climatology, eval_config,
                              data_config) -> xds.Dataset:
-  """Replace the forecast with a climatology or persistence baseline if
-  the config asks for one."""
+  """Replace the forecast with a climatology, probabilistic-climatology or
+  persistence baseline if the config asks for one."""
   if eval_config.evaluate_climatology:
     return substitute_climatology_forecast(forecast, climatology,
                                            data_config.by_init)
   if eval_config.evaluate_probabilistic_climatology:
-    raise NotImplementedError(
-        "the probabilistic climatology baseline is not ported yet "
-        "(ROADMAP A.9)")
+    time_dim = "valid_time" if data_config.by_init else "time"
+    members = probabilistic_climatology(truth, eval_config).members(
+        forecast[time_dim], list(forecast.keys()))
+    return with_forecast_coords(members, forecast)
   if eval_config.evaluate_persistence:
     if data_config.by_init:
       return create_persistence_forecast_by_init(forecast, truth)
@@ -273,12 +292,39 @@ def _select_analysis_init_time(forecast: xds.Dataset,
   return forecast, analysis
 
 
+def _add_base_variables(data_config: config.Data,
+                        eval_config: config.Eval) -> config.Data:
+  """The selection with the base variables of the config's derived
+  variables appended, in a fixed order: the order of the variables is the
+  order of the accumulators, and so of a state file (a resumed run, or one
+  the JAX package began, must meet the same order)."""
+  data_config = copy.deepcopy(data_config)
+  variables = list(data_config.selection.variables)
+  for derived_variable in eval_config.derived_variables.values():
+    for base in sorted(derived_variable.base_variables):
+      if base not in variables:
+        variables.append(base)
+  data_config.selection.variables = variables
+  return data_config
+
+
+def add_derived_variables(forecast: xds.Dataset, truth: xds.Dataset,
+                          eval_config: config.Eval):
+  """Forecast and truth with the config's derived variables added."""
+  for name, dv in eval_config.derived_variables.items():
+    forecast[name] = derived_variables.compute_on(dv, forecast)
+    truth[name] = derived_variables.compute_on(dv, truth)
+  return forecast, truth
+
+
 def open_forecast_and_truth_datasets(
     data_config: config.Data,
     eval_config: config.Eval,
     lazy: bool = False,
 ) -> tuple[xds.Dataset, xds.Dataset, Optional[xds.Dataset]]:
-  """Open datasets and select desired slices."""
+  """Open datasets and select desired slices (with the base variables of
+  the config's derived variables)."""
+  data_config = _add_base_variables(data_config, eval_config)
   forecast, obs = open_source_files(
       forecast_path=data_config.paths.forecast,
       obs_path=data_config.paths.obs,
@@ -453,7 +499,9 @@ def merge_metric_results(results: list, dim: str = "metric") -> xds.Dataset:
 
 def _metric_and_region_loop(forecast, truth, eval_config,
                             skipna) -> xds.Dataset:
-  """Metric results looping over metrics and regions."""
+  """Metric results looping over metrics and regions (the config's derived
+  variables computed first, where the payloads are)."""
+  forecast, truth = add_derived_variables(forecast, truth, eval_config)
   results = []
   for name, metric in eval_config.metrics.items():
     logging.info("metric: %s", name)

@@ -1,9 +1,12 @@
-"""Parsers of ``dim=value`` command-line arguments, without absl.
+"""Command-line flags of the port's CLIs, without absl.
 
-Counterpart of ``weatherbench2_tpu/flag_utils.py:17-50``, with the same
-grammar: ``--input_chunks=time=10,longitude=100`` parses to ``{'time': 10,
+Counterpart of ``weatherbench2_tpu/flag_utils.py``, with the same grammar:
+``--input_chunks=time=10,longitude=100`` parses to ``{'time': 10,
 'longitude': 100}``; dim=value pairs coerce int, then float, then str.
+``Flags`` defines absl-style flags on argparse, so that the port's CLIs take
+the command lines of the JAX package's scripts.
 """
+import argparse
 import re
 from typing import Union
 
@@ -46,3 +49,50 @@ def parse_dim_value_pairs(dim_value_string: str) -> dict:
       key, value = entry.split("=")
       pairs[key] = get_dim_value(value)
   return pairs
+
+
+def _bool(value: str) -> bool:
+  if value.lower() in ("true", "t", "1", "yes", "y"):
+    return True
+  if value.lower() in ("false", "f", "0", "no", "n"):
+    return False
+  raise argparse.ArgumentTypeError(f"not a boolean: {value!r}")
+
+
+def _list(value: str) -> list:
+  return [v for v in value.split(",") if v]
+
+
+class Flags:
+  """absl-style flags on an argparse parser: ``--name=value``; booleans
+  also take ``--name`` and ``--noname``; lists are comma-separated."""
+
+  def __init__(self, prog: str, doc: str):
+    self.parser = argparse.ArgumentParser(
+        prog=prog, description=doc, allow_abbrev=False,
+        formatter_class=argparse.RawDescriptionHelpFormatter)
+
+  def string(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", default=default, help=help)
+
+  def integer(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", type=int, default=default,
+                             help=help)
+
+  def boolean(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", type=_bool, nargs="?", const=True,
+                             default=default, help=help)
+    self.parser.add_argument(f"--no{name}", dest=name, action="store_false",
+                             help=argparse.SUPPRESS)
+
+  def listing(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", type=_list, default=default,
+                             help=help)
+
+  def chunks(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", type=parse_chunks,
+                             default=parse_chunks(default), help=help)
+
+  def device(self):
+    self.string("device", None,
+                'Where to run: the CUDA card when not given, or "cpu".')

@@ -24,13 +24,15 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     host and expanded on the device with one gather;
   * ``lead_time`` input chunks stream the lead axis slice by slice, each
     slice with accumulators of its own, and the results are concatenated;
+  * derived variables are computed on the device, after the base variables
+    crossed; the probabilistic climatology's members cross once per
+    distinct (day of year, hour) of a chunk and are expanded on the device;
   * ``StreamingState`` snapshots the accumulators every ``checkpoint_every``
     chunks (one background thread, a side stream, ``os.replace``), and an
     existing state resumes the run.
 
 Not ported yet, and refused with an error that names the ROADMAP item:
-the probabilistic climatology baseline, meshes and the bfloat16 transfer
-mode.
+meshes and the bfloat16 transfer mode.
 """
 from __future__ import annotations
 
@@ -46,8 +48,10 @@ import numpy as np
 import torch
 
 from weatherbench2_torch import device as device_lib
+from weatherbench2_torch import evaluation
 from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import ops
+from weatherbench2_torch import utils
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds import _xp
 
@@ -391,8 +395,17 @@ def _fused_chunk_results(plan, f_c, t_c, skipna):
     other_shape = tuple(f_b.shape[:-2])
     b = int(np.prod(other_shape)) if other_shape else 1
     l = f_b.shape[-2] * f_b.shape[-1]
-    sums, wsum, nanw = ops.fused_deterministic_sums(
-        f_b.reshape(b, l), t_b.reshape(b, l), None, region_w)
+    if v in plan.get("infinite", ()):
+      # the error's rows through kernel 2, which keeps each inf cell to the
+      # regions that hold it
+      d = (f_b.reshape(b, l) - t_b.reshape(b, l)).to(torch.float32)
+      sums, wsum, nanw = _inf_safe_region_sums(
+          torch.cat([d, d * d, d.abs()]), region_w)
+      sums = sums.reshape(n_regions, 3, b).permute(1, 0, 2)
+      wsum, nanw = wsum[:, :b], nanw[:, :b]
+    else:
+      sums, wsum, nanw = ops.fused_deterministic_sums(
+          f_b.reshape(b, l), t_b.reshape(b, l), None, region_w)
     means = sums / wsum[None]
     if not skipna:
       means = torch.where(nanw[None] > 0, torch.nan, means)
@@ -481,7 +494,7 @@ def _fused_prob_chunk_results(plan, f_c, t_c, skipna):
     fields = member_fields(f_b.reshape(f_b.shape[0], b, l),
                            t_b.reshape(b, l), field_names, skipna)
     stack = torch.stack([fields[k] for k in field_names])
-    sums, wsum, nanw = ops.fused_region_sums(
+    sums, wsum, nanw = _region_reducer(plan, [v])(
         stack.reshape(len(field_names) * b, l), region_w)
     means = sums / wsum
     if not skipna:
@@ -498,6 +511,37 @@ def _fused_prob_chunk_results(plan, f_c, t_c, skipna):
           xds.Variable(("region",) + tuple(other), arr), coords=coords,
           name=v)
   return results
+
+
+def _inf_safe_region_sums(x, region_w):
+  """Kernel 2's (sums, wsum_valid, nan_w) of rows that may hold ±inf.
+
+  The tensor-core core takes finite numbers only, and a zero region weight
+  times inf would be NaN in any weighted sum, poisoning the regions
+  without the cell.  The inf cells go in as 0 with two indicator rows
+  (+inf, -inf) riding the same launch; a region whose positive weights
+  meet +inf cells sums to +inf, -inf cells to -inf, both to NaN, as a
+  reduction over the region's own cells gives (the generic per-region
+  loop, the JAX package's in-memory engine).
+  """
+  x = x.to(torch.float32)
+  n = x.shape[0]
+  pos, neg = torch.isposinf(x), torch.isneginf(x)
+  sums, wsum, nanw = ops.fused_region_sums(
+      torch.cat([torch.where(pos | neg, 0.0, x), pos.to(x.dtype),
+                 neg.to(x.dtype)]), region_w)
+  s, p, q = sums[:, :n], sums[:, n:2 * n] > 0, sums[:, 2 * n:] > 0
+  s = torch.where(p & q, torch.nan,
+                  torch.where(p, torch.inf, torch.where(q, -torch.inf, s)))
+  return s, wsum[:, :n], nanw[:, :n]
+
+
+def _region_reducer(plan, variables):
+  """Kernel 2, or its inf-safe form for the rows of a variable that may be
+  ±inf by design (the geostrophic winds on the equator)."""
+  if set(variables) & set(plan.get("infinite", ())):
+    return _inf_safe_region_sums
+  return ops.fused_region_sums
 
 
 def fused_group_bytes() -> int:
@@ -537,6 +581,7 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
       leftover.append(mname)
       continue
     rows, entries = [], []
+    reduce = _region_reducer(plan, fields.keys())
     for vname, v in fields.variables_dict().items():
       other = tuple(d for d in v.dims if d not in ("longitude", "latitude"))
       vv = v.transpose(*(other + ("longitude", "latitude")))
@@ -556,7 +601,7 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
       cur.append(r)
       cur_bytes += rb
     groups.append(cur)
-    parts = [ops.fused_region_sums(
+    parts = [reduce(
         g[0] if len(g) == 1 else _xp.namespace(*g).concatenate(g, axis=0),
         region_w) for g in groups]
     sums, wsum, nanw = (torch.cat([p[i] for p in parts], dim=-1)
@@ -751,14 +796,15 @@ def _expand_utime(obj, uinv):
 
 
 def _make_truth_chunk(f_chunk, truth, climatology, eval_config, data_config,
-                      unique_times=None):
-  """(forecast chunk, truth chunk): truth aligned to the forecast chunk
-  (its compact unique-time selection under the dedup, else valid-time or
-  time aligned), and the forecast replaced by a baseline where the config
-  asks for one."""
-  from weatherbench2_torch import evaluation
-
+                      unique_times=None, prob_clim=None):
+  """(forecast chunk, truth chunk, member index): truth aligned to the
+  forecast chunk (its compact unique-time selection under the dedup, else
+  valid-time or time aligned), and the forecast replaced by a baseline
+  where the config asks for one.  The probabilistic climatology's members
+  come at each distinct (day of year, hour) of the chunk's valid times; the
+  member index (else None) expands them to the chunk."""
   by_init = data_config.by_init
+  index = None
   if unique_times is not None:
     t_chunk = truth.sel(time=unique_times)
   elif by_init:
@@ -769,9 +815,9 @@ def _make_truth_chunk(f_chunk, truth, climatology, eval_config, data_config,
     f_chunk = evaluation.substitute_climatology_forecast(
         f_chunk, climatology, by_init)
   elif eval_config.evaluate_probabilistic_climatology:
-    raise NotImplementedError(
-        "the probabilistic climatology baseline is not ported yet "
-        "(ROADMAP A.9)")
+    members, index = prob_clim.compact_members(
+        f_chunk["valid_time" if by_init else "time"], list(f_chunk.keys()))
+    f_chunk = evaluation.with_forecast_coords(members, f_chunk)
   elif eval_config.evaluate_persistence:
     if not by_init:
       # as in the JAX package: the by-valid persistence forecast needs the
@@ -780,21 +826,24 @@ def _make_truth_chunk(f_chunk, truth, climatology, eval_config, data_config,
           "Persistence in streaming mode requires by-init format; "
           "evaluate_in_memory builds the by-valid persistence forecast.")
     f_chunk = evaluation.create_persistence_forecast_by_init(f_chunk, truth)
-  return f_chunk, t_chunk
+  return f_chunk, t_chunk, index
 
 
 def input_key(cfg):
   """What decides how a config's inputs are built (the baseline
   substitution, the derived variables by definition and not just by name,
-  against_analysis): configs with equal keys share one chunk stream."""
+  against_analysis): configs with equal keys share one chunk stream.  The
+  probabilistic climatology's years and hours count only where it is on
+  (the CLI gives them to five configs; the JAX package's key splits a
+  stream on them even where they are unused)."""
   return (
       cfg.against_analysis,
       cfg.evaluate_climatology,
       cfg.evaluate_persistence,
-      cfg.evaluate_probabilistic_climatology,
-      cfg.probabilistic_climatology_start_year,
-      cfg.probabilistic_climatology_end_year,
-      cfg.probabilistic_climatology_hour_interval,
+      (cfg.probabilistic_climatology_start_year,
+       cfg.probabilistic_climatology_end_year,
+       cfg.probabilistic_climatology_hour_interval)
+      if cfg.evaluate_probabilistic_climatology else None,
       tuple(sorted((n, type(dv).__qualname__, repr(dv))
                    for n, dv in cfg.derived_variables.items())),
   )
@@ -973,6 +1022,20 @@ def evaluate_streaming_multi(
   lead_slices = (list(_chunk_slices(forecast.sizes["lead_time"], lead_chunk))
                  if lead_chunk and "lead_time" in forecast.sizes
                  else [slice(None)])
+  # derived variables whose core dims hold the lead axis (precipitation
+  # accumulations) need the whole axis in every chunk, and a truth with it
+  lead_core = [name for name, dv in cfg0.derived_variables.items()
+               if {"lead_time", "prediction_timedelta"}
+               & dv.all_input_core_dims]
+  if lead_core and len(lead_slices) > 1:
+    raise ValueError(
+        f"derived variable {lead_core[0]!r} requires the full lead_time "
+        "axis per chunk; remove lead_time from input_chunks or drop the "
+        "derived variable")
+  infinite = {name for name, dv in cfg0.derived_variables.items()
+              if dv.may_be_infinite}
+  prob_clim = (evaluation.probabilistic_climatology(truth, cfg0)
+               if cfg0.evaluate_probabilistic_climatology else None)
 
   device_metrics_by = {
       c: {k: m for k, m in cfg.metrics.items() if m.supports_jit}
@@ -984,16 +1047,22 @@ def evaluate_streaming_multi(
   regions_by = {c: (cfg.regions or {None: None})
                 for c, cfg in eval_configs.items()}
   any_temporal = any(cfg.temporal_mean for cfg in eval_configs.values())
-  # host metrics need a chunk-shaped truth on the host: no dedup then
-  truth_dedup = (by_init and not any_host and "time" in truth.sizes
-                 and _UTIME not in truth.sizes)
+  # host metrics need a chunk-shaped truth on the host, and the lead-core
+  # derived variables a truth with the lead axis: no dedup then
+  truth_dedup = (by_init and not any_host and not lead_core
+                 and "time" in truth.sizes and _UTIME not in truth.sizes)
+  # the members of the probabilistic climatology are the forecast's
+  members_like = (forecast.assign_coords(number=np.arange(prob_clim.size))
+                  if prob_clim is not None and "number" not in forecast.sizes
+                  else forecast)
   plans_by = {}
   for cname in eval_configs:
     *plans, generic = _partition_fused(device_metrics_by[cname],
-                                       regions_by[cname], forecast)
+                                       regions_by[cname], members_like)
     for plan in plans:
       if plan is not None:
         plan["region_w_dev"] = torch.as_tensor(plan["region_w"], device=dev)
+        plan["infinite"] = infinite
     plans_by[cname] = (*plans, generic)
 
   def chunk_program(cname, f_c, t_c, prepared, time_mask, uinv):
@@ -1033,7 +1102,9 @@ def evaluate_streaming_multi(
 
   def prepare_one(ci, sl, lead_sl):
     """Host work for one chunk (slice, align, prepare, pad) and its
-    transfer; the chunk is read and moved once for all configs."""
+    transfer; the chunk is read and moved once for all configs.  Derived
+    variables and the probabilistic climatology's members are made on the
+    device after the copy, before the metrics prepare the chunk."""
     f_chunk = forecast.isel({chunk_dim: sl})
     if lead_sl != slice(None):
       f_chunk = f_chunk.isel(lead_time=lead_sl)
@@ -1057,8 +1128,15 @@ def evaluate_streaming_multi(
     ctx = (torch.cuda.stream(copy_stream) if copy_stream is not None
            else contextlib.nullcontext())
     with ctx:
-      f_chunk, t_chunk = _make_truth_chunk(f_chunk, truth, climatology, cfg0,
-                                           data_config, uniq)
+      f_chunk, t_chunk, members = _make_truth_chunk(
+          f_chunk, truth, climatology, cfg0, data_config, uniq, prob_clim)
+      if members is not None or cfg0.derived_variables:
+        f_chunk, t_chunk = xds.to_device((f_chunk, t_chunk), dev, copy_stream,
+                                         counter)
+        if members is not None:
+          f_chunk = f_chunk.isel({utils.MEMBER_PAIR: members})
+        f_chunk, t_chunk = evaluation.add_derived_variables(f_chunk, t_chunk,
+                                                            cfg0)
       host_chunks = None
       if any_host:
         f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)

@@ -13,7 +13,8 @@ from .core import (
 )
 from .io_netcdf import open_netcdf, to_netcdf
 from .io_zarr import create_zarr_template, open_zarr, to_zarr
-from .stream import RegionWriter, ShapeStub, stub_variable, to_device
+from .stream import (RegionWriter, ShapeStub, default_block, iter_windows,
+                     stub_variable, template_dataset, to_device)
 
 __all__ = [
     "DataArray",
@@ -31,7 +32,10 @@ __all__ = [
     "create_zarr_template",
     "RegionWriter",
     "ShapeStub",
+    "default_block",
+    "iter_windows",
     "stub_variable",
+    "template_dataset",
     "to_device",
     "where",
     "zeros_like",

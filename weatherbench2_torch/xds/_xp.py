@@ -37,6 +37,25 @@ def torch_dtype(dtype) -> torch.dtype:
   return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
 
 
+def like(values: np.ndarray, data):
+  """Float64 ``values`` (coefficients computed from coordinates) in
+  ``data``'s floating dtype, on its device: a float64 operand would turn a
+  float32 payload into float64, twice the bytes on the card."""
+  values = np.asarray(values)
+  if is_floating(data):
+    values = values.astype(torch.empty(0, dtype=data.dtype).numpy().dtype
+                           if is_tensor(data) else data.dtype)
+  return TORCH.asarray(values, data) if is_tensor(data) else values
+
+
+def nan_full(shape, data):
+  """NaNs of ``shape`` in ``data``'s dtype, on its device."""
+  if is_tensor(data):
+    return torch.full(tuple(shape), float("nan"), dtype=data.dtype,
+                      device=data.device)
+  return np.full(tuple(shape), np.nan, dtype=data.dtype)
+
+
 def _axes(axis):
   if axis is None:
     return None

@@ -789,6 +789,89 @@ class DataArray:
     fn = xp.nancumsum if skipna else xp.cumsum
     return self.copy(data=fn(data, axis=self.dims.index(dim)))
 
+  def drop_vars(self, names):
+    """Without the coordinates ``names``."""
+    names = [names] if isinstance(names, str) else list(names)
+    return DataArray(self.variable, name=self.name, coords={
+        k: v for k, v in self.coords.items() if k not in names})
+
+  def diff(self, dim, n=1):
+    """n-th forward difference along ``dim``; the dim's coordinates keep
+    the label of each difference's right element."""
+    ax = self.dims.index(dim)
+    data = _host(self.data)
+    for _ in range(n):
+      data = data[_axis_key(data.ndim, ax, slice(1, None))] - data[
+          _axis_key(data.ndim, ax, slice(None, -1))]
+    coords = {}
+    for cname, cv in self.coords.items():
+      if dim in cv.dims:
+        cv = cv.isel_var({dim: slice(n, None)})
+      coords[cname] = cv
+    return DataArray(Variable(self.dims, data), coords=coords, name=self.name)
+
+  def differentiate(self, dim):
+    """Derivative with respect to the dim's coordinate values: central
+    differences inside (non-uniform spacing, as pressure levels have),
+    one-sided at the two ends (numpy.gradient with edge_order=1, not
+    periodic in longitude)."""
+    ax = self.dims.index(dim)
+    x = _to_numpy(self.coords[dim].data).astype(np.float64)
+    f = _host(self.data)
+    if f.shape[ax] < 2:
+      raise ValueError("differentiate needs at least 2 points")
+    key = functools.partial(_axis_key, f.ndim, ax)
+
+    def coef(values):
+      shape = [1] * f.ndim
+      shape[ax] = len(values)
+      return _xp.like(np.reshape(values, shape), f)
+
+    h = np.diff(x)
+    hd, hs = h[1:], h[:-1]
+    interior = (f[key(slice(2, None))] * coef(hs / (hd * (hd + hs)))
+                + f[key(slice(1, -1))] * coef((hd - hs) / (hd * hs))
+                - f[key(slice(None, -2))] * coef(hd / (hs * (hd + hs))))
+    first = (f[key(slice(1, 2))] - f[key(slice(0, 1))]) / float(h[0])
+    last = (f[key(slice(-1, None))] - f[key(slice(-2, -1))]) / float(h[-1])
+    return self.copy(data=_xp.namespace(f).concatenate(
+        [first, interior, last], axis=ax))
+
+  def integrate(self, dim):
+    """Trapezoidal integral over the dim's coordinate values."""
+    ax = self.dims.index(dim)
+    x = _to_numpy(self.coords[dim].data).astype(np.float64)
+    f = _host(self.data)
+    shape = [1] * f.ndim
+    shape[ax] = len(x) - 1
+    dx = _xp.like(np.diff(x).reshape(shape), f)
+    pairs = 0.5 * (f[_axis_key(f.ndim, ax, slice(1, None))]
+                   + f[_axis_key(f.ndim, ax, slice(None, -1))])
+    data = _xp.namespace(f).sum(pairs * dx, axis=ax)
+    return DataArray(
+        Variable(tuple(d for d in self.dims if d != dim), data), name=self.name,
+        coords={k: v for k, v in self.coords.items() if dim not in v.dims})
+
+  def rolling_sum(self, dim, window):
+    """Trailing sum over ``window`` steps; the first ``window - 1`` are NaN
+    and a NaN spoils every window that holds it (xarray's
+    ``rolling().sum()`` with ``min_periods=window``)."""
+    ax = self.dims.index(dim)
+    f = _host(self.data)
+    n = f.shape[ax]
+    if window > n:
+      return self.copy(data=_xp.nan_full(f.shape, f))
+    xp = _xp.namespace(f)
+    acc = f
+    for k in range(1, window):
+      pad_shape = list(f.shape)
+      pad_shape[ax] = k
+      acc = acc + xp.concatenate(
+          [_xp.nan_full(pad_shape, f), f[_axis_key(f.ndim, ax,
+                                                  slice(None, n - k))]],
+          axis=ax)
+    return self.copy(data=acc)
+
   def weighted(self, weights: "DataArray"):
     return Weighted(self, weights)
 
@@ -797,6 +880,14 @@ class DataArray:
     if nm is None:
       raise ValueError("cannot convert unnamed DataArray to Dataset")
     return Dataset({nm: self}, coords=self.coords)
+
+
+def _axis_key(ndim, axis, index):
+  """A key that applies ``index`` on ``axis`` and takes every other axis
+  whole."""
+  key = [slice(None)] * ndim
+  key[axis] = index
+  return tuple(key)
 
 
 def _as_coord_variable(name, value) -> Variable:
@@ -1224,6 +1315,19 @@ class Dataset:
       else:
         new_vars[k] = v
     return Dataset(new_vars, dict(self._coords), self.attrs)
+
+  def drop_vars(self, names, errors="raise"):
+    """Without the variables and coordinates ``names``; a name that is
+    neither raises ``KeyError`` unless ``errors="ignore"``."""
+    names = [names] if isinstance(names, str) else list(names)
+    if errors == "raise":
+      missing = [n for n in names
+                 if n not in self._variables and n not in self._coords]
+      if missing:
+        raise KeyError(missing)
+    return Dataset(
+        {k: v for k, v in self._variables.items() if k not in names},
+        {k: v for k, v in self._coords.items() if k not in names}, self.attrs)
 
   def rename(self, mapping=None, **kw):
     mapping = dict(mapping or {})

@@ -1,13 +1,15 @@
-"""Zarr template region writes and the host-to-device transfer boundary.
+"""Streaming-transform scaffolding and the host-to-device transfer boundary.
 
-Counterpart of ``weatherbench2_tpu/xds/stream.py`` for the pieces the
-evaluation slice needs: ``RegionWriter`` writes large synthetic stores
-block by block with bounded host memory, and ``to_device`` moves a
+Counterpart of ``weatherbench2_tpu/xds/stream.py``: ``iter_windows``
+enumerates the blocks of a store, ``default_block`` sizes them,
+``template_dataset`` makes an allocation-free output template from one
+probe block, ``RegionWriter`` writes pieces into regions of it (so stores
+of any size stream with bounded host memory), and ``to_device`` moves a
 Dataset's payloads to the card through pinned memory on a side stream.
 """
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional, Sequence
+from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +51,79 @@ def stub_variable(dims: Sequence[str], sizes: Mapping[str, int],
   return core.Variable(
       tuple(dims), ShapeStub([sizes[d] for d in dims], dtype), attrs
   )
+
+
+def template_dataset(
+    probe: core.Dataset,
+    full_sizes: Mapping[str, int],
+    coords: Optional[Mapping[str, core.Variable]] = None,
+) -> core.Dataset:
+  """A full-size, allocation-free template from a probe block's output.
+
+  Every dim of ``full_sizes`` grows to its full extent, the others keep the
+  probe's size; ``coords`` gives the full-size coordinates of the grown
+  dims (a probe-sized coordinate along a grown dim raises).
+  """
+  tvars = {}
+  for name, v in probe.variables_dict().items():
+    sizes = {d: int(full_sizes.get(d, v.sizes[d])) for d in v.dims}
+    tvars[name] = stub_variable(v.dims, sizes, v.dtype, v.attrs)
+  out_coords = dict(probe.coords_dict())
+  out_coords.update(coords or {})
+  for k, v in out_coords.items():
+    for d in v.dims:
+      if d in full_sizes and v.sizes[d] != int(full_sizes[d]):
+        raise ValueError(
+            f"template coord {k!r} has size {v.sizes[d]} along {d!r} but "
+            f"the full extent is {full_sizes[d]}; pass a full-size coord.")
+  return core.Dataset(tvars, coords=out_coords, attrs=dict(probe.attrs))
+
+
+def iter_windows(sizes: Mapping[str, int],
+                 chunks: Mapping[str, int]) -> Iterator[dict[str, slice]]:
+  """Dicts of dim -> slice covering ``sizes`` in C order.
+
+  Dims absent from ``chunks`` (or with chunk -1/None, or one chunk that
+  covers them) are not iterated: each window spans them whole and leaves
+  them out of the dict.
+  """
+  dims = [d for d in chunks
+          if d in sizes and chunks[d] not in (-1, None)
+          and chunks[d] < sizes[d]]
+  for d in dims:
+    if int(chunks[d]) <= 0:
+      raise ValueError(f"chunk size for {d!r} must be positive, got "
+                       f"{chunks[d]}")
+
+  def rec(i: int) -> Iterator[dict[str, slice]]:
+    if i == len(dims):
+      yield {}
+      return
+    d, step = dims[i], int(chunks[dims[i]])
+    for start in range(0, sizes[d], step):
+      for rest in rec(i + 1):
+        yield {d: slice(start, min(start + step, sizes[d])), **rest}
+
+  yield from rec(0)
+
+
+# bytes of input per streamed block of the data-prep CLIs: the card takes
+# bigger blocks than the host
+BLOCK_BYTES = {"cuda": 2 ** 30, "cpu": 2 ** 28}
+
+
+def default_block(ds: core.Dataset, dim: str, device_type: str) -> int:
+  """Entries along ``dim`` that make a block of about ``BLOCK_BYTES`` for
+  the device type: the per-entry bytes of every variable that has ``dim``,
+  its other dims whole."""
+  target_bytes = BLOCK_BYTES[device_type]
+  per_step = 0
+  for v in ds.variables_dict().values():
+    if dim in v.dims:
+      per_step += np.dtype(v.dtype).itemsize * v.size // max(1, v.sizes[dim])
+  if per_step <= 0:
+    return int(ds.sizes.get(dim, 1))
+  return max(1, int(target_bytes // per_step))
 
 
 class RegionWriter:
