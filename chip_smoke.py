@@ -78,7 +78,20 @@ exits non-zero without the final line):
            with its default list, then compute_zonal_energy_spectrum of the
            official thirteen variables, time-averaged; the first day card
            against CPU for both CLIs, the week's blocks against the day's
-           run, Parseval, and cuFFT's time beside its byte bound.
+           run, Parseval, and cuFFT's time beside its byte bound;
+  e2e_prep the three data-prep twins of regridding, quantiles and
+           climatology at full width: (1) regrid of e2e_derived run 3's
+           0.25-degree store to WB2's 1.5-degree grid (conservative; then
+           bilinear and nearest on 2m_temperature), the first time block
+           card against CPU, the area-weighted mean kept, a target cell
+           without valid data NaN; (2) compute_quantiles of a 1.5-degree
+           year (2m_temperature, geopotential at 13 levels), a latitude
+           band against np.nanquantile; (3) compute_climatology with the
+           official settings (1990-2019, 6-hourly, 61-day window; mean,
+           std, SEEPS, quantiles) of 2m_temperature and 24 h
+           precipitation, one longitude card against CPU; each run's wall,
+           host share, bytes read and moved, peak memory, and the library
+           calls' CUDA-event times beside their bounds.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
@@ -503,10 +516,10 @@ def path_cases(gen):
 def infinite_cases(gen):
   """Infinite inputs and squares that overflow, through every core.
 
-  Every core and the plain version must agree on which outputs are not
-  finite (an infinity times a zero weight is NaN in all of them; the
-  tensor-core core may give NaN where the others give an infinity) and,
-  within the tolerance, on the rest: the rows without such values.
+  Every core and the plain version must put +inf, -inf and NaN in the same
+  places (an infinity times a zero weight is NaN in all of them; the
+  tensor-core core's nonfinite_fixup gives back what its split loses) and
+  agree, within the tolerance, on the rest: the rows without such values.
   """
   import torch
 
@@ -537,17 +550,18 @@ def infinite_cases(gen):
         got = fn(*args)
         for g, p, sc, out in zip(got, want, scale, NAMES):
           finite = torch.isfinite(p)
-          if not torch.equal(torch.isfinite(g), finite):
-            raise AssertionError(
-                f"{name} R={n_regions} core={which}: {out} is finite "
-                "where the plain version is not, or the reverse")
+          for test in (torch.isposinf, torch.isneginf, torch.isnan):
+            if not torch.equal(test(g), test(p)):
+              raise AssertionError(
+                  f"{name} R={n_regions} core={which}: {out} differs from "
+                  f"the plain version in {test.__name__}")
           zero = torch.zeros_like(p)
           compare([torch.where(finite, g, zero)],
                   [torch.where(finite, p, zero)],
                   [torch.where(finite, sc, zero)], [out])
         count += 1
   emit("kernels", infinite_cases=count, regions=[3, 13],
-       check="outputs not finite exactly where the plain version's are not; "
+       check="+inf, -inf and NaN exactly where the plain version has them; "
              "the others within the tolerance")
 
 
@@ -828,7 +842,8 @@ def profiled(run):
   copy_us = sum(v for k, v in kernels.items() if k.lower().startswith(
       ("memcpy", "memset")))
   kernel_us = sum(kernels.values()) - copy_us
-  own_us = sum(v for k, v in kernels.items() if "pass1_" in k or "pass2" in k)
+  own_us = sum(v for k, v in kernels.items()
+               if any(s in k for s in ("pass1_", "pass2", "nonfinite_fixup")))
   top = sorted(operators.items(), key=lambda kv: -kv[1])[:8]
   return {
       "wall_s": stats["wall_s"],
@@ -1396,7 +1411,10 @@ def run_cli(args, expect_chunks, per_chunk):
 
   from weatherbench2_torch.cli import evaluate as cli
 
+  from weatherbench2_torch.xds import io_zarr
+
   reset_launches()
+  io_zarr.READS.reset()
   torch.cuda.synchronize()
   torch.cuda.reset_peak_memory_stats()
   stats = cli.main(args)
@@ -1406,6 +1424,7 @@ def run_cli(args, expect_chunks, per_chunk):
   launches = read_launches(stats["chunks"], *per_chunk)
   return {"wall_s": stats["wall_s"], "chunks": stats["chunks"],
           "h2d_gib": stats["h2d_bytes"] / 2**30,
+          "read_gib": io_zarr.READS.bytes / 2**30,
           "wait_host_s": stats["wait_host_s"],
           "wait_host_share": stats["wait_host_s"] / stats["wall_s"],
           "wait_device_s": stats["wait_device_s"],
@@ -2587,6 +2606,431 @@ def spectra_run(root):
   return out
 
 
+# -- e2e_prep: the data-prep twins of regridding, quantiles, climatology --------
+
+PREP_GRID = ["--latitude_nodes=121", "--longitude_nodes=240",
+             "--latitude_spacing=EQUIANGULAR_WITH_POLES",
+             "--longitude_scheme=START_AT_ZERO"]  # WB2's 1.5-degree grid
+PREP_LEVELS = (50, 100, 150, 200, 250, 300, 400, 500, 600, 700, 850, 925,
+               1000)  # the 13 levels of WB2's ERA5 stores
+PREP_RESOLUTION = 1.5  # degrees: WB2's 240x121 grid
+PREP_QUANTILE_YEAR = 2020
+PREP_BAND = slice(58, 64)  # latitudes -3 to 4.5, the NaN cells at 0
+PREP_QUANTILES = (0.1, 0.5, 0.9)
+CLIM_YEARS = (1990, 2019)  # the official climatology's span
+CLIM_VARIABLES = ("2m_temperature", "total_precipitation_24hr")
+CLIM_QUANTILES = ENSEMBLE_QUANTILES  # the quantiles e2e_ensemble reads
+CLIM_TOLERANCE = (
+    f"every statistic: {E2E_TOLERANCE} (the same float32 torch ops on the "
+    "card and on the CPU; the weighted quantiles' cumulative weights in "
+    "float64 on both)")
+CLIM_CHECK_TILE = {"longitude": slice(0, 1)}  # card vs CPU: 121 pixels
+PREP_CUTS = [
+    "regrid: 28 six-hourly times of 2020 (as e2e_derived run 3), not a "
+    "year; bilinear and nearest on 2m_temperature alone",
+    "compute_quantiles: none (2020, 1464 times, 14 fields at 1.5 degrees)",
+    "compute_climatology: none (1990-2019, 43 830 times, two variables at "
+    "1.5 degrees); card against CPU on one longitude (121 pixels)"]
+
+
+def prep_counts(counts):
+  """A CLI's counts with bytes in GiB and the host's share of the wall
+  (reading and writing, while the card waits)."""
+  out = {k.replace("_bytes", "_gib"): v / 2**30 if k.endswith("_bytes")
+         else v for k, v in counts.items()}
+  out["host_wait_share"] = (counts["read_s"] + counts["write_s"]) / counts[
+      "wall_s"]
+  return out
+
+
+def prep_cli(main, argv):
+  """One data-prep CLI run on the card: its counts, the bytes read from
+  the store, the peak device memory; the reduction kernels must not run."""
+  import torch
+
+  from weatherbench2_torch.xds import io_zarr
+
+  reset_launches()
+  io_zarr.READS.reset()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  counts = prep_counts(main(argv))
+  read_launches(1, 0, 0)
+  counts["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+  return counts
+
+
+def bound_ms(nbytes, flops):
+  """The least time of a call: its bytes at the HBM rate or its fp32
+  operations at the CUDA cores' rate, whichever is longer."""
+  by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+  by_ops = flops / FP32_FLOPS_PER_S * 1e3
+  return {"bound_ms": max(by_bytes, by_ops),
+          "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+          "bytes": nbytes, "operations": flops}
+
+
+def write_grid_store(path, variables, times, resolution, levels, gen,
+                     values, chunk):
+  """A truth-like store of ``variables`` ({name: has levels}) at
+  ``times``, values drawn on the card by ``values(name, shape, gen,
+  chunk_times)``, written in time chunks of ``chunk`` (nothing the size of
+  the store is held)."""
+  import torch
+
+  from weatherbench2_torch import xds
+
+  n_lat, n_lon = round(180 / resolution) + 1, round(360 / resolution)
+  coords = {"time": times, "latitude": np.linspace(-90, 90, n_lat),
+            "longitude": np.linspace(0, 360, n_lon, endpoint=False)}
+  sizes = {"time": len(times), "latitude": n_lat, "longitude": n_lon}
+  if any(variables.values()):
+    coords["level"] = np.array(levels)
+    sizes["level"] = len(levels)
+  dims = {k: ("time",) + (("level",) if has else ()) + ("longitude",
+                                                         "latitude")
+          for k, has in variables.items()}
+  template = xds.Dataset({k: xds.stub_variable(d, sizes, np.float32)
+                          for k, d in dims.items()}, coords=coords)
+  writer = xds.RegionWriter(path, template, chunks={"time": chunk})
+  for start in range(0, len(times), chunk):
+    sl = slice(start, min(start + chunk, len(times)))
+    for name, d in dims.items():
+      shape = tuple(sl.stop - sl.start if k == "time" else sizes[k]
+                    for k in d)
+      writer.write_array(name, (sl,),
+                         values(name, shape, gen, times[sl]).cpu().numpy())
+  writer.finish()
+  return path
+
+
+def regrid_timing(regridder, block):
+  """CUDA-event medians of the regridding calls on one field and on one
+  time block, beside their bounds."""
+  import torch
+
+  from weatherbench2_torch import xds
+
+  dev = torch.device("cuda")
+  field = xds.to_device(block, dev)["2m_temperature"].data
+  one = field[0].contiguous()
+  n_in, n_out = one.numel(), int(np.prod(regridder.target.shape))
+  out = {}
+  if hasattr(regridder, "_lat_weights"):
+    lat_w = torch.as_tensor(regridder._lat_weights, device=dev)
+    lon_w = torch.as_tensor(regridder._lon_weights, device=dev)
+    (a, b), (c, d) = lon_w.shape, lat_w.shape
+    macs = b * d * c + a * b * c  # latitude contracted first
+    out["matmul_pair_per_field"] = {
+        "ms": cuda_time_ms(lambda x: torch.matmul(lon_w, torch.matmul(
+            x, lat_w.T)), [(one,)]),
+        **bound_ms(4 * (n_in + n_out + lat_w.numel() + lon_w.numel()),
+                   2 * macs),
+        "library_call": "torch.matmul (two, float32)"}
+  out["regrid_array_per_field"] = {
+      "ms": cuda_time_ms(regridder.regrid_array, [(one,)]),
+      **bound_ms(4 * (n_in + n_out), 0)}
+  out["regrid_array_block"] = {
+      "shape": list(field.shape),
+      "ms": cuda_time_ms(regridder.regrid_array, [(field,)]),
+      **bound_ms(4 * field.shape[0] * (n_in + n_out), 0)}
+  return out
+
+
+def area_mean(x, lat, includes_poles=True):
+  """Cell-area weighted mean of (..., longitude, latitude) fields."""
+  from weatherbench2_torch import regridding
+
+  bounds = regridding._cell_bounds_lat(np.asarray(lat), includes_poles)
+  w = regridding._lat_area_from_bounds(bounds[:-1], bounds[1:])
+  return (np.asarray(x, np.float64).mean(-2) * w).sum(-1) / w.sum()
+
+
+def regrid_run(root):
+  """Run 1: conservative regridding of e2e_derived run 3's 0.25-degree
+  store (the official thirteen variables, 28 times) to WB2's 1.5-degree
+  grid; the first time block card against CPU; the area-weighted means
+  kept; a target cell without valid data NaN.  Then bilinear and nearest
+  on a 2m_temperature store of the same times."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import regrid as cli
+
+  out = {}
+  t0 = time.perf_counter()
+  wide = write_wide_store(root)
+  # the four southernmost rows (-90 to -89.25) of the first time: the
+  # target row at -90 covers no other source cell, so it has no valid data
+  src = xds.open_zarr(wide, lazy=True)
+  t2 = src["2m_temperature"]
+  key = tuple(0 if d == "time" else slice(0, 4) if d == "latitude"
+              else slice(None) for d in t2.dims)
+  shape = [1 if d == "time" else 4 if d == "latitude" else t2.sizes[d]
+           for d in t2.dims]
+  xds.write_zarr_region(wide, "2m_temperature", key,
+                        np.full(shape, np.nan, np.float32))
+  t2_path = os.path.join(root, "t2m.zarr")
+  xds.to_zarr(xds.read(xds.open_zarr(wide, lazy=True)[["2m_temperature"]]),
+              t2_path, chunks={"time": 4})
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib({"wide": wide})
+  for method, path in (("conservative", wide), ("bilinear", t2_path),
+                       ("nearest", t2_path)):
+    dst = os.path.join(root, f"{method}.zarr")
+    argv = [f"--input_path={path}", f"--output_path={dst}", *PREP_GRID,
+            f"--regridding_method={method}"]
+    run = out[method] = prep_cli(cli.main, argv)
+    emit("e2e_prep_run", run="regrid", method=method, **run)
+    # the first block: card against the port's CPU functions
+    source = xds.open_zarr(path, lazy=True)
+    block = xds.read(source.isel(time=slice(0, xds.default_block(
+        source, "time", "cuda"))))
+    regridder = cli.make_regridder(source, cli.build_parser().parse_args(
+        argv))
+    want = regridder.regrid_dataset(xds.to_device(block, torch.device("cpu")))
+    want = want.copy(data={k: v.data.numpy()
+                           for k, v in want.variables_dict().items()})
+    got = xds.open_zarr(dst, lazy=True).isel(
+        time=slice(0, block.sizes["time"]))
+    run["first_block_card_vs_cpu"] = {
+        **compare_stores(got, want, f"{method}: card vs CPU"),
+        "times": block.sizes["time"], "tolerance": E2E_TOLERANCE}
+    if method == "conservative":
+      res = xds.open_zarr(dst)["2m_temperature"].transpose(
+          "time", "longitude", "latitude").values
+      if not (np.isnan(res[0, :, 0]).all() and np.isfinite(res[0, :, 1:]).all()
+              and np.isfinite(res[1:]).all()):
+        raise AssertionError("conservative: NaN where a target cell has "
+                             "valid data, or none where it has none")
+      source_t2 = xds.open_zarr(path)["2m_temperature"].transpose(
+          "time", "longitude", "latitude").values[1:]
+      run["area_mean"] = hold(
+          area_mean(res[1:], regridder.target.latitudes),
+          area_mean(source_t2, regridder.source.latitudes),
+          "area-weighted mean of 2m_temperature, source and target")
+      run["nan_cells"] = "target row -90 of the first time: all NaN"
+    run["timing"] = regrid_timing(regridder, block.isel(time=slice(0, 4)))
+  return out
+
+
+def quantile_timing(path):
+  """The tile's pencil sort: CUDA-event medians of the quantile of one
+  latitude tile of geopotential (the CLI's call) and of its torch.sort,
+  beside the bound of the quantile (the tile read once, the quantiles
+  written once)."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.xds import _xp
+
+  ds = xds.open_zarr(path, lazy=True)
+  band = xds.default_block(ds, "latitude", "cuda")
+  tile = xds.to_device(xds.read(ds[["geopotential"]].isel(
+      latitude=slice(0, band))), torch.device("cuda"))["geopotential"].data
+  q = np.asarray(PREP_QUANTILES)
+  pencils = tile.numel() // tile.shape[0]
+  moved = tile.permute(1, 2, 3, 0).reshape(pencils, tile.shape[0])
+  return {"shape": list(tile.shape), "pencils": pencils,
+          "quantile_ms": cuda_time_ms(
+              lambda x: _xp.quantile(x, q, (0,), True), [(tile,)]),
+          "sort_ms": cuda_time_ms(lambda x: torch.sort(x, dim=-1),
+                                  [(moved,)]),
+          **bound_ms(4 * (tile.numel() + len(q) * pencils), 0),
+          "library_call": "torch.sort (float32 keys, int64 indices)"}
+
+
+def quantiles_run(root):
+  """Run 2: compute_quantiles over 2020 of a 1.5-degree store (2 m
+  temperature, geopotential at 13 levels; a few NaNs), skipna, three
+  quantiles; a latitude band card against np.nanquantile."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import compute_quantiles as cli
+
+  import torch
+
+  out = {}
+  t0 = time.perf_counter()
+  times = np.arange(np.datetime64(f"{PREP_QUANTILE_YEAR}-01-01", "ns"),
+                    np.datetime64(f"{PREP_QUANTILE_YEAR + 1}-01-01", "ns"),
+                    np.timedelta64(6, "h"))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 7)
+
+  def values(name, shape, g, _):
+    x = torch.randn(shape, generator=g, device="cuda")
+    if name == "geopotential":
+      return 49050.0 + 981.0 * x
+    x = 280.0 + 10.0 * x
+    x[:, 10:20, PREP_BAND.start + 2] = torch.nan  # cells with no data
+    return x
+
+  path = write_grid_store(
+      os.path.join(root, "year.zarr"),
+      {"2m_temperature": False, "geopotential": True}, times,
+      PREP_RESOLUTION, PREP_LEVELS, gen, values, 61)
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib({"year": path})
+  dst = os.path.join(root, "quantiles.zarr")
+  out["main"] = prep_cli(cli.main, [
+      f"--input_path={path}", f"--output_path={dst}", "--dim=time",
+      "--skipna", "--quantiles=" + ",".join(map(str, PREP_QUANTILES))])
+  emit("e2e_prep_run", run="compute_quantiles", **out["main"])
+  band = PREP_BAND
+  got = xds.open_zarr(dst).isel(latitude=band)
+  src = xds.open_zarr(path, lazy=True).isel(latitude=band)
+  errs = {}
+  for name in ("2m_temperature", "geopotential"):
+    x = np.asarray(xds.read(src[[name]])[name].values)
+    want = np.nanquantile(x, PREP_QUANTILES, axis=0)
+    g = got[name]
+    g = np.asarray(g.transpose("quantile", *src[name].dims[1:]).values,
+                   np.float64)
+    errs[name] = hold(g, want.astype(np.float64),
+                      f"{name}: card vs np.nanquantile")
+  out["band_card_vs_numpy"] = {"latitudes": [band.start, band.stop],
+                               "errors": errs, "tolerance": E2E_TOLERANCE}
+  out["timing"] = quantile_timing(path)
+  return out
+
+
+def climatology_timing(path):
+  """The circulant products and one day block of the window quantile at
+  the run's shapes (one hour of 2m_temperature), beside their bounds."""
+  import torch
+
+  from weatherbench2_torch import utils, xds
+  from weatherbench2_torch.ops import climatology as clim_ops
+
+  dev = torch.device("cuda")
+  ds = xds.open_zarr(path, lazy=True)[["2m_temperature"]].sel(
+      time=slice(str(CLIM_YEARS[0]), str(CLIM_YEARS[1])))
+  hour = utils.select_hour(xds.to_device(xds.read(ds), dev), 0)
+  stacked = utils.stack_years(hour)["2m_temperature"].data
+  n_years, n_days = stacked.shape[:2]
+  npix = stacked[0, 0].numel()
+  w = utils.create_window_weights(61).values
+  m = torch.as_tensor(clim_ops.circulant_window_matrix(w, n_days), device=dev)
+  flat = torch.nan_to_num(stacked.reshape(n_years, n_days, npix)).sum(0)
+  out = {"stacked_shape": list(stacked.shape)}
+  out["circulant_product"] = {
+      "ms": cuda_time_ms(lambda a: m @ a, [(flat,)]),
+      **bound_ms(4 * (m.numel() + 2 * flat.numel()),
+                 2 * n_days * n_days * npix),
+      "library_call": "torch.matmul (float32)"}
+  out["rolling_mean"] = {
+      "ms": cuda_time_ms(lambda x: clim_ops.device_rolling_clim(x, w),
+                         [(stacked,)]),
+      **bound_ms(4 * (stacked.numel() + n_days * npix),
+                 2 * 2 * n_days * n_days * npix)}
+  # one day block as the CLI runs it: the pool of its days, sorted
+  pool = n_years * 61
+  day_block = min(n_days, clim_ops.quantile_day_block(npix, pool, 4, "cuda"))
+  # (the window wraps within the block's days: the same work as a block
+  # of the year)
+  values = stacked[:, :day_block].reshape(n_years, day_block, npix)
+  # comparisons of a sort of each pencil: pool x log2(pool) per pencil
+  compares = day_block * npix * pool * float(np.log2(pool))
+  out["window_quantile_day_block"] = {
+      "days": day_block, "pool": pool,
+      "ms": cuda_time_ms(lambda x: clim_ops.device_window_quantile(
+          x, 61, CLIM_QUANTILES, w),
+          [(values,)]),
+      **bound_ms(4 * (values.numel() + len(CLIM_QUANTILES) * day_block
+                      * npix), compares),
+      "library_call": "torch.sort (stable, float32 keys) and gathers"}
+  return out
+
+
+def climatology_run(root):
+  """Run 3: compute_climatology with the official climatology's settings
+  (1990-2019, 6-hourly, a 61-day window) of 2m_temperature and 24 h
+  precipitation at 1.5 degrees: mean, std, SEEPS and the quantiles that
+  e2e_ensemble reads; one longitude card against the port's CPU
+  functions."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import compute_climatology as cli
+
+  out = {"years": list(CLIM_YEARS)}
+  t0 = time.perf_counter()
+  times = np.arange(np.datetime64(f"{CLIM_YEARS[0]}-01-01", "ns"),
+                    np.datetime64(f"{CLIM_YEARS[1] + 1}-01-01", "ns"),
+                    np.timedelta64(6, "h"))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 8)
+
+  def values(name, shape, g, chunk_times):
+    x = torch.randn(shape, generator=g, device="cuda")
+    if name == "2m_temperature":  # a seasonal cycle of 15 K, noise of 5 K
+      day = (chunk_times - chunk_times.astype("datetime64[Y]")) / (
+          np.timedelta64(1, "D"))
+      season = torch.as_tensor(15.0 * np.cos(2 * np.pi * day / 365.25),
+                               dtype=torch.float32, device="cuda")
+      return 280.0 + season[:, None, None] + 5.0 * x
+    return (1e-3 * x).clamp(min=0.0)  # half the values dry
+
+  path = write_grid_store(
+      os.path.join(root, "truth.zarr"), dict.fromkeys(CLIM_VARIABLES, False),
+      times, PREP_RESOLUTION, (), gen, values, 1461)
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib({"truth": path})
+  dst = os.path.join(root, "climatology.zarr")
+  argv = [f"--input_path={path}", f"--output_path={dst}",
+          "--frequency=hourly", "--hour_interval=6", "--window_size=61",
+          f"--start_year={CLIM_YEARS[0]}", f"--end_year={CLIM_YEARS[1]}",
+          "--statistics=mean,std,seeps,quantile",
+          "--quantiles=" + ",".join(map(str, CLIM_QUANTILES))]
+  out["main"] = prep_cli(cli.main, argv)
+  emit("e2e_prep_run", run="compute_climatology", **out["main"])
+  got = xds.open_zarr(dst)
+  for k in got.keys():
+    if not np.isfinite(got[k].values).all():
+      raise AssertionError(f"climatology {k} is not finite")
+  # one longitude on the CPU through the CLI's own functions
+  t0 = time.perf_counter()
+  args = cli.build_parser().parse_args(argv + ["--device=cpu"])
+  run = cli._Run(args)
+  tile = xds.to_device(xds.read(xds.open_zarr(path, lazy=True).sel(
+      time=run.clim_years).isel(CLIM_CHECK_TILE)), torch.device("cpu"))
+  pieces = [run.stat(tile, s, list(CLIM_QUANTILES)) for s in
+            ("mean", "std", "quantile")]
+  pieces = [pieces[0]] + [
+      p.rename({v: f"{v}_{s}" for v in p.keys()})
+      for p, s in zip(pieces[1:], ("std", "quantile"))]
+  pieces.append(run.seeps(tile, "total_precipitation_24hr", 0.25))
+  want = xds.merge(pieces)
+  want = want.copy(data={k: v.data.numpy()
+                         for k, v in want.variables_dict().items()})
+  out["cpu_tile_s"] = time.perf_counter() - t0
+  out["tile_card_vs_cpu"] = {
+      **compare_stores(got.isel(CLIM_CHECK_TILE), want, "card vs CPU"),
+      "tile": "longitude 0, every latitude", "tolerance": CLIM_TOLERANCE}
+  out["timing"] = climatology_timing(path)
+  return out
+
+
+def e2e_prep_phase():
+  """The data-prep twins at full width: regridding 0.25 to 1.5 degrees,
+  the quantiles of a year, the official climatology; each run in a
+  temporary directory of its own."""
+  import torch
+
+  for cut in PREP_CUTS:
+    print(f"e2e_prep cut: {cut}", flush=True)
+  out = {"cuts": PREP_CUTS}
+  t0 = time.perf_counter()
+  for run, fn in (("regrid", regrid_run), ("compute_quantiles", quantiles_run),
+                  ("compute_climatology", climatology_run)):
+    with tempfile.TemporaryDirectory(prefix=f"wb2_chip_smoke_{run}_") as root:
+      out[run] = fn(root)
+    torch.cuda.empty_cache()
+    emit("e2e_prep_step", run=run, seconds=time.perf_counter() - t0)
+  emit("e2e_prep", **out)
+  return out
+
+
 def e2e_derived_phase():
   """Derived variables, the probabilistic-climatology baseline and the
   spectra pipeline, each at full width: three runs, each in a temporary
@@ -2612,7 +3056,7 @@ def e2e_derived_phase():
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
           "e2e_ensemble": e2e_ensemble_phase,
-          "e2e_derived": e2e_derived_phase}
+          "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase}
 
 
 def main(argv):

@@ -5,8 +5,9 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 kernel_lab.py [MODE ...]
 
-with modes chain, blocks, profile, stream (all when none is named), at the
-official 0.25-degree shape (126, 1 038 240) with thirteen regions:
+with modes chain, blocks, profile, stream (all four when none is named),
+at the official 0.25-degree shape (126, 1 038 240) with thirteen regions,
+and fixup:
 
   chain    builds csrc/reductions.cu with WB2_CHAIN_STAGES = 1, 2, 4, 16
            and 4096 (stages of 32 cells whose MMAs run into one tensor-core
@@ -18,14 +19,22 @@ official 0.25-degree shape (126, 1 038 240) with thirteen regions:
   profile  device time of pass 1 and pass 2 apart (torch.profiler);
   stream   what the card's memory gives plain streaming reads of the same
            arrays (torch.sum of one and of three arrays, float32), as a
-           measured ceiling beside the data-sheet rate.
+           measured ceiling beside the data-sheet rate;
+  fixup    the tensor-core core with its non-finite repair
+           (nonfinite_fixup) in the shipped build against builds of
+           earlier sources, each given as build/before/NAME.cu (its C
+           entry points take row flags if its text names them), at each
+           tensor-core shape that chip_smoke.py times, in turns (each
+           earlier build, the shipped one, then the same backwards).
 
 Each line is one JSON object; the first names the card and its power limit.
 The package itself has one build and one plan: the variants are built and
 launched here, through the same C entry points.
 """
+import ctypes
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -195,6 +204,76 @@ def stream(f, t, c, w):
        three_arrays_ms=three, three_arrays_tb_s=3 * nbytes / three / 1e9)
 
 
+# (kind, rows, cols, regions) of the tensor-core launches chip_smoke.py times
+FIXUP_SHAPES = [
+    ("det", 1008, 29040, 13), ("det", 1008, 29040, 16),
+    ("det", 336, 29040, 16), ("det", 63, 1038240, 13),
+    ("det_clim", 126, 1038240, 13),
+    ("region", 4032, 29040, 3), ("region", 4032, 29040, 13),
+    ("region", 7056, 29040, 16), ("region", 9072, 29040, 16),
+    ("region", 6048, 29040, 16), ("region", 336, 29040, 16),
+    ("region", 630, 29040, 16), ("region", 210, 29040, 16),
+    ("region", 2856, 29040, 16), ("region", 126, 1038240, 13)]
+
+
+def bind_before(path):
+  """The library built from an earlier source, and whether its entry
+  points take a row-flags scratch pointer before the stream (typed with
+  it where they do)."""
+  flags = "row_flags" in path.read_text()
+  lib_path = _build.BUILD_DIR / f"libwb2kernels_{path.stem}.so"
+  os.makedirs(_build.BUILD_DIR, exist_ok=True)
+  subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
+                  "-o", str(lib_path), str(path)], check=True)
+  lib = ctypes.CDLL(str(lib_path))
+  for name, argtypes in _build._SIGNATURES.items():
+    fn = getattr(lib, name)
+    fn.argtypes = (argtypes[:-1] + [ctypes.c_void_p] + argtypes[-1:]
+                   if flags else argtypes)
+    fn.restype = ctypes.c_int
+  return lib, flags
+
+
+def fixup(f, t, c, w):
+  befores = {p.stem: bind_before(p)
+             for p in sorted(pathlib.Path("build", "before").glob("*.cu"))}
+  libs = {**befores, "shipped": (_build.library(), False)}
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(11)
+  for kind, rows, cols, n_regions in FIXUP_SHAPES:
+    n_lon = 1440 if cols == 1038240 else 240
+    wr = torch.as_tensor(region_weights(n_lon, cols // n_lon, n_regions),
+                         device="cuda")
+    x = 5e4 + 3e3 * torch.randn(rows, cols, generator=gen, device="cuda")
+    arrays = {"region": (x,), "det": (x, x + 1e2, None),
+              "det_clim": (x, x + 1e2, x - 3e2)}[kind]
+    flags = torch.empty(2 * rows + 1, dtype=torch.int32, device="cuda")
+
+    def run(lib, takes_flags):
+      k = (red.KIND_REGION if kind == "region" else
+           red.KIND_DET if kind == "det" else red.KIND_DET_CLIM)
+      plan = red.launch_plan(k, rows, cols, n_regions, core=red.CORE_MMA)
+      partial = torch.empty(plan.partial_shape, device="cuda")
+      out = torch.empty(plan.out_shape, device="cuda")
+      ptrs = [None if a is None else a.data_ptr() for a in arrays]
+      tail = (rows, cols, n_regions, red.CORE_MMA, plan.n_splits,
+              plan.split_len, partial.data_ptr(), out.data_ptr(),
+              *([flags.data_ptr()] if takes_flags else []),
+              torch.cuda.current_stream().cuda_stream)
+      if kind == "region":
+        err = lib.wb2_fused_region_sums(ptrs[0], wr.data_ptr(), *tail)
+      else:
+        err = lib.wb2_fused_deterministic_sums(*ptrs, wr.data_ptr(), *tail)
+      _build.check(err, "kernel_lab fixup launch")
+
+    times = {name: [] for name in libs}
+    names = list(libs)
+    for name in names + names[::-1]:
+      times[name].append(time_ms(lambda: run(*libs[name]), n=25))
+    emit(what="non-finite repair", kernel=kind, shape=[rows, cols],
+         regions=n_regions, **{f"{name}_ms": v for name, v in times.items()})
+
+
 def main(argv):
   smi = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -206,7 +285,7 @@ def main(argv):
   w = torch.as_tensor(region_weights(*GRID, N_REGIONS), device="cuda")
   for mode in argv or ("chain", "blocks", "profile", "stream"):
     {"chain": chain, "blocks": blocks, "profile": profile,
-     "stream": stream}[mode](f, t, c, w)
+     "stream": stream, "fixup": fixup}[mode](f, t, c, w)
 
 
 if __name__ == "__main__":

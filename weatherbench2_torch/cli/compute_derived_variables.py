@@ -20,8 +20,6 @@ variables whose inputs the store lacks are skipped.
 import ast
 import time
 
-import numpy as np
-
 from weatherbench2_torch import derived_variables as dvs
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import flag_utils
@@ -80,8 +78,7 @@ def _add_derived(block: xds.Dataset, to_compute, dev,
   """``block`` (read once) with the derived variables, computed on ``dev``
   from the base variables and brought back to the host; ``counts`` gains
   the bytes moved each way."""
-  out = block.copy(data={k: np.asarray(v.data)
-                         for k, v in block.variables_dict().items()})
+  out = xds.read(block)
   bases = list(dict.fromkeys(v for _, dv in to_compute
                              for v in dv.base_variables if v in out))
   on_device = xds.to_device(out[bases], dev, counter=counts)

@@ -125,3 +125,27 @@ def dataset_from_arrays(variables: Mapping[str, tuple],
               for k, v in coords.items()},
       attrs=attrs,
   )
+
+
+def grid_from_reference(grid):
+  """A reference ``regridding.Grid`` as the port's: the same numpy
+  coordinates and flags."""
+  from weatherbench2_torch import regridding
+
+  return regridding.Grid(
+      longitudes=np.asarray(grid.longitudes),
+      latitudes=np.asarray(grid.latitudes),
+      periodic=bool(grid.periodic), includes_poles=bool(grid.includes_poles))
+
+
+def regridder_from_reference(regridder):
+  """A reference ``Regridder`` (nearest, bilinear or conservative) as the
+  port's, by class name, between the same grids."""
+  from weatherbench2_torch import regridding
+
+  cls = getattr(regridding, type(regridder).__name__, None)
+  if not (isinstance(cls, type) and issubclass(cls, regridding.Regridder)):
+    raise NotImplementedError(
+        f"{type(regridder).__name__} has no counterpart in the port")
+  return cls(grid_from_reference(regridder.source),
+             grid_from_reference(regridder.target))

@@ -51,14 +51,20 @@
 //    runs for one 32-cell stage only (12 MMAs into a zeroed accumulator),
 //    which is then added to the thread's fp32 sum on the CUDA cores.
 //    The statistics themselves are fp32 on the CUDA cores (stats_of).
-//    Range: the split is of finite numbers. An infinite weight or
-//    statistic (an infinite input, or a square that overflows), or one
-//    within 2^-12 of the largest float, has hi = inf and lo = -inf or NaN,
-//    and a weight that is a TF32 number has lo = 0, which times inf is NaN:
-//    this core then returns NaN where the CUDA-core cores and an fp32
-//    matmul return inf (they too return NaN for every region that has a
-//    zero weight in that row, 0 x inf). Either way the output is not
-//    finite; rows without such values are not touched by it.
+//    Range: the split is of finite numbers. An infinite statistic (an
+//    infinite input, or a square that overflows) has hi = inf and lo = NaN,
+//    so this core's sums of that (statistic, row) come out NaN in every
+//    region, where an fp32 matmul (and the CUDA-core cores) give +-inf in
+//    the regions whose positive weights meet infinities of one sign and
+//    NaN elsewhere (0 x inf). So nonfinite_fixup, after pass 2, tests each
+//    row's sums (a thread a row) and redoes the rows with a sum that is
+//    not finite, all threads of the row's block together: each statistic
+//    that is not finite there gets, region by region, the value fp32
+//    gives. Every region of such a statistic is +-inf or NaN (a region
+//    either holds the cell or weighs it zero), so no finite sum is lost.
+//    Passes 1 and 2 are not changed by it. A finite sum that overflows, or
+//    a weight within 2^-12 of the largest float, is not repaired: weights
+//    and fields of this framework are far from either.
 //    Layout: the cell index is summed over, so any assignment of cells to
 //    k works if A and B agree. A lane (g = lane / 4, tig = lane % 4) reads
 //    the four cells 16j + 4tig .. +3 of row g with one 16-byte load (four
@@ -551,6 +557,83 @@ __global__ void pass2(const float* __restrict__ partial, int n_splits,
   out[i] = acc;
 }
 
+// The rows of a tensor-core launch with a sum that is not finite, redone as
+// fp32 gives them (see the header). A thread tests one row's sums (out is
+// (stats, R, rows): a warp reads 32 consecutive rows of each), then the
+// block's threads redo each of its marked rows together, classifying the
+// row's cells. Bits per weighted statistic: r for an infinity of either
+// sign or a NaN statistic meeting region r's weight where fp32 makes NaN
+// of it (a NaN statistic, or a zero weight), and r, 16 + r for +inf, -inf
+// meeting a positive weight.
+constexpr int kFixupThreads = 256;
+
+template <int KIND>
+__global__ void __launch_bounds__(kFixupThreads)
+nonfinite_fixup(const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ c, const float* __restrict__ w,
+                int rows, int64_t L, int R, float* __restrict__ out) {
+  constexpr int NS = Stats<KIND>::N;
+  constexpr int NW = KIND == 2 ? 1 : 6;  // the statistics summed with W
+  __shared__ int marked[kFixupThreads];
+  __shared__ int n_marked;
+  __shared__ unsigned nan_bits[NW], sign_bits[NW];
+  if (threadIdx.x == 0) n_marked = 0;
+  __syncthreads();
+  const int own = blockIdx.x * kFixupThreads + threadIdx.x;
+  if (own < rows) {
+    bool finite = true;
+#pragma unroll 8
+    for (int k = 0; k < NS * R; ++k)
+      finite &= isfinite(out[static_cast<int64_t>(k) * rows + own]);
+    if (!finite) marked[atomicAdd(&n_marked, 1)] = own;
+  }
+  __syncthreads();
+  for (int j = 0; j < n_marked; ++j) {
+    const int row = marked[j];
+    if (threadIdx.x < NW) {
+      nan_bits[threadIdx.x] = 0;
+      sign_bits[threadIdx.x] = 0;
+    }
+    __syncthreads();
+    unsigned nb[NW] = {}, sb[NW] = {};
+    for (int64_t l = threadIdx.x; l < L; l += blockDim.x) {
+      const int64_t i = static_cast<int64_t>(row) * L + l;
+      float s[NS];
+      stats_of<KIND>(a[i], KIND == 2 ? 0.f : b[i], KIND == 0 ? c[i] : 0.f, s);
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        if (isfinite(s[k])) continue;
+        for (int r = 0; r < R; ++r) {
+          const float wv = w[static_cast<int64_t>(r) * L + l];
+          if (isnan(s[k]) || wv == 0.f) {
+            nb[k] |= 1u << r;
+          } else {
+            sb[k] |= 1u << (s[k] > 0.f ? r : 16 + r);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < NW; ++k) {
+      if (nb[k]) atomicOr(nan_bits + k, nb[k]);
+      if (sb[k]) atomicOr(sign_bits + k, sb[k]);
+    }
+    __syncthreads();
+    for (int j2 = threadIdx.x; j2 < NW * R; j2 += blockDim.x) {
+      const int k = j2 / R, r = j2 % R;
+      const bool nan = (nan_bits[k] >> r) & 1u;
+      const bool pos = (sign_bits[k] >> r) & 1u;
+      const bool neg = (sign_bits[k] >> (16 + r)) & 1u;
+      const float inf = __int_as_float(0x7f800000);
+      if (nan || pos || neg)
+        out[(static_cast<int64_t>(k) * R + r) * rows + row] =
+            nan || (pos && neg) ? __int_as_float(0x7fc00000)
+                                : pos ? inf : -inf;
+    }
+    __syncthreads();  // the shared bits are reset for the next row
+  }
+}
+
 cudaError_t finish(const float* partial, int n_splits, int64_t n_out,
                    float* out, cudaStream_t stream) {
   cudaError_t err = cudaGetLastError();
@@ -592,6 +675,13 @@ cudaError_t launch(int core, const float* a, const float* b, const float* c,
     dim3 grid((rows + M::ROWS - 1) / M::ROWS, n_splits);
     pass1_mma<KIND><<<grid, kMmaThreads, M::SMEM, stream>>>(
         a, b, c, w, rows, L, R, split_len, partial);
+    err = finish(partial, n_splits,
+                 static_cast<int64_t>(Stats<KIND>::N) * R * rows, out, stream);
+    if (err != cudaSuccess) return err;
+    nonfinite_fixup<KIND>
+        <<<(rows + kFixupThreads - 1) / kFixupThreads, kFixupThreads, 0,
+           stream>>>(a, b, c, w, rows, L, R, out);
+    return cudaGetLastError();
   } else if (core == kCoreVec4) {
     if (R > 4) return cudaErrorInvalidValue;  // the wrapper plans it so
     pass1_vec4<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(

@@ -397,6 +397,32 @@ def tf32_split_sums_emulation(stat, region_w, split_len: int,
   return out
 
 
+def nonfinite_finish(sums: torch.Tensor, stat: torch.Tensor,
+                     region_w: torch.Tensor) -> torch.Tensor:
+  """(R, B) ``sums`` of one (B, L) statistic as the tensor-core core
+  leaves them after ``nonfinite_fixup``: where the statistic is not finite
+  in a row, each region gets what an fp32 matmul gives, NaN where a NaN
+  statistic or an infinity meets a zero weight or infinities of both signs
+  meet positive weights, else the infinities' sign.  (The core's split
+  makes NaN of every region there; every region of such a row is one of
+  these, so nothing finite is overwritten.)"""
+  bad = ~torch.isfinite(stat)
+  if not bool(bad.any()):
+    return sums
+  positive = (region_w > 0).to(torch.float32).T
+  zero = (region_w == 0).to(torch.float32).T
+
+  def meets(cells, weights):  # (R, B): any cell meets a weight
+    return (cells.to(torch.float32) @ weights).T > 0
+
+  nan = meets(torch.isnan(stat), positive + zero) | meets(bad, zero)
+  pos = meets(torch.isposinf(stat), positive)
+  neg = meets(torch.isneginf(stat), positive)
+  nan = nan | (pos & neg)
+  out = torch.where(pos, torch.inf, torch.where(neg, -torch.inf, sums))
+  return torch.where(nan, torch.nan, out)
+
+
 def fused_deterministic_sums_tf32_emulation(forecast, truth, clim, region_w,
                                             terms: int = 3):
   """Kernel 1 by the tensor-core core's arithmetic, on the CPU: the same
@@ -406,8 +432,9 @@ def fused_deterministic_sums_tf32_emulation(forecast, truth, clim, region_w,
   kind = KIND_DET if clim is None else KIND_DET_CLIM
   plan = launch_plan(kind, b, l, region_w.shape[0], core=CORE_MMA)
   stats, valid, nan = _det_stats(forecast, truth, clim)
-  sums = torch.stack([tf32_split_sums_emulation(s, region_w, plan.split_len,
-                                                terms) for s in stats])
+  sums = torch.stack([nonfinite_finish(
+      tf32_split_sums_emulation(s, region_w, plan.split_len, terms), s,
+      region_w) for s in stats])
   wsum = tf32_split_sums_emulation(valid, region_w, plan.split_len, terms)
   nanw = tf32_split_sums_emulation(nan, (region_w > 0).to(torch.float32),
                                    plan.split_len, 1)
@@ -419,8 +446,10 @@ def fused_region_sums_tf32_emulation(x, region_w):
   plan = launch_plan(KIND_REGION, x.shape[0], x.shape[1], region_w.shape[0],
                      core=CORE_MMA)
   nan = torch.isnan(x)
-  return (tf32_split_sums_emulation(torch.where(nan, 0.0, x), region_w,
-                                    plan.split_len),
+  x0 = torch.where(nan, 0.0, x)
+  return (nonfinite_finish(tf32_split_sums_emulation(x0, region_w,
+                                                     plan.split_len),
+                           x0, region_w),
           tf32_split_sums_emulation((~nan).to(x.dtype), region_w,
                                     plan.split_len),
           tf32_split_sums_emulation(nan.to(x.dtype),

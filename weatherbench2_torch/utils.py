@@ -1,11 +1,21 @@
-"""The probabilistic climatology: years of the truth as ensemble members.
+"""Climatology statistics and the probabilistic climatology.
 
-Counterpart of the part of ``weatherbench2_tpu/utils.py`` that the
-probabilistic-climatology baseline needs (``replace_time_with_doy``,
-``select_hour``, ``reindex_with_nan``, ``make_probabilistic_climatology``);
-the climatology statistics of that module are not ported yet.
+Counterpart of ``weatherbench2_tpu/utils.py``: the rolling day-of-year
+(and hour-of-day) climatology statistics, the weighted quantile, and the
+probabilistic climatology (years of the truth as ensemble members).  The
+time code is numpy only (the card's machine has no pandas).
 
-``make_probabilistic_climatology`` builds every year × hour at once, as the
+Each statistic takes a Dataset whose payloads are numpy arrays or tensors.
+Either way it runs as torch ops (``ops.climatology``): numpy payloads as
+float64 CPU tensors, the precision of the JAX package's host path, and back
+to numpy; tensors on their device, in float32 as the JAX package's device
+path (daily means in float64, for the window quantiles).  The years are
+stacked to (year, dayofyear, ...) by one gather, the window is a circulant
+matmul, a day-of-year group is an ``index_add_``, and a quantile one sort
+per pencil.
+A callable statistic receives the stacked windows as in the JAX package.
+
+``make_probabilistic_climatology`` builds every year x hour at once, as the
 JAX package does: at the official scale (30 years of 1.5° truth, 17
 variable-levels) that is tens of GB of host memory.  The engines use
 ``ProbabilisticClimatology`` instead, which gives the same members for the
@@ -13,9 +23,15 @@ valid times of one chunk, read from the truth store year by year.
 """
 from __future__ import annotations
 
+import functools
+from typing import Callable, Union
+
 import numpy as np
+import torch
 
 from weatherbench2_torch import xds
+from weatherbench2_torch.ops import climatology as clim_ops
+from weatherbench2_torch.xds import _xp
 
 
 def replace_time_with_doy(ds: xds.Dataset) -> xds.Dataset:
@@ -160,3 +176,383 @@ class ProbabilisticClimatology:
     """The members of every time of ``times``, expanded on the host."""
     members, index = self.compact_members(times, names)
     return members.isel({MEMBER_PAIR: index})
+
+
+# -- climatology statistics ---------------------------------------------------
+
+
+def _is_tensor_ds(ds: xds.Dataset) -> bool:
+  return any(_xp.is_tensor(v.data) for v in ds.variables_dict().values())
+
+
+def _host_in_float64(fn):
+  """Numpy payloads go through ``fn``'s tensor code as float64 CPU tensors
+  (the JAX package's host path forms float64) and come back as numpy;
+  tensor payloads go straight through."""
+
+  @functools.wraps(fn)
+  def wrapped(ds: xds.Dataset, *args, **kwargs):
+    if _is_tensor_ds(ds):
+      return fn(ds, *args, **kwargs)
+    out = fn(ds.copy(data={
+        k: torch.from_numpy(np.asarray(v.data, np.float64))
+        for k, v in ds.variables_dict().items()}), *args, **kwargs)
+    return out.copy(data={k: _xp.to_numpy(v.data)
+                          for k, v in out.variables_dict().items()})
+
+  return wrapped
+
+
+def _as_float32(ds: xds.Dataset) -> xds.Dataset:
+  """Tensor payloads in float32, the JAX package's device precision (daily
+  means come float64, for the window quantiles)."""
+  return ds.copy(data={k: v.data.to(torch.float32)
+                       for k, v in ds.variables_dict().items()})
+
+
+def create_window_weights(window_size: int) -> xds.DataArray:
+  """Create linearly decaying (triangular) window weights."""
+  if window_size % 2 != 1:
+    raise ValueError("Window size must be odd.")
+  half_window_size = window_size // 2
+  window_weights = np.concatenate([
+      np.linspace(0, 1, half_window_size + 1),
+      np.linspace(1, 0, half_window_size + 1)[1:],
+  ])
+  window_weights = window_weights / window_weights.mean()
+  return xds.DataArray(window_weights, dims=("window",))
+
+
+def _windowed_stack(values, axis: int, window: int):
+  """Stack circular rolling windows; the window axis is appended LAST."""
+  half = window // 2
+  n = values.shape[axis]
+  idx = (np.arange(n)[:, None] + np.arange(-half, half + 1)[None, :]) % n
+  out = values.movedim(axis, -1)[..., torch.as_tensor(
+      idx, device=values.device)]  # (..., n, window)
+  return out.movedim(-2, axis)
+
+
+def weighted_quantile(values, q, weights, axis: int = -1,
+                      skipna: bool = True):
+  """Interpolated weighted quantile along one axis, the quantile axis
+  first.
+
+  The standard weighted-percentile estimator: sort values, form the
+  normalized cumulative-weight positions p_k = (cumw_k - w_k/2) / W, and
+  linearly interpolate q over (p_k, v_k).  NaNs carry zero weight when
+  skipna.  On a tensor: one sort per pencil on its device
+  (``ops.climatology.sorted_weighted_quantile``, float32); on numpy the
+  JAX package's float64 host path.
+  """
+  if _xp.is_tensor(values):
+    if not skipna:
+      raise NotImplementedError("weighted_quantile on tensors skips NaNs")
+    w = torch.as_tensor(np.asarray(weights) if not _xp.is_tensor(weights)
+                        else weights, dtype=torch.float32,
+                        device=values.device)
+    if w.ndim == values.ndim:
+      w = w.movedim(axis, -1)
+    v = values.to(torch.float32).movedim(axis, -1)
+    w = torch.broadcast_to(w, v.shape)
+    out = clim_ops.sorted_weighted_quantile(
+        v.reshape(-1, v.shape[-1]), w.reshape(-1, v.shape[-1]), q)
+    n_q = out.shape[-1]
+    return out.T.reshape((n_q,) + tuple(v.shape[:-1]))
+  q = np.atleast_1d(np.asarray(q, dtype=np.float64))
+  values_arr = np.asarray(values, dtype=np.float64)
+  weights_arr = np.asarray(weights, dtype=np.float64)
+  if weights_arr.ndim == values_arr.ndim:
+    weights_arr = np.moveaxis(weights_arr, axis, -1)
+  values = np.moveaxis(values_arr, axis, -1)
+  w = np.broadcast_to(weights_arr, values.shape).copy()
+  if skipna:
+    nan = np.isnan(values)
+    w = np.where(nan, 0.0, w)
+    values = np.where(nan, np.inf, values)  # sort NaNs to the end
+  order = np.argsort(values, axis=-1)
+  v_sorted = np.take_along_axis(values, order, axis=-1)
+  w_sorted = np.take_along_axis(w, order, axis=-1)
+  cumw = np.cumsum(w_sorted, axis=-1)
+  total = cumw[..., -1:]
+  with np.errstate(invalid="ignore", divide="ignore"):
+    positions = (cumw - 0.5 * w_sorted) / total
+  flat_v = v_sorted.reshape(-1, v_sorted.shape[-1])
+  flat_p = positions.reshape(-1, positions.shape[-1])
+  flat_w = w_sorted.reshape(-1, w_sorted.shape[-1])
+  out = np.empty((flat_v.shape[0], len(q)))
+  for i in range(flat_v.shape[0]):
+    valid = flat_w[i] > 0
+    if not valid.any():
+      out[i] = np.nan
+      continue
+    out[i] = np.interp(q, flat_p[i][valid], flat_v[i][valid])
+  out = out.reshape(v_sorted.shape[:-1] + (len(q),))
+  return np.moveaxis(out, -1, 0)
+
+
+def _year_doy(times: np.ndarray):
+  times = np.asarray(times).astype("datetime64[ns]")
+  year = times.astype("datetime64[Y]").astype(np.int64) + 1970
+  doy = (times.astype("datetime64[D]")
+         - times.astype("datetime64[Y]")).astype(np.int64) + 1
+  return year, doy
+
+
+@_host_in_float64
+def stack_years(ds: xds.Dataset) -> xds.Dataset:
+  """Each variable as (year, dayofyear, *other dims): one gather of the
+  time axis, NaN where a year lacks a day; where days 365 and 366 are both
+  present every NaN takes its year's day 365 (the JAX package's
+  ``stacked.fillna(stacked.sel(dayofyear=365))``).  A day that a year
+  holds twice keeps its last time, as ``reindex_with_nan`` does."""
+  year, doy = _year_doy(ds.coords_dict()["time"].data)
+  years, yi = np.unique(year, return_inverse=True)
+  doys, di = np.unique(doy, return_inverse=True)
+  pos = np.full((len(years), len(doys)), -1, np.int64)
+  np.maximum.at(pos, (yi, di), np.arange(len(year)))
+  missing = pos < 0
+  fill = 365 in doys and 366 in doys
+  out = xds.Dataset({}, coords={
+      **{k: v for k, v in ds.coords_dict().items() if "time" not in v.dims},
+      "year": years, "dayofyear": doys})
+  for name in ds.keys():
+    da = ds[name]
+    ax = da.dims.index("time")
+    moved = da.data.movedim(ax, 0)
+    stacked = moved[torch.as_tensor(np.where(missing, 0, pos),
+                                    device=moved.device)]
+    if missing.any():
+      mask = missing.reshape(missing.shape + (1,) * (moved.ndim - 1))
+      stacked = torch.where(torch.as_tensor(mask, device=stacked.device),
+                            torch.nan, stacked)
+    if fill:
+      d365 = stacked[:, int(np.searchsorted(doys, 365))][:, None]
+      stacked = torch.where(torch.isnan(stacked), d365, stacked)
+    rest = tuple(d for d in da.dims if d != "time")
+    out[name] = xds.Variable(("year", "dayofyear") + rest, stacked, da.attrs)
+  return out
+
+
+@_host_in_float64
+def build_stacked_windows(ds: xds.Dataset,
+                          window_weights: xds.DataArray) -> xds.Dataset:
+  """Stack (year, wrapped dayofyear window) for each variable.
+
+  Returns a Dataset whose variables have dims
+  ``(year,) + original_dims_with_dayofyear + ('window',)``.
+  """
+  window_size = len(window_weights.values)
+  stacked = stack_years(ds)
+  out = xds.Dataset({}, coords=dict(stacked.coords_dict()))
+  for name in stacked.keys():
+    dims = ("year",) + _doy_dims(ds[name])
+    v = stacked[name].transpose(*dims)
+    out[name] = xds.Variable(
+        dims + ("window",),
+        _windowed_stack(v.data, dims.index("dayofyear"), window_size))
+  return out
+
+
+def _doy_dims(da) -> tuple:
+  return tuple("dayofyear" if d == "time" else d for d in da.dims)
+
+
+def compute_rolling_stat(
+    ds: xds.Dataset,
+    window_weights: xds.DataArray,
+    stat_fn: Union[str, Callable] = "mean",
+) -> xds.Dataset:
+  """Rolling climatology over a wrapped dayofyear axis.
+
+  Stack years, fill the leap-day gap (366) with day 365, apply a periodic
+  weighted rolling window over dayofyear, and reduce over (window, year).
+  A callable ``stat_fn`` receives the full stacked-window Dataset:
+  ``stat_fn(stacked_ds, weights=window_weights, dim=('window', 'year'))``.
+  'mean' and 'std' are ``ops.climatology.device_rolling_clim``.
+  """
+  if callable(stat_fn):
+    stacked = build_stacked_windows(ds, window_weights)
+    return stat_fn(stacked, weights=window_weights, dim=("window", "year"))
+  if stat_fn not in ("mean", "std"):
+    raise NotImplementedError(f"stat {stat_fn!r} not implemented")
+  if _is_tensor_ds(ds):
+    ds = _as_float32(ds)
+  return _rolling_stat(ds, window_weights.values, stat_fn)
+
+
+@_host_in_float64
+def _rolling_stat(ds: xds.Dataset, w: np.ndarray, stat: str) -> xds.Dataset:
+  stacked = stack_years(ds)
+  out = xds.Dataset({}, coords={
+      k: v for k, v in stacked.coords_dict().items() if k != "year"})
+  for name in stacked.keys():
+    res = clim_ops.device_rolling_clim(stacked[name].data, w, stat)
+    out[name] = xds.Variable(stacked[name].dims[1:], res).transpose(
+        *_doy_dims(ds[name]))
+  return out
+
+
+def _group_sums(data, inverse: np.ndarray, n_groups: int, ax: int):
+  """(sums, valid counts) of ``data`` over groups of its axis ``ax``, NaN
+  dropped, the group axis first: one ``index_add_`` each."""
+  moved = data.movedim(ax, 0)
+  nan = torch.isnan(moved)
+  idx = torch.as_tensor(inverse, device=data.device)
+  shape = (n_groups,) + tuple(moved.shape[1:])
+  sums = torch.zeros(shape, dtype=data.dtype, device=data.device)
+  sums.index_add_(0, idx, torch.where(nan, 0.0, moved))
+  counts = torch.zeros(shape, dtype=data.dtype, device=data.device)
+  counts.index_add_(0, idx, (~nan).to(data.dtype))
+  return sums, counts
+
+
+@_host_in_float64
+def resample_daily_mean(ds: xds.Dataset) -> xds.Dataset:
+  """Resample time to daily means (like ``obs.resample(time='D').mean()``),
+  NaN skipped, a day without data NaN."""
+  days = ds["time"].dt.floor("D").values
+  unique_days, inverse = np.unique(days, return_inverse=True)
+  out = xds.Dataset({}, coords={
+      k: v for k, v in ds.coords_dict().items() if "time" not in v.dims})
+  for name in ds.keys():
+    da = ds[name]
+    ax = da.dims.index("time")
+    # float64, as the JAX package's host path: the window quantiles of
+    # daily means are sorted in the precision it forms them in
+    sums, counts = _group_sums(da.data.to(torch.float64), inverse,
+                               len(unique_days), ax)
+    mean = torch.where(counts == 0, torch.nan, sums / counts)
+    out[name] = xds.Variable(da.dims, mean.movedim(0, ax))
+  return out.assign_coords(time=unique_days)
+
+
+def compute_daily_stat(obs: xds.Dataset, window_size: int, clim_years: slice,
+                       stat_fn: Union[str, Callable] = "mean"
+                       ) -> xds.Dataset:
+  """Compute daily average climatology with running window."""
+  obs_daily = resample_daily_mean(obs.sel(time=clim_years))
+  return compute_rolling_stat(obs_daily, create_window_weights(window_size),
+                              stat_fn)
+
+
+def compute_hourly_stat(obs: xds.Dataset, window_size: int,
+                        clim_years: slice, hour_interval: int,
+                        stat_fn: Union[str, Callable] = "mean"
+                        ) -> xds.Dataset:
+  """Compute climatology by day of year and hour of day."""
+  hours = np.arange(0, 24, hour_interval)
+  window_weights = create_window_weights(window_size)
+  return xds.concat([
+      compute_rolling_stat(select_hour(obs.sel(time=clim_years), int(hour)),
+                           window_weights, stat_fn).expand_dims(hour=[hour])
+      for hour in hours], "hour")
+
+
+def smooth_dayofyear_variable_with_rolling_window(
+    obs_dayofyear: xds.Dataset, window_size: int) -> xds.Dataset:
+  """Smooth day-of-year values with a circular weighted rolling window:
+  the weighted sum of the valid values over the unweighted count of valid
+  window positions (the zero-weight edges included), as the JAX package
+  does."""
+  if "dayofyear" not in obs_dayofyear.sizes:
+    raise ValueError("dayofyear must be a dimension.")
+  if _is_tensor_ds(obs_dayofyear):
+    obs_dayofyear = _as_float32(obs_dayofyear)
+  return _smooth(obs_dayofyear, create_window_weights(window_size).values)
+
+
+@_host_in_float64
+def _smooth(obs_dayofyear: xds.Dataset, w: np.ndarray) -> xds.Dataset:
+  out = xds.Dataset({}, coords=dict(obs_dayofyear.coords_dict()))
+  for name in obs_dayofyear.keys():
+    da = obs_dayofyear[name]
+    ax = da.dims.index("dayofyear")
+    acc, count = clim_ops.rolling_window_sums(da.data.movedim(ax, 0), w)
+    mean = torch.where(count == 0, torch.nan, acc / count)
+    out[name] = xds.Variable(da.dims, mean.movedim(0, ax))
+  return out
+
+
+@_host_in_float64
+def _groupby_dayofyear(ds: xds.Dataset, stat: str) -> xds.Dataset:
+  """``groupby('time.dayofyear').mean()/std()``, NaN skipped (ddof 0)."""
+  if stat not in ("mean", "std"):
+    raise NotImplementedError(stat)
+  doy = ds["time"].dt.dayofyear.values
+  unique_doy, inverse = np.unique(doy, return_inverse=True)
+  out = xds.Dataset({}, coords={
+      k: v for k, v in ds.coords_dict().items() if "time" not in v.dims})
+  for name in ds.keys():
+    da = ds[name]
+    ax = da.dims.index("time")
+    sums, counts = _group_sums(da.data, inverse, len(unique_doy), ax)
+    mean = sums / counts  # NaN where a day has no valid value
+    if stat == "std":
+      dev = da.data.movedim(ax, 0) - mean[torch.as_tensor(
+          inverse, device=mean.device)]
+      sq, _ = _group_sums((dev * dev).movedim(0, ax), inverse,
+                          len(unique_doy), ax)
+      mean = torch.sqrt(sq / counts)
+    out[name] = xds.Variable(_doy_dims(da), mean.movedim(0, ax))
+  return out.assign_coords(dayofyear=unique_doy)
+
+
+def compute_daily_climatology_std(obs: xds.Dataset, window_size: int,
+                                  clim_years: slice) -> xds.Dataset:
+  """Daily climatological std with rolling window ('fast' method)."""
+  obs_daily = resample_daily_mean(obs.sel(time=clim_years))
+  return smooth_dayofyear_variable_with_rolling_window(
+      _groupby_dayofyear(obs_daily, "std"), window_size)
+
+
+def compute_daily_climatology_mean(obs: xds.Dataset, window_size: int,
+                                   clim_years: slice) -> xds.Dataset:
+  """Daily climatological mean with rolling window ('fast' method)."""
+  return smooth_dayofyear_variable_with_rolling_window(
+      _groupby_dayofyear(obs.sel(time=clim_years), "mean"), window_size)
+
+
+def _hourly_fast(obs, window_size, clim_years, hour_interval, stat):
+  obs = obs.sel(time=clim_years)
+  return xds.concat([
+      smooth_dayofyear_variable_with_rolling_window(
+          _groupby_dayofyear(select_hour(obs, int(hour)), stat), window_size
+      ).expand_dims(hour=[hour])
+      for hour in np.arange(0, 24, hour_interval)], "hour")
+
+
+def compute_hourly_climatology_mean_fast(obs: xds.Dataset, window_size: int,
+                                         clim_years: slice,
+                                         hour_interval: int = 1
+                                         ) -> xds.Dataset:
+  """Climatology mean by day of year and hour of day ('fast' method)."""
+  return _hourly_fast(obs, window_size, clim_years, hour_interval, "mean")
+
+
+def compute_hourly_climatology_std_fast(obs: xds.Dataset, window_size: int,
+                                        clim_years: slice,
+                                        hour_interval: int = 1
+                                        ) -> xds.Dataset:
+  """Climatology std by day of year and hour of day ('fast' method)."""
+  return _hourly_fast(obs, window_size, clim_years, hour_interval, "std")
+
+
+def compute_hourly_stat_fast(obs: xds.Dataset, window_size: int,
+                             clim_years: slice, hour_interval: int,
+                             stat_fn: str = "mean") -> xds.Dataset:
+  """Climatology mean or std by day of year and hour of day."""
+  if stat_fn not in ("mean", "std"):
+    raise NotImplementedError(f"stat {stat_fn} not implemented.")
+  return _hourly_fast(obs, window_size, clim_years, hour_interval, stat_fn)
+
+
+def compute_daily_stat_fast(obs: xds.Dataset, window_size: int,
+                            clim_years: slice, stat_fn: str = "mean"
+                            ) -> xds.Dataset:
+  """Climatology mean or std by day of year."""
+  if stat_fn == "mean":
+    return compute_daily_climatology_mean(obs, window_size, clim_years)
+  if stat_fn == "std":
+    return compute_daily_climatology_std(obs, window_size, clim_years)
+  raise NotImplementedError(f"stat {stat_fn} not implemented.")

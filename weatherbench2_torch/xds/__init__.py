@@ -8,13 +8,15 @@ from .core import (
     broadcast_dims_order,
     broadcast_variables,
     concat,
+    merge,
     where,
     zeros_like,
 )
 from .io_netcdf import open_netcdf, to_netcdf
-from .io_zarr import create_zarr_template, open_zarr, to_zarr
+from .io_zarr import (create_zarr_template, open_zarr, to_zarr,
+                      write_zarr_region)
 from .stream import (RegionWriter, ShapeStub, default_block, iter_windows,
-                     stub_variable, template_dataset, to_device)
+                     read, stub_variable, template_dataset, to_device)
 
 __all__ = [
     "DataArray",
@@ -25,6 +27,7 @@ __all__ = [
     "broadcast_dims_order",
     "broadcast_variables",
     "concat",
+    "merge",
     "open_netcdf",
     "to_netcdf",
     "open_zarr",
@@ -34,9 +37,11 @@ __all__ = [
     "ShapeStub",
     "default_block",
     "iter_windows",
+    "read",
     "stub_variable",
     "template_dataset",
     "to_device",
     "where",
+    "write_zarr_region",
     "zeros_like",
 ]

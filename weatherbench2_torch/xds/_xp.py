@@ -265,3 +265,45 @@ def take(data, key):
           out.shape[:dim] + idx.shape + out.shape[dim + 1:])
       dim += idx.ndim
   return out
+
+
+def quantile(data, q: np.ndarray, axes, skipna: bool):
+  """Quantiles ``q`` of ``data`` over ``axes``, the quantile axis first
+  when ``q`` is 1-d: numpy's ``quantile``/``nanquantile`` (default
+  ``linear`` method) on host arrays; on a tensor, one sort along the
+  reduced axes (``torch.quantile`` refuses more than 2**24 entries) and
+  numpy's interpolation, NaN where ``skipna`` is off and a pencil holds a
+  NaN or where no entry is valid."""
+  if not is_tensor(data):
+    import warnings
+
+    with warnings.catch_warnings():
+      warnings.simplefilter("ignore", RuntimeWarning)  # all-NaN pencils
+      return (np.nanquantile if skipna else np.quantile)(data, q, axis=axes)
+  keep = [i for i in range(data.ndim) if i not in axes]
+  x = data.permute(*keep, *axes).reshape(
+      tuple(data.shape[i] for i in keep) + (-1,))
+  nan = torch.isnan(x)
+  values, _ = torch.sort(torch.where(nan, torch.inf, x), dim=-1)
+  n = x.shape[-1]
+  counts = ((~nan).sum(-1) if skipna
+            else torch.full(x.shape[:-1], n, device=x.device))
+  qs = torch.as_tensor(np.atleast_1d(q), dtype=torch.float64,
+                       device=x.device)
+  # numpy's linear method: virtual index q (n - 1), lerp of its neighbours
+  virtual = qs[:, None] * (counts.reshape(1, -1) - 1).to(torch.float64)
+  lo = virtual.floor().clamp(min=0)
+  gamma = (virtual - lo).to(x.dtype)
+  lo = lo.long()
+  hi = torch.minimum(lo + 1, (counts.reshape(1, -1) - 1).clamp(min=0))
+  flat = values.reshape(-1, n)
+  a = torch.gather(flat.T, 0, lo.clamp(max=n - 1))
+  b = torch.gather(flat.T, 0, hi.clamp(max=n - 1))
+  diff = b - a
+  out = torch.where(gamma >= 0.5, b - diff * (1 - gamma), a + diff * gamma)
+  bad = counts.reshape(1, -1) == 0
+  if not skipna:
+    bad = bad | nan.any(-1).reshape(1, -1)
+  out = torch.where(bad, torch.nan, out)
+  out = out.reshape((len(qs),) + tuple(x.shape[:-1]))
+  return out[0] if np.ndim(q) == 0 else out

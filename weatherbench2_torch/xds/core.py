@@ -79,10 +79,14 @@ class LazyStack(LazyArrayBase):
       key = key[:i] + fill + key[i + 1:]
     key = key + (slice(None),) * (self.ndim - len(key))
     k0, rest = key[0], key[1:]
-    if any(not isinstance(r, slice) for r in rest) or isinstance(
-        k0, (bool, np.bool_)):
+    inner = [r for r in rest if not isinstance(r, slice)]
+    one_array = (isinstance(k0, slice) and len(inner) == 1
+                 and isinstance(inner[0], np.ndarray) and inner[0].ndim == 1)
+    if (inner and not one_array) or isinstance(k0, (bool, np.bool_)):
       # advanced indexing inside the parts (or numpy's scalar-bool rule)
-      # moves axes by numpy's placement rules: materialize for exactness
+      # moves axes by numpy's placement rules: materialize for exactness;
+      # one position array among slices keeps its axis in place, and each
+      # part reads only its positions
       return np.asarray(self)[key]
     rest_trivial = all(r == slice(None) for r in rest)
 
@@ -505,6 +509,22 @@ class _DTAccessor:
         np.timedelta64(1, "h"))
     return self._component("hour", hours)
 
+  @property
+  def year(self):
+    v = self._values()
+    return self._component("year", v.astype("datetime64[Y]").astype(np.int64)
+                           + 1970)
+
+  def floor(self, freq: str) -> "DataArray":
+    """Times floored to a day (``"D"``) or an hour (``"h"``)."""
+    units = {"D": "D", "d": "D", "h": "h", "H": "h"}
+    if freq not in units:
+      raise ValueError(f"floor takes 'D' or 'h', not {freq!r}")
+    out = self._values().astype(f"datetime64[{units[freq]}]").astype(
+        "datetime64[ns]")
+    return DataArray(Variable(self._obj.dims, out), coords=self._obj.coords,
+                     name=self._obj.name)
+
 
 def _reduce_data(xp_name, nan_name, data, axes, skipna, **kwargs):
   xp = _xp.namespace(data)
@@ -754,6 +774,38 @@ class DataArray:
       coords = _merge_coords_dicts(coords, cond_da.coords)
     return DataArray(Variable(bvars[0].dims, data), coords=coords,
                      name=self.name)
+
+  def fillna(self, value):
+    """NaNs replaced by ``value`` (a scalar or a DataArray broadcast by
+    dim name)."""
+    if isinstance(value, DataArray):
+      a, b = broadcast_variables(self.variable, value.variable)
+      xp = _xp.namespace(a.data, b.data)
+      data = xp.where(xp.isnan(a.data), b.data, a.data)
+      return DataArray(Variable(a.dims, data), coords=self.coords,
+                       name=self.name)
+    data = _host(self.data)
+    xp = _xp.namespace(data)
+    return self.copy(data=xp.where(xp.isnan(data), value, data))
+
+  def quantile(self, q, dim=None, skipna=False):
+    """Quantiles over ``dim`` (default: every dim) by numpy's default
+    ``linear`` method; with ``skipna`` NaNs are left out, else a pencil
+    with a NaN is NaN.  A tensor is sorted on its device (see
+    ``_xp.quantile``)."""
+    if dim is None:
+      dim = list(self.dims)
+    if isinstance(dim, str):
+      dim = [dim]
+    axes = tuple(self.dims.index(d) for d in dim)
+    data = _xp.quantile(_host(self.data), np.asarray(q), axes, skipna)
+    qdim = () if np.ndim(q) == 0 else ("quantile",)
+    dims = qdim + tuple(d for d in self.dims if d not in dim)
+    coords = {k: v for k, v in self.coords.items()
+              if set(v.dims) <= set(dims)}
+    if np.ndim(q) != 0:
+      coords["quantile"] = Variable(("quantile",), np.asarray(q))
+    return DataArray(Variable(dims, data), coords=coords, name=self.name)
 
   # -- reductions ------------------------------------------------------------
   def _reduce(self, xp_name, nan_name, dim, skipna, **kwargs):
@@ -1060,53 +1112,25 @@ def _dataset_isel(ds: "Dataset", basic, vec, drop):
   return Dataset(new_vars, coords=new_coords, attrs=ds.attrs)
 
 
-def clustered_slices(uniq: np.ndarray, max_gap: int = 16) -> list[slice]:
-  """Sorted unique positions grouped into bounded read slices."""
-  slices = []
-  start = prev = int(uniq[0])
-  for p in uniq[1:]:
-    p = int(p)
-    if p - prev > max_gap:
-      slices.append(slice(start, prev + 1))
-      start = p
-    prev = p
-  slices.append(slice(start, prev + 1))
-  return slices
-
-
 def _bounded_lazy_read(var: Variable, vec: Mapping[str, Variable]):
   """Read only the indexed positions of a lazy payload, then re-index.
 
-  Reads are CLUSTERED, not one [min, max] window: a winter chunk's
-  dayofyear values {355..366, 1..10} would otherwise span the whole year.
+  Each indexed dim reads its distinct positions and nothing between them:
+  a winter chunk's dayofyear values {355..366, 1..10} do not span the
+  year, and 00 and 12 UTC times do not bring the 06 and 18 UTC ones.
   """
   data = var.data
   new_vec = {}
   for ax, d in enumerate(var.dims):
     if d not in vec:
       continue
-    size_d = var.shape[ax]
     iv = vec[d]
     arr = _to_numpy(iv.data).astype(np.int64)
-    arr = np.where(arr < 0, arr + size_d, arr)
-
-    def full_key(sl, ax=ax):
-      return tuple(sl if i == ax else slice(None) for i in range(var.ndim))
-
-    if arr.size == 0:
-      data = np.asarray(data[full_key(slice(0, 0))])
-      new_vec[d] = Variable(iv.dims, arr, iv.attrs)
-      continue
-    pos_map = np.full(size_d, -1, np.int64)
-    pieces = []
-    cum = 0
-    for sl in clustered_slices(np.unique(arr)):
-      n = sl.stop - sl.start
-      pos_map[sl] = np.arange(cum, cum + n)
-      cum += n
-      pieces.append(np.asarray(data[full_key(sl)]))
-    data = pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=ax)
-    new_vec[d] = Variable(iv.dims, pos_map[arr], iv.attrs)
+    arr = np.where(arr < 0, arr + var.shape[ax], arr)
+    uniq, inverse = np.unique(arr, return_inverse=True)
+    data = data[tuple(uniq if i == ax else slice(None)
+                      for i in range(var.ndim))]
+    new_vec[d] = Variable(iv.dims, inverse.reshape(arr.shape), iv.attrs)
   return Variable(var.dims, np.asarray(data), var.attrs), {**vec, **new_vec}
 
 
@@ -1451,6 +1475,28 @@ class Dataset:
   def notnull(self):
     return self.map(lambda da: da.notnull())
 
+  def fillna(self, value):
+    """Each variable's NaNs replaced by ``value``'s variable of the same
+    name (a Dataset) or by ``value``."""
+    if isinstance(value, Dataset):
+      out = Dataset({}, coords=dict(self._coords), attrs=self.attrs)
+      for k in self._variables:
+        out[k] = self[k].fillna(value[k]) if k in value else self[k]
+      return out
+    return self.map(lambda da: da.fillna(value))
+
+  def quantile(self, q, dim=None, skipna=False):
+    """Each variable's quantiles over the dims of ``dim`` it has."""
+    if dim is None:
+      return self.map(lambda da: da.quantile(q, None, skipna))
+    dims = set([dim] if isinstance(dim, str) else dim)
+
+    def per_var(da):
+      present = [d for d in da.dims if d in dims]
+      return da.quantile(q, present, skipna) if present else da
+
+    return self.map(per_var)
+
   def swap_dims(self, mapping):
     """Swap a dim to an existing coord, e.g. {'time': 'dayofyear'}; the old
     index coord stays as a non-dim coord on the new dim (xarray)."""
@@ -1622,3 +1668,25 @@ def concat(objs, dim: str):
   return out
 
 
+def merge(objs) -> Dataset:
+  """Merge datasets (or named DataArrays); a variable that two of them
+  hold must be equal in both, else this raises."""
+  out = Dataset({}, coords={})
+  for o in objs:
+    if isinstance(o, DataArray):
+      o = o.to_dataset()
+    for k, v in o.variables_dict().items():
+      prev = out.variables_dict().get(k)
+      if prev is None:
+        out[k] = v
+        continue
+      same = prev.dims == v.dims and prev.shape == v.shape
+      if same:
+        pa, pb = _to_numpy(prev.data), _to_numpy(v.data)
+        same = np.array_equal(pa, pb, equal_nan=pa.dtype.kind == "f")
+      if not same:
+        raise ValueError(f"merge: conflicting values for variable {k!r}")
+    for k, c in o.coords_dict().items():
+      if k not in out.coords_dict():
+        out = out.assign_coords({k: c})
+  return out

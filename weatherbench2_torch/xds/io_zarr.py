@@ -15,6 +15,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import threading
 import zlib
 from typing import Any, Mapping, Optional
 
@@ -39,6 +40,30 @@ KNOWN_COORD_NAMES = {
     "realization", "number", "metric", "region", "bins", "zonal_wavenumber",
     "wavelength", "frequency",
 }
+
+
+class ReadCounter:
+  """Bytes read from chunk files, summed over every thread that reads."""
+
+  def __init__(self):
+    self._lock = threading.Lock()
+    self.bytes = 0
+
+  def add(self, n: int) -> None:
+    with self._lock:
+      self.bytes += int(n)
+
+  def reset(self) -> None:
+    with self._lock:
+      self.bytes = 0
+
+
+# every chunk-file read of this module counts here
+READS = ReadCounter()
+
+# Of an uncompressed chunk, the rows a selection needs are read on their
+# own when each is at least this long; shorter rows read the whole file.
+MIN_PARTIAL_READ_BYTES = 4096
 
 
 def encode_cf(values: np.ndarray):
@@ -164,6 +189,7 @@ class ZarrArray:
       return np.full(shape, self.fill_value, dtype=self.dtype)
     with open(path, "rb") as f:
       raw = f.read()
+    READS.add(len(raw))
     if self.compressor is not None:
       raw = zlib.decompress(raw, 31 if self.compressor["id"] == "gzip"
                             else 15)
@@ -187,32 +213,87 @@ class ZarrArray:
 
   def read_box(self, box) -> np.ndarray:
     """The [lo, hi) box (one pair per axis), reading only its chunks."""
-    out = np.empty(tuple(hi - lo for lo, hi in box), dtype=self.dtype)
+    return self.read_index([np.arange(lo, hi) for lo, hi in box])
+
+  def read_index(self, index) -> np.ndarray:
+    """The product of per-axis positions (sorted, unique int arrays): only
+    the chunk files that hold them are read, and of an uncompressed chunk
+    only the bytes of the rows selected (see ``_read_part``)."""
+    out = np.empty(tuple(len(ix) for ix in index), dtype=self.dtype)
     if not self.shape:
       return self._read_chunk(()).copy()
-    for idx in itertools.product(*self._chunk_ranges(box)):
-      src, dst, whole = [], [], True
-      for ax, i in enumerate(idx):
-        c0 = i * self.chunks[ax]
-        lo = max(box[ax][0], c0)
-        hi = min(box[ax][1], c0 + self.chunks[ax])
-        src.append(slice(lo - c0, hi - c0))
-        dst.append(slice(lo - box[ax][0], hi - box[ax][0]))
-        whole = whole and hi - lo == self.chunks[ax]
-      target = out[tuple(dst)]
-      path = self._chunk_path(idx)
-      if (whole and self.compressor is None and target.flags.c_contiguous
-          and os.path.exists(path)):
-        # an uncompressed chunk that fills a contiguous part of the box:
-        # read the file straight into place
-        with open(path, "rb") as f:
-          n = f.readinto(memoryview(target).cast("B"))
-        if n != target.nbytes:
-          raise ValueError(f"zarr chunk {path!r} holds {n} bytes, "
-                           f"expected {target.nbytes}")
-        continue
-      target[...] = self._read_chunk(idx)[tuple(src)]
+    if out.size == 0:
+      return out
+    per_axis = []
+    for ix, c in zip(index, self.chunks):
+      cid = np.asarray(ix, np.int64) // c
+      cuts = np.flatnonzero(np.diff(cid)) + 1
+      starts = np.concatenate([[0], cuts])
+      stops = np.concatenate([cuts, [len(cid)]])
+      per_axis.append([(int(cid[a]), int(a), int(b))
+                       for a, b in zip(starts, stops)])
+    for combo in itertools.product(*per_axis):
+      idx = tuple(c for c, _, _ in combo)
+      local = [np.asarray(index[ax][a:b], np.int64) - c * self.chunks[ax]
+               for ax, (c, a, b) in enumerate(combo)]
+      target = out[tuple(slice(a, b) for _, a, b in combo)]
+      self._read_part(idx, local, target)
     return out
+
+  def _read_part(self, idx, local, target: np.ndarray) -> None:
+    """``target[...] =`` the chunk ``idx`` at the per-axis positions
+    ``local``.  Of an uncompressed chunk, the trailing axes that are
+    selected whole make contiguous rows; when a row is at least
+    ``MIN_PARTIAL_READ_BYTES`` long, only the selected rows are read."""
+    path = self._chunk_path(idx)
+    if not os.path.exists(path):
+      target[...] = self.fill_value
+      return
+    full = [len(p) == c and (c == 0 or p[-1] == c - 1)
+            for p, c in zip(local, self.chunks)]
+    k = len(full)
+    while k > 0 and full[k - 1]:
+      k -= 1
+    row = int(np.prod(self.chunks[k:])) if k < len(full) else 1
+    row_bytes = row * self.dtype.itemsize
+    if self.compressor is None and k == 0 and target.flags.c_contiguous:
+      # the whole chunk, straight into place
+      with open(path, "rb") as f:
+        n = f.readinto(memoryview(target).cast("B"))
+      if n != target.nbytes:
+        raise ValueError(f"zarr chunk {path!r} holds {n} bytes, "
+                         f"expected {target.nbytes}")
+      READS.add(n)
+      return
+    if self.compressor is None and 0 < k and (
+        row_bytes >= MIN_PARTIAL_READ_BYTES):
+      # C order: each combination of positions on the leading axes is one
+      # row of the trailing ones; consecutive rows are read together
+      rows = np.ravel_multi_index(np.ix_(*local[:k]),
+                                  self.chunks[:k]).ravel()
+      buf = np.empty((len(rows), row), dtype=self.dtype)
+      cuts = np.flatnonzero(np.diff(rows) != 1) + 1
+      with open(path, "rb") as f:
+        for a, b in zip(np.concatenate([[0], cuts]),
+                        np.concatenate([cuts, [len(rows)]])):
+          f.seek(int(rows[a]) * row_bytes)
+          dst = memoryview(buf[a:b]).cast("B")
+          n = f.readinto(dst)
+          if n != dst.nbytes:
+            raise ValueError(f"zarr chunk {path!r} is shorter than its "
+                             "array's chunk shape")
+          READS.add(n)
+      # the trailing axes are selected whole: buf is the target's shape
+      target[...] = buf.reshape(target.shape)
+      return
+    chunk = self._read_chunk(idx)
+    # runs of positions as slices (a basic copy); other positions gather
+    key = tuple(slice(int(p[0]), int(p[-1]) + 1)
+                if p[-1] - p[0] + 1 == len(p) else p for p in local)
+    arrays = [i for i, k in enumerate(key) if not isinstance(k, slice)]
+    if len(arrays) > 1:
+      key = np.ix_(*local)
+    target[...] = chunk[key]
 
   def write_box(self, box, data: np.ndarray) -> None:
     """Write ``data`` into the [lo, hi) box; partial chunks read-modify-write."""
@@ -236,39 +317,17 @@ class ZarrArray:
       self._write_chunk(idx, chunk)
 
 
-def _basic_box(shape, key):
-  """(box, post) for a key of ints/slices: the bounding box to read and the
-  key that applies to the box (negative steps and ints stay numpy's)."""
-  box, post = [], []
-  for n, k in zip(shape, key):
-    if isinstance(k, slice):
-      r = range(n)[k]
-      if not len(r):
-        box.append((0, 0))
-        post.append(slice(0, 0))
-        continue
-      lo, hi = min(r[0], r[-1]), max(r[0], r[-1]) + 1
-      box.append((lo, hi))
-      stop = r[-1] - lo + (1 if r.step > 0 else -1)
-      post.append(slice(r[0] - lo, None if stop < 0 else stop, r.step))
-    else:
-      i = int(k) + (n if int(k) < 0 else 0)
-      if not 0 <= i < n:
-        raise IndexError(f"index {k} out of range for axis of size {n}")
-      box.append((i, i + 1))
-      post.append(0)
-  return box, tuple(post)
-
-
 class LazyArray(core.LazyArrayBase):
   """Lazily-sliced zarr array payload.
 
-  A view is one ``range`` (kept axis) or ``int`` (dropped axis) per axis
-  of the stored array.  Basic indexing composes ranges, so a chunk slice of
-  a multi-GB variable costs nothing until it is materialized, and then only
-  the chunk files under its bounding box are read.  Integer-array indexing
-  reads the bounding box and gathers in numpy.  ``__array__`` applies the
-  CF decode.
+  A view is one entry per axis of the stored array: a ``range`` or a 1-d
+  int array of positions (kept axis), or an ``int`` (dropped axis).  Basic
+  indexing composes the entries, and so does a single 1-d integer or
+  boolean array with slices on every other axis: a chunk slice of a
+  multi-GB variable, or the few times a gather picks, costs nothing until
+  it is materialized, and then only the positions in the view are read
+  (``ZarrArray.read_index``).  Other advanced keys read the bounding box
+  and gather in numpy.  ``__array__`` applies the CF decode.
   """
 
   __slots__ = ("_arr", "_view", "_attrs", "dtype")
@@ -282,7 +341,7 @@ class LazyArray(core.LazyArrayBase):
 
   @property
   def shape(self):
-    return tuple(len(v) for v in self._view if isinstance(v, range))
+    return tuple(len(v) for v in self._view if not isinstance(v, int))
 
   @property
   def ndim(self):
@@ -293,14 +352,46 @@ class LazyArray(core.LazyArrayBase):
     return int(np.prod(self.shape)) if self.shape else 1
 
   def _materialize(self) -> np.ndarray:
-    key = tuple(slice(v.start, v.stop if v.stop >= 0 else None, v.step)
-                if isinstance(v, range) else v for v in self._view)
-    box, post = _basic_box(self._arr.shape, key)
-    return decode_cf(self._arr.read_box(box)[post], self._attrs)
+    # read each axis's distinct positions in ascending order, then put
+    # them in the view's order (and repeats) and drop the int axes
+    index, order, drop = [], [], []
+    for ax, v in enumerate(self._view):
+      pos = np.atleast_1d(np.asarray(v, np.int64))
+      uniq, inv = np.unique(pos, return_inverse=True)
+      index.append(uniq)
+      same = len(uniq) == len(pos) and bool(np.all(uniq == pos))
+      order.append(None if same else inv.ravel())
+      if isinstance(v, int):
+        drop.append(ax)
+    data = self._arr.read_index(index)
+    for ax, inv in enumerate(order):
+      if inv is not None:
+        data = np.take(data, inv, axis=ax)
+    if drop:
+      data = data[tuple(0 if ax in drop else slice(None)
+                        for ax in range(data.ndim))]
+    return decode_cf(data, self._attrs)
 
   def __array__(self, dtype=None, copy=None):
     out = self._materialize()
     return out.astype(dtype) if dtype is not None else out
+
+  def _compose(self, key):
+    """The view after ``key``: ints, slices and at most one 1-d position
+    array, one per kept axis."""
+    it = iter(key)
+    view = []
+    for v in self._view:
+      if isinstance(v, int):
+        view.append(v)
+        continue
+      k = next(it)
+      if isinstance(v, range) and not isinstance(k, np.ndarray):
+        view.append(v[k])
+        continue
+      sub = np.asarray(v)[k]
+      view.append(int(sub) if np.ndim(sub) == 0 else sub)
+    return LazyArray(self._arr, self._attrs, self.dtype, tuple(view))
 
   def __getitem__(self, key):
     if not isinstance(key, tuple):
@@ -309,15 +400,23 @@ class LazyArray(core.LazyArrayBase):
       i = key.index(Ellipsis)
       key = key[:i] + (slice(None),) * (self.ndim - len(key) + 1) + key[i + 1:]
     key = key + (slice(None),) * (self.ndim - len(key))
-    if all(isinstance(k, (int, np.integer, slice)) for k in key):
-      it = iter(key)
-      view = tuple(v[next(it)] if isinstance(v, range) else v
-                   for v in self._view)
-      return LazyArray(self._arr, self._attrs, self.dtype, view)
-    # advanced indexing: read the bounding slice, gather in numpy
+    key = tuple(int(k) if isinstance(k, np.integer) else k for k in key)
+    if all(isinstance(k, (int, slice)) for k in key):
+      return self._compose(key)
+    advanced = [k for k in key if not isinstance(k, slice)]
+    if len(advanced) == 1 and np.ndim(advanced[0]) == 1:
+      arr = np.asarray(advanced[0])
+      if arr.dtype == bool:
+        arr = np.nonzero(arr)[0]
+      if arr.dtype.kind in "iu":
+        # one position array among slices: its axis stays in place, as in
+        # numpy, and only its positions are read
+        return self._compose(tuple(arr if not isinstance(k, slice) else k
+                                   for k in key))
+    # other advanced keys: read the bounding slice, gather in numpy
     bound, inner = [], []
     for k in key:
-      if isinstance(k, (int, np.integer, slice)):
+      if isinstance(k, (int, slice)):
         bound.append(k)
         if isinstance(k, slice):
           inner.append(slice(None))
@@ -463,6 +562,26 @@ def create_zarr_template(
              _var_chunks(var.shape, chunks, var.dims),
              fill_value="NaN" if dtype.kind == "f" else None)
   w.finish()
+
+
+def write_region(arr: ZarrArray, key, data: np.ndarray) -> None:
+  """Write ``data`` (CF-encoded here) at ``key`` (ints and unit-step
+  slices; missing trailing axes whole) of ``arr``."""
+  data, _ = encode_cf(np.asarray(data))
+  key = tuple(key) + (slice(None),) * (len(arr.shape) - len(tuple(key)))
+  box = []
+  for n, k in zip(arr.shape, key):
+    r = range(n)[k if isinstance(k, slice) else slice(k, k + 1)]
+    if r.step != 1:
+      raise ValueError("region writes take unit-step slices")
+    box.append((r.start, r.stop) if len(r) else (0, 0))
+  arr.write_box(box, data.reshape(tuple(hi - lo for lo, hi in box)))
+
+
+def write_zarr_region(path: str, name: str, key, data: np.ndarray) -> None:
+  """Write ``data`` at ``key`` of the array ``name`` of an existing store
+  (one-shot: ``RegionWriter`` keeps its arrays open)."""
+  write_region(open_zarr_array(path, name), key, data)
 
 
 def open_zarr_array(path: str, name: str) -> ZarrArray:

@@ -147,16 +147,7 @@ class RegionWriter:
     arr = self._arrays.get(name)
     if arr is None:
       arr = self._arrays[name] = io_zarr.open_zarr_array(self.path, name)
-    data, _ = io_zarr.encode_cf(np.asarray(data))
-    region_key = tuple(region_key) + (slice(None),) * (
-        len(arr.shape) - len(region_key))
-    box = []
-    for n, k in zip(arr.shape, region_key):
-      r = range(n)[k if isinstance(k, slice) else slice(k, k + 1)]
-      if r.step != 1:
-        raise ValueError("region writes take unit-step slices")
-      box.append((r.start, r.stop) if len(r) else (0, 0))
-    arr.write_box(box, data.reshape(tuple(hi - lo for lo, hi in box)))
+    io_zarr.write_region(arr, region_key, data)
 
   def write(self, piece: core.Dataset, region: Mapping[str, Any]) -> None:
     """Write every data variable of ``piece`` at ``region`` (dim → slice)."""
@@ -171,6 +162,13 @@ class RegionWriter:
 
   def finish(self) -> None:
     """Writes are synchronous; kept so callers mark the end of a store."""
+
+
+def read(ds: core.Dataset) -> core.Dataset:
+  """``ds`` with every lazy payload read into numpy (once)."""
+  return ds.copy(data={
+      k: np.asarray(v.data) if isinstance(v.data, core.LazyArrayBase)
+      else v.data for k, v in ds.variables_dict().items()})
 
 
 def to_device(obj, device: torch.device, stream=None, counter=None):
