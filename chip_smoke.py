@@ -91,7 +91,21 @@ exits non-zero without the final line):
            std, SEEPS, quantiles) of 2m_temperature and 24 h
            precipitation, one longitude card against CPU; each run's wall,
            host share, bytes read and moved, peak memory, and the library
-           calls' CUDA-event times beside their bounds.
+           calls' CUDA-event times beside their bounds;
+  e2e_prep2 the nine remaining data-prep twins at full width: on a
+           1.5-degree year of 2020 (2 m temperature, 24 h precipitation,
+           geopotential and temperature at 13 levels) compute_averages over
+           latitude and longitude and compute_statistical_moments (kernel
+           2, launch counters against the prediction), resample_in_time
+           (weekly) and resample_daily; compute_ensemble_mean of a
+           50-member ensemble at e2e_ensemble's width; slice_dataset at
+           0.25 degrees, the latitude reversed and made increasing again;
+           index_on_valid_time of e2e_official's forecast and
+           expand_climatology of its climatology; the probabilistic
+           climatological forecasts of 1 January 2020 from 1990-2019 (30
+           members, 15-day leads); each twin card against --device=cpu
+           (within the tolerance, or bit for bit where it only gathers),
+           with its wall, host and copy shares, bytes read and moved.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
@@ -182,6 +196,18 @@ def region_weights(n_lon, n_lat, n_regions):
                                lon_slice=slice(27 * i, 27 * i + 120)))
   return ops.make_region_weight_matrix(
       w, [r.mask_weights(lat, lon) for r in regions[:n_regions]], n_lon)
+
+
+def averages_weights(n_lon, n_lat):
+  """compute_averages' two regions over (longitude, latitude) cells: the
+  latitude weights (mean 1) and ones."""
+  from weatherbench2_torch import metrics
+
+  lat = np.linspace(-90, 90, n_lat)
+  w = metrics._cell_area_from_latitude(np.deg2rad(lat))
+  w = w / w.mean()
+  return np.stack([np.broadcast_to(w, (n_lon, n_lat)).ravel(),
+                   np.ones(n_lon * n_lat)]).astype(np.float32)
 
 
 def cuda_time_ms(fn, arg_sets):
@@ -348,14 +374,17 @@ def check_nan_rows(name, got, args):
 
 
 def kernel_case(name, shape, n_regions, grid, nans, with_clim, gen,
-                float64=False):
-  """One kernel at one shape against its plain version; timings."""
+                float64=False, weights=None):
+  """One kernel at one shape against its plain version; timings.  The
+  region weights are ``weights`` ((R, cells), a data-prep twin's) or
+  ``region_weights``'."""
   import torch
 
   from weatherbench2_torch.ops import reductions
 
   rows, cols = shape
-  w = torch.as_tensor(region_weights(*grid, n_regions), device="cuda")
+  w = torch.as_tensor(region_weights(*grid, n_regions) if weights is None
+                      else weights, device="cuda")
   assert w.shape == (n_regions, cols)
   kernel, plain, forced, scale_of = kernel_functions(name, w)
   if name == "fused_deterministic_sums":
@@ -460,7 +489,7 @@ def path_cases(gen):
   count = 0
   worst = 0.0
   cores_seen = set()
-  for n_regions in (1, 4, 5, 8, 9, 13, 16):
+  for n_regions in (1, 2, 4, 5, 8, 9, 13, 16):
     for layout, grid, offset in layouts:
       cols = grid[0] * grid[1]
       w = at_offset(torch.as_tensor(region_weights(*grid, n_regions),
@@ -509,7 +538,7 @@ def path_cases(gen):
   if cores_seen != set(CORES.values()):
     raise AssertionError(f"cores launched: {cores_seen}")
   emit("kernels", path_cases=count, worst_err_over_bound=worst,
-       regions=[1, 4, 5, 8, 9, 13, 16], tolerance=TOLERANCE,
+       regions=[1, 2, 4, 5, 8, 9, 13, 16], tolerance=TOLERANCE,
        layouts=[name for name, _, _ in layouts])
 
 
@@ -677,6 +706,17 @@ def kernels_phase():
   for rows in DERIVED_ROWS:
     cases[("region", "derived16", rows)] = kernel_case(
         "fused_region_sums", (rows, 240 * 121), 16, bench, False, None, gen)
+  # e2e_prep2's shapes: compute_averages' (latitude weights over the cells,
+  # ones) and compute_statistical_moments' (ones) rows of one time block of
+  # a 13-level and of a surface variable, with NaN cells
+  for rows in PREP2_AVERAGE_ROWS:
+    cases[("region", "averages", rows)] = kernel_case(
+        "fused_region_sums", (rows, PREP2_CELLS), 2, bench, True, None, gen,
+        weights=averages_weights(*bench))
+  for rows in PREP2_MOMENT_ROWS:
+    cases[("region", "moments", rows)] = kernel_case(
+        "fused_region_sums", (rows, PREP2_CELLS), 1, bench, True, None, gen,
+        weights=np.ones((1, PREP2_CELLS), np.float32))
   path_cases(gen)
   infinite_cases(gen)
   emulation_cases(gen)
@@ -1613,6 +1653,7 @@ ENSEMBLE_MEMBERS = 50
 ENSEMBLE_INITS = 4
 ENSEMBLE_STOP = "2020-01-02T12"  # the 4th 12-hourly init
 ENSEMBLE_QUANTILES = (0.25, 0.75)
+ENSEMBLE_CLIM_DAYS = 31  # the climatology's days of year: January
 # kernel-2 row counts of one 2-init chunk (see kernels_phase)
 ENSEMBLE_ROWS = (630, 210, 2856)
 # the three runs of the phase: their configs and their launches per chunk of
@@ -1641,8 +1682,8 @@ def write_ensemble_stores(root):
   default variables at 500/700/850 hPa (one zarr chunk per init and
   variable); a Gaussian forecast of the same variables with their `_std`;
   an hourly climatology at 6-hour steps of `<var>_quantile` at 0.25 and
-  0.75 (N(0, 1)'s quartiles plus noise), whose later quarters of the year
-  repeat the first as the official phase's do.  The members' float32 values
+  0.75 (N(0, 1)'s quartiles plus noise) over January's days of year.  The
+  members' float32 values
   have an even last mantissa bit and the truth's an odd one: no member ever
   equals the truth, so the CLI's unseeded rank histogram (its tie-breaks
   are drawn anew in every run) is the same in every run."""
@@ -1662,7 +1703,9 @@ def write_ensemble_stores(root):
   ensemble = schema.mock_forecast_data(ensemble_size=ENSEMBLE_MEMBERS,
                                        **fc_specs)
   gaussian = schema.mock_forecast_data(**fc_specs)
-  clim = schema.mock_hourly_climatology_data(hour_interval=6, **specs)
+  # January's days of year: the only ones the valid times select
+  clim = schema.mock_hourly_climatology_data(hour_interval=6, **specs).isel(
+      dayofyear=slice(0, ENSEMBLE_CLIM_DAYS))
   gen = torch.Generator(device="cuda")
   gen.manual_seed(SEED + 2)
   normal = lambda shape: torch.randn(tuple(shape), generator=gen,
@@ -2057,8 +2100,10 @@ def e2e_ensemble_phase():
          "variable_levels": 17,
          "cut": "the first 4 inits of January 2020 in chunks of 2 instead "
                 "of a year; leads to 10 days (the published IFS ENS runs "
-                "to 15); the first init card against CPU on geopotential "
-                "and 2m_temperature only (four variable-levels)",
+                "to 15); the climatology's days of year 1-31 (the only "
+                "ones the valid times select) instead of 366; the first "
+                "init card against CPU on geopotential and 2m_temperature "
+                "only (four variable-levels)",
          "predicted_launches_per_chunk": {
              run: dict(zip(("fused_deterministic_sums", "fused_region_sums"),
                            per_chunk))
@@ -3031,6 +3076,441 @@ def e2e_prep_phase():
   return out
 
 
+# -- e2e_prep2: the nine remaining data-prep twins ------------------------------
+
+PREP2_YEAR_VARIABLES = {"2m_temperature": False,
+                        "total_precipitation_24hr": False,
+                        "geopotential": True, "temperature": True}
+PREP2_FIELDS = 2 + 2 * len(PREP_LEVELS)  # 28 fields a time
+PREP2_CELLS = 240 * 121
+# the time block of the year store's twins on the card (1 GiB of input):
+# kernel 2's rows per launch follow from it (see kernels_phase)
+PREP2_BLOCK = 2 ** 30 // (4 * PREP2_FIELDS * PREP2_CELLS)
+PREP2_AVERAGE_ROWS = (PREP2_BLOCK * len(PREP_LEVELS), PREP2_BLOCK)
+PREP2_MOMENT_ROWS = tuple(2 * r for r in PREP2_AVERAGE_ROWS)
+PREP2_CHECK = ("2020-01-01", "2020-01-31")  # card against CPU: January
+PREP2_NAN_CELLS = (slice(10, 20), 60)  # 2 m temperature's (lon, lat)
+PREP2_ENSEMBLE_INITS = 2
+PREP2_EXPAND = ("2020-12-01", "2021-01-31")
+PCF_YEARS = (1990, 2019)
+PCF_INITS = ("2020-01-01", "2020-01-01T18")
+PCF_MEMBERS = 30
+PREP2_CUTS = [
+    "compute_ensemble_mean: 2 of e2e_ensemble's 12-hourly inits (50 members, "
+    "17 variable-levels, 21 leads), not a year",
+    "compute_averages, compute_statistical_moments, resample_in_time, "
+    "resample_daily: none (2020, 1464 times, 28 fields at 1.5 degrees); "
+    "card against CPU on January",
+    "slice_dataset: e2e_derived run 3's 28 times at 0.25 degrees",
+    "index_on_valid_time: e2e_official's 33 inits x 21 leads",
+    "expand_climatology: December 2020 and January 2021 (248 times, day 366 "
+    "among them), not a year",
+    "compute_probabilistic_climatological_forecasts: 4 inits of 1 January "
+    "2020; a truth of 24 December - 24 January of each year 1990-2020 (the "
+    "only days the samples and their 15-day leads reach)"]
+GATHER_EQUAL = "bit for bit (the twin gathers and computes nothing)"
+
+
+def prep2_cli(main, argv, region_launches=0):
+  """One data-prep twin on the card: its counts (GiB, the host's share,
+  the copies' share of the wall), the peak device memory and the launches
+  of the reduction kernels, which must be ``region_launches`` of kernel 2
+  and none of kernel 1."""
+  import torch
+
+  reset_launches()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  counts = main(argv)
+  out = prep_counts(counts)
+  out["copy_share"] = (counts["h2d_s"] + counts["d2h_s"]) / counts["wall_s"]
+  out["launches"] = read_launches(1, 0, region_launches)
+  out["peak_device_gib"] = torch.cuda.max_memory_allocated() / 2**30
+  return out
+
+
+def equal_stores(got_path, want_path, names=None):
+  """Raises unless the variables ``names`` (default: all of the second
+  store's) and every coordinate are equal, NaNs in the same places."""
+  from weatherbench2_torch import xds
+
+  got, want = xds.open_zarr(got_path, lazy=True), xds.open_zarr(want_path,
+                                                                lazy=True)
+  names = list(names or want.keys())
+  for k in names:
+    g = np.asarray(xds.read(got[[k]])[k].values)
+    w = np.asarray(xds.read(want[[k]])[k].values)
+    if g.shape != w.shape or not np.array_equal(g, w, equal_nan=True):
+      raise AssertionError(f"{k}: the stores differ")
+  for c, v in want.coords_dict().items():
+    if not np.array_equal(np.asarray(got.coords_dict()[c].data),
+                          np.asarray(v.data)):
+      raise AssertionError(f"coordinate {c}: the stores differ")
+  return {"compared": len(names), "equal": GATHER_EQUAL}
+
+
+def twin_card_vs_cpu(main, argv, root, tag, equal=False, names=None):
+  """The twin on the card and with --device=cpu on the same store and
+  flags; their outputs within E2E_TOLERANCE, or ``equal``."""
+  from weatherbench2_torch import xds
+
+  paths = [os.path.join(root, f"{tag}_{who}.zarr") for who in ("card", "cpu")]
+  main(argv + [f"--output_path={paths[0]}"])
+  t0 = time.perf_counter()
+  main(argv + [f"--output_path={paths[1]}", "--device=cpu"])
+  out = {"cpu_s": time.perf_counter() - t0}
+  if equal:
+    out.update(equal_stores(*paths, names))
+  else:
+    out.update(compare_stores(xds.open_zarr(paths[0]),
+                              xds.open_zarr(paths[1]), "card vs CPU", names),
+               tolerance=E2E_TOLERANCE)
+  for p in paths:
+    shutil.rmtree(p)
+  return out
+
+
+def finite_store(path, sizes, masked=()):
+  """The store's sizes; raises unless they include ``sizes`` and every
+  variable is finite, those of ``masked`` that keep the grid (longitude and
+  latitude last) outside the NaN cells of the year store."""
+  from weatherbench2_torch import xds
+
+  ds = xds.open_zarr(path, lazy=True)
+  for d, n in sizes.items():
+    if ds.sizes.get(d) != n:
+      raise AssertionError(f"{path}: {d} has {ds.sizes.get(d)}, not {n}")
+  for k in ds.keys():
+    x = np.array(xds.read(ds[[k]])[k].values)
+    if k in masked and ds[k].dims[-2:] == ("longitude", "latitude"):
+      x[(...,) + PREP2_NAN_CELLS] = 0.0
+    if not np.isfinite(x).all():
+      raise AssertionError(f"{path}: {k} is not finite")
+  return dict(ds.sizes)
+
+
+def year_runs(root):
+  """A 1.5-degree year of 2020 (2 m temperature with NaN cells, 24 h
+  precipitation, geopotential and temperature at 13 levels):
+  compute_averages over latitude and longitude (kernel 2, R 2),
+  compute_statistical_moments (kernel 2, R 1), resample_in_time (weekly
+  means, 2 m temperature's extremes) and resample_daily (daily means, the
+  precipitation's daily sums); then each of them card against CPU on
+  January, sliced out by slice_dataset."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import compute_averages
+  from weatherbench2_torch.cli import compute_statistical_moments
+  from weatherbench2_torch.cli import resample_daily
+  from weatherbench2_torch.cli import resample_in_time
+  from weatherbench2_torch.cli import slice_dataset
+
+  out = {}
+  t0 = time.perf_counter()
+  times = np.arange(np.datetime64("2020-01-01", "ns"),
+                    np.datetime64("2021-01-01", "ns"), np.timedelta64(6, "h"))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 9)
+
+  def values(name, shape, g, _):
+    x = torch.randn(shape, generator=g, device="cuda")
+    if name == "2m_temperature":
+      x = 280.0 + 10.0 * x
+      x[(slice(None),) + PREP2_NAN_CELLS] = torch.nan  # no data
+      return x
+    if name == "total_precipitation_24hr":
+      return (1e-3 * x).clamp(min=0.0)
+    if name == "geopotential":
+      return 49050.0 + 981.0 * x
+    return 250.0 + 10.0 * x
+
+  path = write_grid_store(os.path.join(root, "year.zarr"),
+                          PREP2_YEAR_VARIABLES, times, PREP_RESOLUTION,
+                          PREP_LEVELS, gen, values, 61)
+  out["write_stores_s"] = time.perf_counter() - t0
+  out["store_gib"] = store_gib({"year": path})
+  ds = xds.open_zarr(path, lazy=True)
+  blocks = -(-ds.sizes["time"] // xds.default_block(ds, "time", "cuda"))
+  if xds.default_block(ds, "time", "cuda") != PREP2_BLOCK:
+    raise AssertionError("the year's time block is not PREP2_BLOCK")
+  n_vars = len(PREP2_YEAR_VARIABLES)
+  year = [f"--input_path={path}"]
+  jan = os.path.join(root, "january.zarr")
+  runs = {
+      "compute_averages": (
+          compute_averages.main, ["--averaging_dims=latitude,longitude",
+                                  "--skipna", "--time_start=2020-01-01",
+                                  "--time_stop=2020-12-31"],
+          blocks * n_vars),
+      "compute_statistical_moments": (
+          compute_statistical_moments.main, ["--start_year=2020",
+                                             "--end_year=2020"],
+          blocks * n_vars),
+      "resample_in_time": (
+          resample_in_time.main, ["--period=1w", "--mean_vars=ALL",
+                                  "--min_vars=2m_temperature",
+                                  "--max_vars=2m_temperature",
+                                  "--add_mean_suffix"], 0),
+      "resample_daily": (resample_daily.main, ["--period=1d"], 0)}
+  for name, (main, flags, launches) in runs.items():
+    dst = os.path.join(root, f"{name}.zarr")
+    out[name] = prep2_cli(main, year + flags + [f"--output_path={dst}"],
+                          launches)
+    out[name]["sizes"] = finite_store(dst, {}, masked=(
+        "2m_temperature", "2m_temperature_mean", "2m_temperature_min",
+        "2m_temperature_max"))
+    shutil.rmtree(dst)
+    emit("e2e_prep2_run", run=name, **out[name])
+  out["slice_january"] = prep2_cli(slice_dataset.main, year + [
+      f"--output_path={jan}",
+      "--sel_strings=time_start={},time_stop={}".format(*PREP2_CHECK)])
+  emit("e2e_prep2_run", run="slice_dataset (1.5 degrees)",
+       **out["slice_january"])
+  for name, (main, flags, _) in runs.items():
+    if name == "compute_averages":
+      flags = flags[:2] + ["--time_start={}".format(PREP2_CHECK[0]),
+                           "--time_stop={}".format(PREP2_CHECK[1])]
+    out[name]["card_vs_cpu"] = twin_card_vs_cpu(
+        main, [f"--input_path={jan}"] + flags, root, name)
+  return out
+
+
+def ensemble_mean_run(root):
+  """compute_ensemble_mean of a 50-member 1.5-degree ensemble at
+  e2e_ensemble's width (seven variables at 500/700/850 hPa, 21 leads),
+  with NaN members; card against CPU on two variables."""
+  import torch
+
+  from weatherbench2_torch import schema, xds
+  from weatherbench2_torch.cli import compute_ensemble_mean
+
+  t0 = time.perf_counter()
+  ds = schema.mock_forecast_data(
+      variables_3d=list(VARIABLES_3D), variables_2d=list(VARIABLES_2D),
+      levels=(500, 700, 850), spatial_resolution_in_degrees=1.5,
+      time_start="2020-01-01", time_stop="2020-01-02",
+      time_resolution="12 hours", lead_start="0 days", lead_stop="10 days",
+      lead_resolution="12 hours", ensemble_size=ENSEMBLE_MEMBERS)
+  ds = ds.isel(time=slice(0, PREP2_ENSEMBLE_INITS))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 10)
+  path = os.path.join(root, "ensemble.zarr")
+  template = xds.Dataset({k: xds.stub_variable(v.dims, v.sizes, np.float32)
+                          for k, v in ds.variables_dict().items()},
+                         coords=dict(ds.coords_dict()))
+  writer = xds.RegionWriter(path, template, chunks={"time": 1})
+  for i in range(ds.sizes["time"]):
+    for name, v in ds.variables_dict().items():
+      shape = tuple(1 if d == "time" else v.sizes[d] for d in v.dims)
+      x = torch.randn(shape, generator=gen, device="cuda")
+      x[(5, ...) + PREP2_NAN_CELLS] = torch.nan  # member 5 (realization)
+      writer.write_array(
+          name, tuple(slice(i, i + 1) if d == "time" else slice(None)
+                      for d in v.dims), x.cpu().numpy())
+  writer.finish()
+  out = {"write_stores_s": time.perf_counter() - t0,
+         "store_gib": store_gib({"ensemble": path})}
+  dst = os.path.join(root, "mean.zarr")
+  flags = [f"--input_path={path}", "--time_start=2020-01-01",
+           "--time_stop=2020-01-02", "--skipna"]
+  out["main"] = prep2_cli(compute_ensemble_mean.main,
+                          flags + [f"--output_path={dst}"])
+  out["main"]["sizes"] = finite_store(dst, {"time": PREP2_ENSEMBLE_INITS})
+  emit("e2e_prep2_run", run="compute_ensemble_mean", **out["main"])
+  shutil.rmtree(dst)
+  out["card_vs_cpu"] = twin_card_vs_cpu(
+      compute_ensemble_mean.main,
+      flags + ["--variables=geopotential,2m_temperature"], root, "mean")
+  return out
+
+
+def wide_slice_run(root):
+  """slice_dataset at 0.25 degrees (e2e_derived run 3's store): two levels
+  and four days, the latitude reversed by the selection (a flip on the
+  card), then made increasing again by a second run, which must give the
+  store's own values back; card against CPU on two variables."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import slice_dataset
+
+  t0 = time.perf_counter()
+  path = write_wide_store(root)
+  out = {"write_stores_s": time.perf_counter() - t0,
+         "store_gib": store_gib({"wide": path})}
+  flags = [f"--input_path={path}", "--sel=level_list=500+850",
+           "--sel_strings=time_start=2020-01-02,time_stop=2020-01-05T18",
+           "--isel=latitude_step=-1"]
+  flipped = os.path.join(root, "flipped.zarr")
+  back = os.path.join(root, "back.zarr")
+  out["main"] = prep2_cli(slice_dataset.main,
+                          flags + [f"--output_path={flipped}"])
+  emit("e2e_prep2_run", run="slice_dataset", **out["main"])
+  out["increasing"] = prep2_cli(slice_dataset.main, [
+      f"--input_path={flipped}", f"--output_path={back}",
+      "--make_dims_increasing=latitude"])
+  emit("e2e_prep2_run", run="slice_dataset, make_dims_increasing",
+       **out["increasing"])
+  src = xds.open_zarr(path, lazy=True).sel(
+      level=[500, 850], time=slice("2020-01-02", "2020-01-05T18"))
+  got = xds.open_zarr(back, lazy=True)
+  lat = np.asarray(xds.open_zarr(flipped).coords_dict()["latitude"].data)
+  if not (np.diff(lat) < 0).all():
+    raise AssertionError("the selection did not reverse the latitude")
+  for k in src.keys():
+    if not np.array_equal(np.asarray(xds.read(got[[k]])[k].values),
+                          np.asarray(xds.read(src[[k]])[k].values),
+                          equal_nan=True):
+      raise AssertionError(f"{k}: flipped twice is not the store's values")
+  out["round_trip"] = {"compared": len(src.keys()), "equal": GATHER_EQUAL}
+  shutil.rmtree(back)
+  shutil.rmtree(flipped)
+  out["card_vs_cpu"] = twin_card_vs_cpu(
+      slice_dataset.main,
+      flags + ["--keep_variables=2m_temperature,geopotential"], root,
+      "slice", equal=True)
+  return out
+
+
+def official_runs(root):
+  """index_on_valid_time of e2e_official's forecast (valid time and lead)
+  and expand_climatology of its climatology over December 2020 and
+  January 2021; each card against CPU, bit for bit."""
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import expand_climatology
+  from weatherbench2_torch.cli import index_on_valid_time
+
+  t0 = time.perf_counter()
+  paths = write_official_stores(root)
+  out = {"write_stores_s": time.perf_counter() - t0,
+         "store_gib": store_gib(paths)}
+  dst = os.path.join(root, "valid.zarr")
+  flags = [f"--input_path={paths['forecast']}"]
+  out["index_on_valid_time"] = prep2_cli(index_on_valid_time.main,
+                                         flags + [f"--output_path={dst}"])
+  emit("e2e_prep2_run", run="index_on_valid_time",
+       **out["index_on_valid_time"])
+  valid = xds.open_zarr(dst, lazy=True)
+  first = np.asarray(xds.read(valid[["2m_temperature"]].isel(time=0))[
+      "2m_temperature"].values)
+  if not (np.isnan(first[1:]).all() and np.isfinite(first[0]).all()):
+    raise AssertionError("the first valid time is not its lead-0 forecast "
+                         "alone")
+  shutil.rmtree(dst)
+  out["index_on_valid_time"]["card_vs_cpu"] = twin_card_vs_cpu(
+      index_on_valid_time.main, flags, root, "valid", equal=True)
+  dst = os.path.join(root, "expanded.zarr")
+  flags = [f"--input_path={paths['climatology']}",
+           f"--time_start={PREP2_EXPAND[0]}", f"--time_stop={PREP2_EXPAND[1]}"]
+  out["expand_climatology"] = prep2_cli(expand_climatology.main,
+                                        flags + [f"--output_path={dst}"])
+  emit("e2e_prep2_run", run="expand_climatology",
+       **out["expand_climatology"])
+  got = xds.open_zarr(dst, lazy=True)
+  clim = xds.open_zarr(paths["climatology"], lazy=True)
+  day366 = xds.read(got[["2m_temperature"]].sel(
+      time=slice("2020-12-31", "2020-12-31")))["2m_temperature"].values
+  want = xds.read(clim[["2m_temperature"]].sel(dayofyear=366))[
+      "2m_temperature"].transpose("hour", "longitude", "latitude").values
+  if not np.array_equal(np.asarray(day366), np.asarray(want)):
+    raise AssertionError("31 December 2020 is not the climatology's day 366")
+  shutil.rmtree(dst)
+  out["expand_climatology"]["card_vs_cpu"] = twin_card_vs_cpu(
+      expand_climatology.main, flags, root, "expand", equal=True)
+  return out
+
+
+def pcf_run(root):
+  """compute_probabilistic_climatological_forecasts: 30 members drawn from
+  1990-2019 for the 6-hourly inits of 1 January 2020, 15-day leads every 6
+  hours, 2 m temperature and 24 h precipitation at 1.5 degrees; one member
+  held to the truth at its source times; card against CPU on 2 m
+  temperature and the source times, bit for bit."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import (
+      compute_probabilistic_climatological_forecasts as pcf)
+
+  t0 = time.perf_counter()
+  times = []
+  for year in range(PCF_YEARS[0], PCF_YEARS[1] + 2):
+    times.append(np.arange(np.datetime64(f"{year}-01-01", "ns"),
+                           np.datetime64(f"{year}-01-25", "ns"),
+                           np.timedelta64(6, "h")))
+    if year <= PCF_YEARS[1]:
+      times.append(np.arange(np.datetime64(f"{year}-12-24", "ns"),
+                             np.datetime64(f"{year + 1}-01-01", "ns"),
+                             np.timedelta64(6, "h")))
+  times = np.sort(np.concatenate(times))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 11)
+
+  def values(name, shape, g, _):
+    x = torch.randn(shape, generator=g, device="cuda")
+    return 280.0 + 10.0 * x if name == "2m_temperature" else (
+        1e-3 * x).clamp(min=0.0)
+
+  path = write_grid_store(os.path.join(root, "truth.zarr"),
+                          dict.fromkeys(CLIM_VARIABLES, False), times,
+                          PREP_RESOLUTION, (), gen, values, 128)
+  out = {"write_stores_s": time.perf_counter() - t0,
+         "store_gib": store_gib({"truth": path}), "times": len(times)}
+  flags = [f"--input_path={path}",
+           f"--climatology_start_year={PCF_YEARS[0]}",
+           f"--climatology_end_year={PCF_YEARS[1]}",
+           f"--initial_time_start={PCF_INITS[0]}",
+           f"--initial_time_end={PCF_INITS[1]}", "--initial_time_spacing=6h",
+           "--forecast_duration=15 days", "--timedelta_spacing=6h",
+           f"--ensemble_size={PCF_MEMBERS}", "--add_source_time"]
+  dst = os.path.join(root, "pcf.zarr")
+  out["main"] = prep2_cli(pcf.main, flags + [f"--output_path={dst}"])
+  out["main"]["sizes"] = finite_store(dst, {"realization": PCF_MEMBERS,
+                                            "time": 4,
+                                            "prediction_timedelta": 61})
+  emit("e2e_prep2_run", run="compute_probabilistic_climatological_forecasts",
+       **out["main"])
+  got = xds.open_zarr(dst, lazy=True)
+  source = np.asarray(got["source_time"].values)[7, 2]  # (lead,)
+  truth = xds.open_zarr(path, lazy=True)
+  pos = np.searchsorted(np.asarray(truth.coords_dict()["time"].data),
+                        source.astype("datetime64[ns]"))
+  member = xds.read(got[["2m_temperature"]].isel(realization=7, time=2))
+  want = xds.read(truth[["2m_temperature"]].isel(time=pos))
+  if not np.array_equal(np.asarray(member["2m_temperature"].values),
+                        np.asarray(want["2m_temperature"].values)):
+    raise AssertionError("member 7 of init 2 is not the truth at its source "
+                         "times")
+  shutil.rmtree(dst)
+  out["card_vs_cpu"] = twin_card_vs_cpu(
+      pcf.main, flags + ["--variables=2m_temperature"], root, "pcf",
+      equal=True, names=["2m_temperature", "source_time"])
+  return out
+
+
+def e2e_prep2_phase():
+  """The nine remaining data-prep twins at full width on the card, each
+  group of runs in a temporary directory of its own."""
+  import torch
+
+  for cut in PREP2_CUTS:
+    print(f"e2e_prep2 cut: {cut}", flush=True)
+  out = {"cuts": PREP2_CUTS}
+  t0 = time.perf_counter()
+  for run, fn in (("year", year_runs), ("ensemble_mean", ensemble_mean_run),
+                  ("slice", wide_slice_run), ("official", official_runs),
+                  ("probabilistic_climatological_forecasts", pcf_run)):
+    with tempfile.TemporaryDirectory(prefix=f"wb2_chip_smoke_{run}_") as root:
+      out[run] = fn(root)
+    torch.cuda.empty_cache()
+    emit("e2e_prep2_step", run=run, seconds=time.perf_counter() - t0)
+  out["launches"] = {
+      "fused_deterministic_sums": 0,
+      "fused_region_sums": sum(
+          out["year"][name]["launches"]["fused_region_sums"]
+          for name in ("compute_averages", "compute_statistical_moments"))}
+  emit("e2e_prep2", **out)
+  return out
+
 def e2e_derived_phase():
   """Derived variables, the probabilistic-climatology baseline and the
   spectra pipeline, each at full width: three runs, each in a temporary
@@ -3056,7 +3536,8 @@ def e2e_derived_phase():
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
           "e2e_ensemble": e2e_ensemble_phase,
-          "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase}
+          "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase,
+          "e2e_prep2": e2e_prep2_phase}
 
 
 def main(argv):
@@ -3108,6 +3589,7 @@ def main(argv):
   official_run = results["e2e_official"]
   ensemble_run = results["e2e_ensemble"]
   derived_runs = results["e2e_derived"]
+  prep2 = results["e2e_prep2"]
 
   summary = []
   for name, key, official, replaces in (
@@ -3130,6 +3612,7 @@ def main(argv):
         "launches_e2e_derived": sum(
             derived_runs[run]["main"]["launches"][name]
             for run in ("run1", "run2")),
+        "launches_e2e_prep2": prep2["launches"][name],
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

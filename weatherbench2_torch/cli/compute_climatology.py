@@ -25,7 +25,6 @@ per pencil.  The output template comes from the first tile's results (no
 separate probe read); each tile is written into its region of the store.
 """
 import ast
-import time
 
 import numpy as np
 import torch
@@ -34,9 +33,8 @@ from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import flag_utils
 from weatherbench2_torch import utils
 from weatherbench2_torch import xds
+from weatherbench2_torch.cli import _prep
 from weatherbench2_torch.ops import climatology as clim_ops
-from weatherbench2_torch.xds import _xp
-from weatherbench2_torch.xds import io_zarr
 
 DEFAULT_SEEPS_THRESHOLD_MM = (
     "{'total_precipitation_24hr':0.25, 'total_precipitation_6hr':0.1}")
@@ -208,13 +206,10 @@ def _tile_slices(sizes, tile_spec):
 
 def main(argv=None):
   """Parse ``argv`` (default: the command line) and write the store;
-  returns the run's counts: tiles, the bytes read from the store, moved to
-  the device and back, the seconds spent reading, on the device (copies
-  included) and writing, and the wall time."""
-  t0 = time.perf_counter()
+  returns the run's counts (``_prep.RunCounts``) and its tiles."""
   args = build_parser().parse_args(argv)
   dev = device_lib.resolve(args.device)
-  reads0 = io_zarr.READS.bytes
+  counts = _prep.RunCounts(tiles=0)
   obs = xds.open_zarr(args.input_path, lazy=True)
   static = [k for k, v in obs.variables_dict().items()
             if "time" not in v.dims]
@@ -230,60 +225,48 @@ def main(argv=None):
   seeps_mm = ast.literal_eval(args.seeps_dry_threshold_mm)
   sizes = obs.sizes
   obs = obs.sel(time=run.clim_years)
-  counts = {"tiles": 0, "h2d_bytes": 0, "d2h_bytes": 0, "read_s": 0.0,
-            "device_s": 0.0, "write_s": 0.0}
   template = None
   for tile in _tile_slices(sizes, tile_spec or
                            {"longitude": sizes["longitude"]}):
-    t = time.perf_counter()
-    host_tile = xds.read(obs.isel(tile) if tile else obs)
-    counts["read_s"] += time.perf_counter() - t
-    t = time.perf_counter()
-    obs_tile = xds.to_device(host_tile, dev, counter=counts)
-    del host_tile
-    results = []
-    for statistic in args.statistics:
-      if statistic == "seeps":
-        results += [run.seeps(obs_tile, var, thr)
-                    for var, thr in seeps_mm.items() if var in obs]
-        continue
-      res = run.stat(obs_tile, statistic, quantiles)
-      if statistic != "mean":
-        res = res.rename({v: f"{v}_{statistic}" for v in res.keys()})
-      results.append(res)
-    piece = xds.merge(results)
-    piece = piece.copy(data={k: _xp.to_numpy(v.data)
-                             for k, v in piece.variables_dict().items()})
-    del obs_tile, results
-    counts["device_s"] += time.perf_counter() - t
-    counts["d2h_bytes"] += sum(v.data.nbytes
-                               for v in piece.variables_dict().values())
-    t = time.perf_counter()
-    if template is None:
-      # the output template: the first tile's structure, the full grid
-      tvars = {
-          name: xds.stub_variable(v.dims, {
-              d: sizes[d] if d in ("longitude", "latitude") else v.sizes[d]
-              for d in v.dims}, np.float32)
-          for name, v in piece.variables_dict().items()}
-      coords = {k: v for k, v in piece.coords_dict().items()
-                if k not in ("longitude", "latitude")}
-      coords["longitude"] = obs.coords_dict()["longitude"]
-      coords["latitude"] = obs.coords_dict()["latitude"]
-      template = xds.Dataset(tvars, coords=coords)
-      xds.create_zarr_template(template, args.output_path,
-                               chunks=dict(args.output_chunks))
-    for name, v in piece.variables_dict().items():
-      tdims = template.variables_dict()[name].dims
-      v = v.transpose(*tdims) if v.dims != tdims else v
-      xds.write_zarr_region(args.output_path, name,
-                            tuple(tile.get(d, slice(None)) for d in tdims),
-                            np.asarray(v.data, dtype=np.float32))
-    counts["write_s"] += time.perf_counter() - t
+    host_tile = counts.read(obs.isel(tile) if tile else obs)
+    with counts.timing("device_s"):
+      obs_tile = counts.to_device(host_tile, dev)
+      del host_tile
+      results = []
+      for statistic in args.statistics:
+        if statistic == "seeps":
+          results += [run.seeps(obs_tile, var, thr)
+                      for var, thr in seeps_mm.items() if var in obs]
+          continue
+        res = run.stat(obs_tile, statistic, quantiles)
+        if statistic != "mean":
+          res = res.rename({v: f"{v}_{statistic}" for v in res.keys()})
+        results.append(res)
+      piece = counts.to_host(xds.merge(results))
+      del obs_tile, results
+    with counts.timing("write_s"):
+      if template is None:
+        # the output template: the first tile's structure, the full grid
+        tvars = {
+            name: xds.stub_variable(v.dims, {
+                d: sizes[d] if d in ("longitude", "latitude") else v.sizes[d]
+                for d in v.dims}, np.float32)
+            for name, v in piece.variables_dict().items()}
+        coords = {k: v for k, v in piece.coords_dict().items()
+                  if k not in ("longitude", "latitude")}
+        coords["longitude"] = obs.coords_dict()["longitude"]
+        coords["latitude"] = obs.coords_dict()["latitude"]
+        template = xds.Dataset(tvars, coords=coords)
+        xds.create_zarr_template(template, args.output_path,
+                                 chunks=dict(args.output_chunks))
+      for name, v in piece.variables_dict().items():
+        tdims = template.variables_dict()[name].dims
+        v = v.transpose(*tdims) if v.dims != tdims else v
+        xds.write_zarr_region(args.output_path, name,
+                              tuple(tile.get(d, slice(None)) for d in tdims),
+                              np.asarray(v.data, dtype=np.float32))
     counts["tiles"] += 1
-  counts["read_bytes"] = io_zarr.READS.bytes - reads0
-  counts["wall_s"] = time.perf_counter() - t0
-  return counts
+  return counts.result()
 
 
 if __name__ == "__main__":

@@ -20,13 +20,10 @@ quantile, and is written region by region into the output store, whose
 template comes from the first tile's results (the JAX script reads a probe
 tile first).
 """
-import time
-
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import flag_utils
 from weatherbench2_torch import xds
-from weatherbench2_torch.xds import _xp
-from weatherbench2_torch.xds import io_zarr
+from weatherbench2_torch.cli import _prep
 
 
 def build_parser():
@@ -58,13 +55,10 @@ def build_parser():
 
 def main(argv=None):
   """Parse ``argv`` (default: the command line) and write the store;
-  returns the run's counts: tiles, the bytes read from the store, moved to
-  the device and back, the seconds spent reading, on the device (copies
-  included) and writing, and the wall time."""
-  t0 = time.perf_counter()
+  returns the run's counts (``_prep.RunCounts``) and its tiles."""
   args = build_parser().parse_args(argv)
   dev = device_lib.resolve(args.device)
-  reads0 = io_zarr.READS.bytes
+  counts = _prep.RunCounts(tiles=0)
   ds = xds.open_zarr(args.input_path, lazy=True)
   if args.variables is not None:
     ds = ds[list(args.variables)]
@@ -83,24 +77,17 @@ def main(argv=None):
 
   quantiles = [float(q) for q in args.quantiles]
   reduce_dims = list(args.dim)
-  counts = {"tiles": 0, "h2d_bytes": 0, "d2h_bytes": 0, "read_s": 0.0,
-            "device_s": 0.0, "write_s": 0.0}
 
   def compute(block):
-    t = time.perf_counter()
-    block = xds.read(block)
-    counts["read_s"] += time.perf_counter() - t
-    t = time.perf_counter()
-    out = xds.to_device(block, dev, counter=counts).quantile(
-        quantiles, dim=reduce_dims, skipna=args.skipna)
-    if args.name_suffix:
-      out = out.rename({v: f"{v}{args.name_suffix}" for v in out.keys()})
-    host = out.copy(data={k: _xp.to_numpy(v.data)
-                          for k, v in out.variables_dict().items()})
-    counts["device_s"] += time.perf_counter() - t
-    counts["d2h_bytes"] += sum(v.data.nbytes
-                               for v in host.variables_dict().values())
-    return host
+    host = counts.read(block)
+    with counts.timing("device_s"):
+      out = counts.to_device(host, dev).quantile(
+          quantiles, dim=reduce_dims, skipna=args.skipna)
+      if args.name_suffix:
+        out = out.rename({v: f"{v}{args.name_suffix}" for v in out.keys()})
+      out = counts.to_host(out)
+    counts["tiles"] += 1
+    return out
 
   # the reduced dims stay whole in each tile; tiles stream over the others
   kept = [d for d in ds.sizes if d not in reduce_dims]
@@ -113,30 +100,17 @@ def main(argv=None):
   stream_chunks = {d: c for d, c in stream_chunks.items() if d in kept}
   output_chunks = dict(args.output_chunks)
   if not kept or not stream_chunks:
-    xds.to_zarr(compute(ds), args.output_path, chunks=output_chunks)
-    counts["tiles"] = 1
-  else:
-    full = {d: ds.sizes[d] for d in stream_chunks}
-    coords = {k: v for k, v in ds.coords_dict().items()
-              if set(v.dims) & set(stream_chunks)}
-    writer = None
-    for window in xds.iter_windows(full, stream_chunks):
-      piece = compute(ds.isel(window) if window else ds)
-      t = time.perf_counter()
-      if writer is None:
-        # the template is the first tile's structure at full size: no
-        # separate probe reads the store
-        writer = xds.RegionWriter(
-            args.output_path,
-            xds.template_dataset(piece, full, coords=coords),
-            chunks=output_chunks or stream_chunks)
-      writer.write(piece, window)
-      counts["write_s"] += time.perf_counter() - t
-      counts["tiles"] += 1
-    writer.finish()
-  counts["read_bytes"] = io_zarr.READS.bytes - reads0
-  counts["wall_s"] = time.perf_counter() - t0
-  return counts
+    piece = compute(ds)
+    with counts.timing("write_s"):
+      xds.to_zarr(piece, args.output_path, chunks=output_chunks)
+    return counts.result()
+  _prep.write_blocks(
+      args.output_path, {d: ds.sizes[d] for d in stream_chunks},
+      stream_chunks, lambda window: compute(ds.isel(window) if window
+                                            else ds),
+      {k: v for k, v in ds.coords_dict().items()
+       if set(v.dims) & set(stream_chunks)}, counts, chunks=output_chunks)
+  return counts.result()
 
 
 if __name__ == "__main__":

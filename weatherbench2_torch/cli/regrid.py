@@ -17,18 +17,16 @@ The grid geometry is computed once on the host (``regridding``).  Time
 blocks (``--time_chunk_size``, default about 1 GiB of input on the card,
 256 MiB on the CPU) are read, moved to the device, regridded there (two
 float32 matmuls a field for the conservative method, gathers for the
-others) and written region by region into the output store.
+others) and written region by region into the output store, whose template
+is the first block's result at full length.
 """
-import time
-
 import numpy as np
 
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import flag_utils
 from weatherbench2_torch import regridding
 from weatherbench2_torch import xds
-from weatherbench2_torch.xds import _xp
-from weatherbench2_torch.xds import io_zarr
+from weatherbench2_torch.cli import _prep
 
 REGRIDDERS = {
     "nearest": regridding.NearestRegridder,
@@ -80,13 +78,10 @@ def make_regridder(source_ds: xds.Dataset, args) -> regridding.Regridder:
 
 def main(argv=None):
   """Parse ``argv`` (default: the command line) and write the store;
-  returns the run's counts: blocks, the bytes read from the store, moved to
-  the device and back, the seconds spent reading, on the device (copies
-  included) and writing, and the wall time."""
-  t0 = time.perf_counter()
+  returns the run's counts (``_prep.RunCounts``) and its blocks."""
   args = build_parser().parse_args(argv)
   dev = device_lib.resolve(args.device)
-  reads0 = io_zarr.READS.bytes
+  counts = _prep.RunCounts(blocks=0)
   source_ds = xds.open_zarr(args.input_path, lazy=True)
   renames = {args.longitude_name: "longitude",
              args.latitude_name: "latitude"}
@@ -94,51 +89,32 @@ def main(argv=None):
   if renames:
     source_ds = source_ds.rename(renames)
   regridder = make_regridder(source_ds, args)
-  counts = {"blocks": 0, "h2d_bytes": 0, "d2h_bytes": 0, "read_s": 0.0,
-            "device_s": 0.0, "write_s": 0.0}
 
-  def regrid_block(block, counter):
-    t = time.perf_counter()
-    block = xds.read(block)
-    counter["read_s"] += time.perf_counter() - t
-    t = time.perf_counter()
-    out = regridder.regrid_dataset(xds.to_device(block, dev, counter=counter))
-    host = out.copy(data={k: _xp.to_numpy(v.data)
-                          for k, v in out.variables_dict().items()})
-    counter["device_s"] += time.perf_counter() - t
-    counter["d2h_bytes"] += sum(v.data.nbytes
-                                for v in host.variables_dict().values())
-    return host
+  def regrid_block(block):
+    host = counts.read(block)
+    with counts.timing("device_s"):
+      out = counts.to_host(regridder.regrid_dataset(
+          counts.to_device(host, dev)))
+    counts["blocks"] += 1
+    return out
 
   output_chunks = dict(args.output_chunks)
   if "time" not in source_ds.sizes:
-    xds.to_zarr(regrid_block(source_ds, counts), args.output_path,
-                chunks=output_chunks)
-    counts["blocks"] = 1
-  else:
-    n = source_ds.sizes["time"]
-    chunk = args.time_chunk_size or xds.default_block(source_ds, "time",
-                                                      dev.type)
-    probe = regrid_block(source_ds.isel(time=slice(0, 1)),
-                         dict.fromkeys(counts, 0))
-    full_coords = {
-        k: v for k, v in source_ds.coords_dict().items()
-        if "time" in v.dims and not {"latitude", "longitude"} & set(v.dims)}
-    template = xds.template_dataset(probe, {"time": n}, coords=full_coords)
-    writer = xds.RegionWriter(
-        args.output_path, template,
-        chunks=output_chunks or {"time": chunk})
-    for window in xds.iter_windows({"time": n}, {"time": chunk}):
-      piece = regrid_block(source_ds.isel(window) if window else source_ds,
-                           counts)
-      t = time.perf_counter()
-      writer.write(piece, window or {"time": slice(0, n)})
-      counts["write_s"] += time.perf_counter() - t
-      counts["blocks"] += 1
-    writer.finish()
-  counts["read_bytes"] = io_zarr.READS.bytes - reads0
-  counts["wall_s"] = time.perf_counter() - t0
-  return counts
+    piece = regrid_block(source_ds)
+    with counts.timing("write_s"):
+      xds.to_zarr(piece, args.output_path, chunks=output_chunks)
+    return counts.result()
+  chunk = args.time_chunk_size or xds.default_block(source_ds, "time",
+                                                    dev.type)
+  full_coords = {
+      k: v for k, v in source_ds.coords_dict().items()
+      if "time" in v.dims and not {"latitude", "longitude"} & set(v.dims)}
+  _prep.write_blocks(
+      args.output_path, {"time": source_ds.sizes["time"]}, {"time": chunk},
+      lambda window: regrid_block(source_ds.isel(window) if window
+                                  else source_ds),
+      full_coords, counts, chunks=output_chunks)
+  return counts.result()
 
 
 if __name__ == "__main__":

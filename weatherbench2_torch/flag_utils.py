@@ -93,6 +93,11 @@ class Flags:
     self.parser.add_argument(f"--{name}", type=parse_chunks,
                              default=parse_chunks(default), help=help)
 
+  def dim_value_pairs(self, name, default, help):  # pylint: disable=redefined-builtin
+    self.parser.add_argument(f"--{name}", type=parse_dim_value_pairs,
+                             default=parse_dim_value_pairs(default),
+                             help=help)
+
   def device(self):
     self.string("device", None,
                 'Where to run: the CUDA card when not given, or "cpu".')

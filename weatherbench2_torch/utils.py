@@ -1,9 +1,14 @@
-"""Climatology statistics and the probabilistic climatology.
+"""Climatology statistics, the probabilistic climatology and resampling in
+time.
 
 Counterpart of ``weatherbench2_tpu/utils.py``: the rolling day-of-year
-(and hour-of-day) climatology statistics, the weighted quantile, and the
-probabilistic climatology (years of the truth as ensemble members).  The
-time code is numpy only (the card's machine has no pandas).
+(and hour-of-day) climatology statistics, the weighted quantile, the
+probabilistic climatology (years of the truth as ensemble members), and
+resampling and rolling windows in time.  The time code is numpy only (the
+card's machine has no pandas): timedelta strings, date and timedelta
+ranges, and the resampling plan are ``datetime64``/``timedelta64``
+arithmetic on the host; the bin reductions and rolling windows run on the
+payload's device (segment sums, cumulative sums, windowed extremes).
 
 Each statistic takes a Dataset whose payloads are numpy arrays or tensors.
 Either way it runs as torch ops (``ops.climatology``): numpy payloads as
@@ -24,6 +29,7 @@ valid times of one chunk, read from the truth store year by year.
 from __future__ import annotations
 
 import functools
+import re
 from typing import Callable, Union
 
 import numpy as np
@@ -240,55 +246,29 @@ def weighted_quantile(values, q, weights, axis: int = -1,
 
   The standard weighted-percentile estimator: sort values, form the
   normalized cumulative-weight positions p_k = (cumw_k - w_k/2) / W, and
-  linearly interpolate q over (p_k, v_k).  NaNs carry zero weight when
-  skipna.  On a tensor: one sort per pencil on its device
-  (``ops.climatology.sorted_weighted_quantile``, float32); on numpy the
-  JAX package's float64 host path.
+  linearly interpolate q over (p_k, v_k); NaNs carry zero weight.  One
+  sort per pencil on the tensor's device
+  (``ops.climatology.sorted_weighted_quantile``), in float32; a numpy
+  array runs as a float64 CPU tensor (the precision of the JAX package's
+  host path) and comes back as numpy.
   """
-  if _xp.is_tensor(values):
-    if not skipna:
-      raise NotImplementedError("weighted_quantile on tensors skips NaNs")
-    w = torch.as_tensor(np.asarray(weights) if not _xp.is_tensor(weights)
-                        else weights, dtype=torch.float32,
-                        device=values.device)
-    if w.ndim == values.ndim:
-      w = w.movedim(axis, -1)
-    v = values.to(torch.float32).movedim(axis, -1)
-    w = torch.broadcast_to(w, v.shape)
-    out = clim_ops.sorted_weighted_quantile(
-        v.reshape(-1, v.shape[-1]), w.reshape(-1, v.shape[-1]), q)
-    n_q = out.shape[-1]
-    return out.T.reshape((n_q,) + tuple(v.shape[:-1]))
-  q = np.atleast_1d(np.asarray(q, dtype=np.float64))
-  values_arr = np.asarray(values, dtype=np.float64)
-  weights_arr = np.asarray(weights, dtype=np.float64)
-  if weights_arr.ndim == values_arr.ndim:
-    weights_arr = np.moveaxis(weights_arr, axis, -1)
-  values = np.moveaxis(values_arr, axis, -1)
-  w = np.broadcast_to(weights_arr, values.shape).copy()
-  if skipna:
-    nan = np.isnan(values)
-    w = np.where(nan, 0.0, w)
-    values = np.where(nan, np.inf, values)  # sort NaNs to the end
-  order = np.argsort(values, axis=-1)
-  v_sorted = np.take_along_axis(values, order, axis=-1)
-  w_sorted = np.take_along_axis(w, order, axis=-1)
-  cumw = np.cumsum(w_sorted, axis=-1)
-  total = cumw[..., -1:]
-  with np.errstate(invalid="ignore", divide="ignore"):
-    positions = (cumw - 0.5 * w_sorted) / total
-  flat_v = v_sorted.reshape(-1, v_sorted.shape[-1])
-  flat_p = positions.reshape(-1, positions.shape[-1])
-  flat_w = w_sorted.reshape(-1, w_sorted.shape[-1])
-  out = np.empty((flat_v.shape[0], len(q)))
-  for i in range(flat_v.shape[0]):
-    valid = flat_w[i] > 0
-    if not valid.any():
-      out[i] = np.nan
-      continue
-    out[i] = np.interp(q, flat_p[i][valid], flat_v[i][valid])
-  out = out.reshape(v_sorted.shape[:-1] + (len(q),))
-  return np.moveaxis(out, -1, 0)
+  if not skipna:
+    raise NotImplementedError("weighted_quantile skips NaNs")
+  host = not _xp.is_tensor(values)
+  dtype = torch.float64 if host else torch.float32
+  if host:
+    values = torch.from_numpy(np.asarray(values, np.float64))
+  w = torch.as_tensor(weights if _xp.is_tensor(weights)
+                      else np.asarray(weights), dtype=dtype,
+                      device=values.device)
+  if w.ndim == values.ndim:
+    w = w.movedim(axis, -1)
+  v = values.to(dtype).movedim(axis, -1)
+  w = torch.broadcast_to(w, v.shape)
+  out = clim_ops.sorted_weighted_quantile(
+      v.reshape(-1, v.shape[-1]), w.reshape(-1, v.shape[-1]), q)
+  out = out.T.reshape((out.shape[-1],) + tuple(v.shape[:-1]))
+  return out.numpy() if host else out
 
 
 def _year_doy(times: np.ndarray):
@@ -556,3 +536,247 @@ def compute_daily_stat_fast(obs: xds.Dataset, window_size: int,
   if stat_fn == "std":
     return compute_daily_climatology_std(obs, window_size, clim_years)
   raise NotImplementedError(f"stat {stat_fn} not implemented.")
+
+
+# -- time without pandas ------------------------------------------------------
+
+
+def normalize_timedelta_str(s):
+  """Day and week units of a timedelta string in upper case ("1d" ->
+  "1D"), as the JAX package writes the scripts' strings for pandas; the
+  port's parser takes either case."""
+  if not isinstance(s, str):
+    return s
+  return re.sub(r"(\d\s*)([dw])\b",
+                lambda m: m.group(1) + m.group(2).upper(), s)
+
+
+def to_timedelta(s) -> np.timedelta64:
+  """A timedelta64[ns] from a count and a unit ("6h", "1d", "1w", "30min",
+  "15 days", "6 hours") or a timedelta; any other string raises, naming
+  it."""
+  return xds.core.to_timedelta64(normalize_timedelta_str(s))
+
+
+def date_range(start, stop, step) -> np.ndarray:
+  """datetime64[ns] from ``start`` to ``stop``, both included, every
+  ``step`` (``pd.date_range(start, stop, freq=step).values``)."""
+  start = np.datetime64(start, "ns")
+  stop = np.datetime64(stop, "ns")
+  return np.arange(start, stop + np.timedelta64(1, "ns"), to_timedelta(step))
+
+
+def timedelta_range(start, stop, step) -> np.ndarray:
+  """timedelta64[ns] from ``start`` to ``stop``, both included, every
+  ``step`` (``pd.timedelta_range(start, stop, freq=step).values``)."""
+  start, stop = to_timedelta(start), to_timedelta(stop)
+  return np.arange(start, stop + np.timedelta64(1, "ns"), to_timedelta(step))
+
+
+def time_parts(times):
+  """(year, day of year, hour) of datetime64 ``times``, int64."""
+  times = np.asarray(times).astype("datetime64[ns]")
+  year, doy = _year_doy(times)
+  hour = (times - times.astype("datetime64[D]")) // np.timedelta64(1, "h")
+  return year, doy, hour.astype(np.int64)
+
+
+# -- resampling in time -------------------------------------------------------
+
+STATISTICS = ("mean", "min", "max", "sum")
+
+
+def resample_time_plan(times, period, label: str = "left",
+                       origin: str = "start_day"):
+  """Host-side binning plan for resampling a sorted time axis.
+
+  Returns ``(label_times, starts, ends)``: output bin labels plus, per bin,
+  the half-open input position range [starts[i], ends[i]) feeding it.
+  ``label="left"``: bins [T, T + period) labelled T; ``"right"``: bins
+  (T - period, T] labelled T, the first bin dropped.  Every bin between
+  the first and the last occupied one is emitted, an empty one as an empty
+  range (NaN rows downstream), so that the output axis is regular across
+  gaps.  The bins count from the first time's midnight (``start_day``) or
+  from the first time.  A decreasing time axis raises.
+  """
+  period64 = to_timedelta(period)
+  times = np.asarray(times).astype("datetime64[ns]")
+  origin_ts = (times[0].astype("datetime64[D]").astype("datetime64[ns]")
+               if origin == "start_day" else times[0])
+  if len(times) > 1 and not (np.diff(times) >= np.timedelta64(0)).all():
+    raise ValueError(
+        "resampling requires a monotonically increasing time axis; "
+        "sort the input (e.g. via slice_dataset) first")
+  offs = times - origin_ts
+  if label == "left":
+    bins = offs // period64
+  elif label == "right":
+    bins = -((-offs) // period64)  # ceil: (T - period, T] -> bin index
+  else:
+    raise ValueError(f"Unhandled {label=}")
+  occupied, occ_starts = np.unique(bins, return_index=True)
+  occ_ends = np.append(occ_starts[1:], len(times))
+  labels_idx = np.arange(int(occupied[0]), int(occupied[-1]) + 1)
+  # an empty bin is the empty range at the end of the bins before it
+  where = np.searchsorted(occupied, labels_idx)
+  full = occupied[np.minimum(where, len(occupied) - 1)] == labels_idx
+  ends = np.where(full, occ_ends[np.minimum(where, len(occupied) - 1)],
+                  np.concatenate([[0], occ_ends])[where])
+  starts = np.where(full, occ_starts[np.minimum(where, len(occupied) - 1)],
+                    ends)
+  label_times = origin_ts + labels_idx * period64
+  if label == "right":
+    label_times, starts, ends = label_times[1:], starts[1:], ends[1:]
+  return label_times, starts.astype(np.int64), ends.astype(np.int64)
+
+
+def _as_time_first_tensor(data, ax: int):
+  """(tensor with the time axis first, whether ``data`` was on the
+  host)."""
+  host = not _xp.is_tensor(data)
+  x = torch.from_numpy(np.asarray(data)) if host else data
+  return x.movedim(ax, 0), host
+
+
+def _segment_counts(mask, seg, n_bins):
+  """Per-bin counts of ``mask`` (bins along axis 0), float64."""
+  out = torch.zeros((n_bins,) + tuple(mask.shape[1:]), dtype=torch.float64,
+                    device=mask.device)
+  return out.index_add_(0, seg, mask.to(torch.float64))
+
+
+def bin_reduce(x, starts, ends, statistic: str, skipna: bool = False):
+  """The ``statistic`` of each range [starts[i], ends[i]) of ``x``'s first
+  axis, float64, as segment reductions on ``x``'s device: ``index_add_``
+  for mean and sum (accumulated in float64), ``scatter_reduce_`` for min
+  and max.  A range with a NaN is NaN, or with ``skipna`` the NaNs are
+  left out (numpy's nan* functions: a sum of none is 0, a mean, min or max
+  of none NaN); an empty range is NaN."""
+  if statistic not in STATISTICS:
+    raise ValueError(f"unknown statistic {statistic!r}")
+  starts = np.asarray(starts, np.int64)
+  ends = np.asarray(ends, np.int64)
+  n_bins = len(starts)
+  lengths = ends - starts
+  rest = tuple(x.shape[1:])
+  dev = x.device
+  if n_bins and (starts[1:] == ends[:-1]).all():
+    rows = x[int(starts[0]):int(ends[-1])]
+  else:  # bins that do not tile a range: gather their rows
+    first = np.repeat(starts - np.cumsum(lengths) + lengths, lengths)
+    rows = x[torch.as_tensor(first + np.arange(int(lengths.sum())),
+                             device=dev)]
+  seg = torch.as_tensor(np.repeat(np.arange(n_bins), lengths), device=dev)
+  nan = torch.isnan(rows)
+  n_rows = torch.as_tensor(lengths, dtype=torch.float64, device=dev).reshape(
+      (n_bins,) + (1,) * len(rest))
+  if statistic in ("mean", "sum"):
+    v = rows.to(torch.float64)
+    if skipna:
+      v = torch.where(nan, 0.0, v)
+    out = torch.zeros((n_bins,) + rest, dtype=torch.float64, device=dev)
+    out.index_add_(0, seg, v)
+    if statistic == "mean":
+      out = out / (_segment_counts(~nan, seg, n_bins) if skipna else n_rows)
+  else:
+    fill = torch.inf if statistic == "min" else -torch.inf
+    v = torch.where(nan, fill, rows)
+    out = torch.full((n_bins,) + rest, fill, dtype=rows.dtype, device=dev)
+    out.scatter_reduce_(
+        0, seg.reshape((-1,) + (1,) * len(rest)).expand(v.shape), v,
+        "amin" if statistic == "min" else "amax")
+    n_nan = _segment_counts(nan, seg, n_bins)
+    out = torch.where(n_nan == n_rows if skipna else n_nan > 0, torch.nan,
+                      out.to(torch.float64))
+  return torch.where(n_rows == 0, torch.nan, out)
+
+
+def reduce_time_bins(ds: xds.Dataset, starts, ends, label_times,
+                     statistic: str, skipna: bool = False,
+                     time_dim: str = "time") -> xds.Dataset:
+  """Reduce each [starts[i], ends[i]) time range of ``ds`` to one step
+  (``bin_reduce``; float64, as the JAX package's).  Payloads stay where
+  they are: tensors on their device, numpy as CPU tensors back to numpy."""
+  out = xds.Dataset({}, coords={
+      k: v for k, v in ds.coords_dict().items() if time_dim not in v.dims})
+  for name in ds.keys():
+    da = ds[name]
+    if time_dim not in da.dims:
+      out[name] = da
+      continue
+    ax = da.dims.index(time_dim)
+    x, host = _as_time_first_tensor(da.data, ax)
+    red = bin_reduce(x, starts, ends, statistic, skipna).movedim(0, ax)
+    out[name] = xds.Variable(da.dims, red.numpy() if host else red)
+  return out.assign_coords({time_dim: np.asarray(label_times)})
+
+
+def resample_in_time(ds: xds.Dataset, period, statistic: str = "mean",
+                     label: str = "left", skipna: bool = False,
+                     time_dim: str = "time",
+                     origin: str = "start_day") -> xds.Dataset:
+  """Resample along time into period bins with the given statistic (see
+  ``resample_time_plan`` for the bins and their labels)."""
+  label_times, starts, ends = resample_time_plan(
+      ds.coords_dict()[time_dim].data, period, label, origin)
+  return reduce_time_bins(ds, starts, ends, label_times, statistic, skipna,
+                          time_dim)
+
+
+def _window_sums(v, window: int):
+  """Sums of each run of ``window`` entries along axis 0 (the first
+  ``window - 1`` positions have none): a cumulative sum's differences."""
+  c = torch.cumsum(v, 0)
+  c = torch.cat([torch.zeros_like(c[:1]), c])
+  return c[window:] - c[:-window]
+
+
+def rolling_reduce(x, window: int, statistic: str, skipna: bool = False):
+  """The trailing ``window``-step ``statistic`` along ``x``'s first axis,
+  float64, NaN in the first ``window - 1`` steps; NaN handling as
+  ``bin_reduce``.  Mean and sum are differences of a float64 cumulative
+  sum of the finite values (±inf and NaN counted apart, so that one does
+  not spoil the windows after it), min and max one reduction over an
+  ``unfold`` of the windows."""
+  if statistic not in STATISTICS:
+    raise ValueError(f"unknown statistic {statistic!r}")
+  out = torch.full(x.shape, torch.nan, dtype=torch.float64, device=x.device)
+  if x.shape[0] < window:
+    return out
+  xf = x.to(torch.float64)
+  nan = torch.isnan(xf)
+  n_nan = _window_sums(nan.to(torch.float64), window)
+  if statistic in ("mean", "sum"):
+    res = _window_sums(torch.where(torch.isfinite(xf), xf, 0.0), window)
+    pos = _window_sums(torch.isposinf(xf).to(torch.float64), window) > 0
+    neg = _window_sums(torch.isneginf(xf).to(torch.float64), window) > 0
+    res = torch.where(pos, torch.inf, torch.where(neg, -torch.inf, res))
+    res = torch.where(pos & neg, torch.nan, res)
+    if statistic == "mean":
+      res = res / (window - n_nan if skipna else window)
+    bad = n_nan > 0 if not skipna else torch.zeros_like(pos)
+  else:
+    fill = torch.inf if statistic == "min" else -torch.inf
+    windows = torch.where(nan, fill, xf).unfold(0, window, 1)
+    res = (torch.amin if statistic == "min" else torch.amax)(windows, -1)
+    bad = n_nan == window if skipna else n_nan > 0
+  out[window - 1:] = torch.where(bad, torch.nan, res)
+  return out
+
+
+def rolling_in_time(ds: xds.Dataset, window: int, statistic: str = "mean",
+                    skipna: bool = False,
+                    time_dim: str = "time") -> xds.Dataset:
+  """Trailing rolling-window statistic (``rolling_reduce``); the first
+  window - 1 entries are NaN."""
+  out = xds.Dataset({}, coords=dict(ds.coords_dict()))
+  for name in ds.keys():
+    da = ds[name]
+    if time_dim not in da.dims:
+      out[name] = da
+      continue
+    ax = da.dims.index(time_dim)
+    x, host = _as_time_first_tensor(da.data, ax)
+    res = rolling_reduce(x, window, statistic, skipna).movedim(0, ax)
+    out[name] = xds.Variable(da.dims, res.numpy() if host else res)
+  return out

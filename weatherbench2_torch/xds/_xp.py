@@ -190,6 +190,55 @@ class _Torch:
     return torch.zeros_like(x)
 
   @staticmethod
+  def full_like(x, fill):
+    return torch.full_like(x, fill)
+
+  @staticmethod
+  def min(x, axis=None):
+    return torch.amin(x, dim=_axes(axis) or tuple(range(x.ndim)))
+
+  @staticmethod
+  def max(x, axis=None):
+    return torch.amax(x, dim=_axes(axis) or tuple(range(x.ndim)))
+
+  @staticmethod
+  def _nan_extreme(x, axis, fill, fn):
+    """numpy's nanmin/nanmax: NaNs left out, NaN where all are NaN."""
+    dims = _axes(axis) or tuple(range(x.ndim))
+    nan = torch.isnan(x)
+    out = fn(torch.where(nan, fill, x), dim=dims)
+    return torch.where(nan.all(dim=dims), torch.nan, out)
+
+  @classmethod
+  def nanmin(cls, x, axis=None):
+    return cls._nan_extreme(x, axis, torch.inf, torch.amin)
+
+  @classmethod
+  def nanmax(cls, x, axis=None):
+    return cls._nan_extreme(x, axis, -torch.inf, torch.amax)
+
+  @staticmethod
+  def clip(x, lo, hi):
+    return torch.clamp(x, lo, hi)
+
+  @staticmethod
+  def roll(x, shift, axis):
+    return torch.roll(x, shift, dims=axis)
+
+  @staticmethod
+  def pad(x, widths, mode):
+    """numpy's ``pad`` in ``wrap`` mode (widths no longer than the axis)."""
+    if mode != "wrap":
+      raise NotImplementedError(f"pad mode {mode!r}")
+    for ax, (lo, hi) in enumerate(widths):
+      n = x.shape[ax]
+      if lo > n or hi > n:
+        raise ValueError(f"wrap padding of {lo, hi} on an axis of {n}")
+      x = torch.cat([x.narrow(ax, n - lo, lo), x, x.narrow(ax, 0, hi)],
+                    dim=ax)
+    return x
+
+  @staticmethod
   def log(x):
     return torch.log(x)
 

@@ -135,6 +135,7 @@ def _host(data):
 # ---------------------------------------------------------------------------
 
 _TIMEDELTA_UNITS = {
+    "w": "W",
     "d": "D", "day": "D", "days": "D",
     "h": "h", "hr": "h", "hour": "h", "hours": "h",
     "m": "m", "min": "m", "minute": "m", "minutes": "m",
@@ -145,7 +146,8 @@ _TIMEDELTA_RE = re.compile(r"^\s*([-+]?\d+)\s*([a-zA-Z]+)\s*$")
 
 
 def to_timedelta64(label) -> np.timedelta64:
-  """A timedelta64[ns] from '6 hours', '1 day', '12h', or a timedelta."""
+  """A timedelta64[ns] from '6 hours', '1 day', '12h', '1w', or a
+  timedelta; any other string raises, naming it."""
   if isinstance(label, str):
     m = _TIMEDELTA_RE.match(label)
     unit = _TIMEDELTA_UNITS.get(m.group(2).lower()) if m else None
@@ -656,6 +658,10 @@ class DataArray:
         self.variable.transpose(*dims), coords=self.coords, name=self.name
     )
 
+  def squeeze(self, dim=None):
+    """Without the size-1 dims ``dim`` (default: every size-1 dim)."""
+    return _squeeze(self, dim)
+
   # -- selection -------------------------------------------------------------
   def get_index(self, dim) -> Index:
     if dim not in self.coords:
@@ -775,6 +781,37 @@ class DataArray:
     return DataArray(Variable(bvars[0].dims, data), coords=coords,
                      name=self.name)
 
+  def clip(self, min=None, max=None):  # pylint: disable=redefined-builtin
+    """Values limited to [min, max] (either bound may be None)."""
+    data = _host(self.data)
+    return self.copy(data=_xp.namespace(data).clip(data, min, max))
+
+  def roll(self, shifts=None, **kw):
+    """Values rolled by ``shifts`` ({dim: steps}); coordinates stay."""
+    shifts = dict(shifts or {})
+    shifts.update(kw)
+    data = _host(self.data)
+    xp = _xp.namespace(data)
+    for d, n in shifts.items():
+      data = xp.roll(data, n, axis=self.dims.index(d))
+    return self.copy(data=data)
+
+  def pad_wrap(self, pad_width: Mapping[str, int]):
+    """Periodic padding of ``pad_width[dim]`` entries on both sides of each
+    dim; the padded dims lose their coordinates."""
+    data = _host(self.data)
+    widths = [(0, 0)] * self.ndim
+    for d, w in pad_width.items():
+      widths[self.dims.index(d)] = (w, w)
+    data = _xp.namespace(data).pad(data, widths, mode="wrap")
+    coords = {k: v for k, v in self.coords.items()
+              if not set(v.dims) & set(pad_width)}
+    return DataArray(Variable(self.dims, data), coords=coords, name=self.name)
+
+  def sortby(self, dim):
+    """Reordered so that the coordinate of ``dim`` increases."""
+    return self.isel({dim: np.argsort(_to_numpy(self.coords[dim].data))})
+
   def fillna(self, value):
     """NaNs replaced by ``value`` (a scalar or a DataArray broadcast by
     dim name)."""
@@ -834,6 +871,12 @@ class DataArray:
 
   def var(self, dim=None, ddof=0, skipna=False, **kw):
     return self._reduce("var", "nanvar", dim, skipna, ddof=ddof)
+
+  def min(self, dim=None, skipna=False, **kw):
+    return self._reduce("min", "nanmin", dim, skipna)
+
+  def max(self, dim=None, skipna=False, **kw):
+    return self._reduce("max", "nanmax", dim, skipna)
 
   def cumsum(self, dim, skipna=False):
     data = _host(self.data)
@@ -1388,6 +1431,10 @@ class Dataset:
       new_vars[k] = v.transpose(*(own + rest)) if own else v
     return Dataset(new_vars, dict(self._coords), self.attrs)
 
+  def squeeze(self, dim=None):
+    """Without the size-1 dims ``dim`` (default: every size-1 dim)."""
+    return _squeeze(self, dim)
+
   # -- selection -------------------------------------------------------------
   def get_index(self, dim) -> Index:
     if dim in self._coords:
@@ -1403,6 +1450,29 @@ class Dataset:
     indexers = dict(indexers or {})
     indexers.update(kw)
     return _sel_impl(self, indexers, method, tolerance, drop)
+
+  def drop_sel(self, indexers=None, **kw):
+    """Without the labels ``indexers[dim]`` of each dim."""
+    indexers = dict(indexers or {})
+    indexers.update(kw)
+    out = self
+    for d, labels in indexers.items():
+      idx = out.get_index(d)
+      pos = idx.positions_for_labels(np.asarray(labels))
+      out = out.isel({d: np.setdiff1d(np.arange(len(idx.values)),
+                                      np.atleast_1d(pos))})
+    return out
+
+  def drop_isel(self, indexers=None, **kw):
+    """Without the positions ``indexers[dim]`` (negative from the end)."""
+    indexers = dict(indexers or {})
+    indexers.update(kw)
+    out = self
+    for d, pos in indexers.items():
+      n = out.sizes[d]
+      out = out.isel({d: np.setdiff1d(
+          np.arange(n), np.atleast_1d(np.asarray(pos)) % n)})
+    return out
 
   def thin(self, indexers=None, **kw):
     indexers = dict(indexers or {})
@@ -1469,6 +1539,9 @@ class Dataset:
       return out
     return self.map(lambda da: da.where(cond, other))
 
+  def clip(self, min=None, max=None):  # pylint: disable=redefined-builtin
+    return self.map(lambda da: da.clip(min, max))
+
   def isnull(self):
     return self.map(lambda da: da.isnull())
 
@@ -1534,6 +1607,12 @@ class Dataset:
   def var(self, dim=None, ddof=0, skipna=False, **kw):
     return self._reduce_ds("var", dim, skipna, ddof=ddof)
 
+  def min(self, dim=None, skipna=False, **kw):
+    return self._reduce_ds("min", dim, skipna)
+
+  def max(self, dim=None, skipna=False, **kw):
+    return self._reduce_ds("max", dim, skipna)
+
   def cumsum(self, dim, skipna=False):
     return self.map(
         lambda da: da.cumsum(dim, skipna) if dim in da.dims else da)
@@ -1589,12 +1668,33 @@ def _expand_dims_impl(obj, dim, axis, dim_kwargs, is_dataset):
 # ---------------------------------------------------------------------------
 
 
+def _squeeze(obj, dim):
+  sizes = obj.sizes
+  dims = ([dim] if isinstance(dim, str) else
+          list(dim) if dim is not None else
+          [d for d, n in sizes.items() if n == 1])
+  for d in dims:
+    if sizes[d] != 1:
+      raise ValueError(f"cannot squeeze dim {d} of size {sizes[d]}")
+  return obj.isel({d: 0 for d in dims})
+
+
 def zeros_like(obj):
   """Zeros shaped, labeled and typed like a DataArray or Dataset."""
+  return full_like(obj, 0)
+
+
+def ones_like(obj):
+  """Ones shaped, labeled and typed like a DataArray or Dataset."""
+  return full_like(obj, 1)
+
+
+def full_like(obj, fill):
+  """``fill`` shaped, labeled and typed like a DataArray or Dataset."""
   if isinstance(obj, Dataset):
-    return obj.map(zeros_like)
+    return obj.map(lambda da: full_like(da, fill))
   data = _host(obj.data)
-  return obj.copy(data=_xp.namespace(data).zeros_like(data))
+  return obj.copy(data=_xp.namespace(data).full_like(data, fill))
 
 
 def where(cond, x, y):

@@ -126,6 +126,41 @@ def default_block(ds: core.Dataset, dim: str, device_type: str) -> int:
   return max(1, int(target_bytes // per_step))
 
 
+def orthogonal_select(payload, keys: Sequence[Any]) -> np.ndarray:
+  """Outer (per-axis independent) selection of a lazy or numpy payload.
+
+  ``keys`` has one entry per axis: a slice or a 1-d integer array.  A lazy
+  payload takes the keys one axis at a time into its view, so that only
+  the selected positions are read (each axis's distinct positions, in
+  ascending order, then put in the key's order); numpy takes them axis by
+  axis.  Unlike numpy's fancy indexing, two position arrays select their
+  product, not pairs.
+  """
+  data = payload
+  for ax, k in enumerate(keys):
+    if isinstance(k, slice):
+      if k != slice(None):
+        data = data[(slice(None),) * ax + (k,)]
+      continue
+    data = data[(slice(None),) * ax + (np.asarray(k, np.int64),)]
+  return np.asarray(data)
+
+
+def clustered_positions(positions: np.ndarray,
+                        max_gap: int = 16) -> list[slice]:
+  """Sorted distinct ``positions`` grouped into spans: a new span starts
+  wherever two neighbours lie more than ``max_gap`` apart.  The spans cover
+  every position; a scattered gather over a long axis (members drawn from
+  30 years) becomes a few bounded reads."""
+  pos = np.unique(np.asarray(positions, dtype=np.int64))
+  if pos.size == 0:
+    return []
+  breaks = np.nonzero(np.diff(pos) > max_gap)[0]
+  starts = np.concatenate([[0], breaks + 1])
+  ends = np.concatenate([breaks, [pos.size - 1]])
+  return [slice(int(pos[a]), int(pos[b]) + 1) for a, b in zip(starts, ends)]
+
+
 class RegionWriter:
   """Create a zarr template and write pieces into regions of it."""
 
