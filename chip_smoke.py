@@ -13,8 +13,10 @@ exits non-zero without the final line):
            stderr);
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            timed at the main path's shapes (three regions), at the
-           240x121 shapes with the thirteen official regions and at the
-           official 0.25-degree shape, without and with NaNs, with
+           240x121 shapes with the thirteen official regions, at the
+           official 0.25-degree shape and at the chunk shapes of the later
+           phases (a rank's too, in the batch and in the spatial world),
+           without and with NaNs, with
            CUDA-event medians of the kernel, of each core of the library
            where it can run, of the plain version and of one torch.matmul
            yardstick, beside the bound; two launches must give the same
@@ -105,7 +107,25 @@ exits non-zero without the final line):
            climatological forecasts of 1 January 2020 from 1990-2019 (30
            members, 15-day leads); each twin card against --device=cpu
            (within the tolerance, or bit for bit where it only gathers),
-           with its wall, host and copy shares, bytes read and moved.
+           with its wall, host and copy shares, bytes read and moved;
+  e2e_multi the multi-rank engine and the bfloat16 transfer mode: (1)
+           e2e_official's configuration through the CLI without a mesh;
+           (2) the same as two gloo ranks sharing the card
+           (parallel.mesh.run_ranks), within the tolerance, every rank's
+           bytes read and moved, host wait and kernel launches against the
+           prediction; (3) a 1 x 2 batch x spatial world on WB2's 64 x 32
+           grid (the official configs and a 10-member ensemble's spread
+           and skill) against one device and against the CPU (the kernels
+           phase holds both kernels to their plain versions at its band
+           shapes), and the 121 latitudes of 1.5 degrees refused; (4) a
+           2-rank run whose rank 0 dies after its second state file; (5) a world of one on the
+           card (NCCL, --n_devices=1): step 1 again, equal bit for bit,
+           then the killed run resumed as one rank; (6)
+           WB2_TRANSFER_DTYPE=bfloat16 on step 1's configuration, h2d bytes
+           and the deviation from float32 per metric, card against CPU on
+           8 inits; (7) visualization's relative metrics and spread/skill
+           on card-resident results against the host, and the plots'
+           named ImportError without matplotlib.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
@@ -208,6 +228,16 @@ def averages_weights(n_lon, n_lat):
   w = w / w.mean()
   return np.stack([np.broadcast_to(w, (n_lon, n_lat)).ravel(),
                    np.ones(n_lon * n_lat)]).astype(np.float32)
+
+
+def band_weights(n_lon, n_lat, n_regions, bands=2):
+  """``region_weights`` of the whole grid cut to its first latitude band
+  of ``bands`` (cells run longitude-major), as a rank of the spatial axis
+  holds them."""
+  w = region_weights(n_lon, n_lat, n_regions).reshape(n_regions, n_lon,
+                                                       n_lat)
+  return np.ascontiguousarray(w[:, :, :n_lat // bands]).reshape(
+      n_regions, -1)
 
 
 def cuda_time_ms(fn, arg_sets):
@@ -692,6 +722,29 @@ def kernels_phase():
   for rows, nans in ((7056, False), (9072, False), (336, True)):
     cases[("region", "official16", rows)] = kernel_case(
         "fused_region_sums", (rows, 240 * 121), 16, bench, nans, None, gen)
+  # a rank's share of that chunk in e2e_multi's 2-rank world (8 of the 16
+  # inits): half the rows of each shape but ACC's, whose 8 inits are one
+  # group of 9072 rows, timed above
+  for rows in (504, 168):
+    cases[("det", "multi8", rows)] = kernel_case(
+        "fused_deterministic_sums", (rows, 240 * 121), 16, bench, False,
+        False, gen)
+  for rows, nans in ((3528, False), (168, True)):
+    cases[("region", "multi8", rows)] = kernel_case(
+        "fused_region_sums", (rows, 240 * 121), 16, bench, nans, None, gen)
+  # a rank's latitude band in e2e_multi's 1 x 2 batch x spatial world on
+  # the 64 x 32 grid (the 16 inits of a chunk, 16 of the 32 latitudes): the
+  # shapes that world's rank launches, ACC's two row groups in one, SEEPS
+  # with NaN cells; the full grid's weights cut to the band
+  band = band_weights(*GRID64, 16)
+  for rows in SPATIAL_DET_ROWS:
+    cases[("det", "spatial16", rows)] = kernel_case(
+        "fused_deterministic_sums", (rows, band.shape[1]), 16, GRID64,
+        False, False, gen, weights=band)
+  for rows, nans in SPATIAL_REGION_ROWS:
+    cases[("region", "spatial16", rows)] = kernel_case(
+        "fused_region_sums", (rows, band.shape[1]), 16, GRID64, nans, None,
+        gen, weights=band)
   # the shapes of one 2-init chunk of the 50-member ensemble (e2e_ensemble)
   # with its sixteen regions: kernel 2 on the probabilistic plan's five
   # fields of a three-level variable (5 x 2 x 21 x 3 rows) and of a surface
@@ -1161,7 +1214,8 @@ DETERMINISTIC_LAUNCHES = (8, 4)
 DETERMINISTIC_LAUNCHES_8 = (8, 3)
 
 
-def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=()):
+def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
+                          resolution=1.5, latitudes=None):
   """The official 1.5-degree configuration's stores, from the seed: the
   CLI's seven default variables at 500/700/850 hPa and 24 h precipitation
   (non-negative, half of it dry); 32 12-hourly inits x 21 leads; 6-hourly
@@ -1171,12 +1225,14 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=()):
   quarters of the year repeat the values of the first: only its size has
   to be real, and a quarter of the random draws is enough.  ``extra_2d``
   adds surface variables to all three stores, ``clim_3d``/``clim_2d`` rows
-  to the climatology alone (the derived variables')."""
+  to the climatology alone (the derived variables').  ``resolution`` and
+  ``latitudes`` (a grid without poles) give another grid."""
   from weatherbench2_torch import schema, xds
 
   specs = dict(variables_3d=list(VARIABLES_3D),
                variables_2d=list(VARIABLES_2D) + [PRECIP] + list(extra_2d),
-               levels=(500, 700, 850), spatial_resolution_in_degrees=1.5)
+               levels=(500, 700, 850),
+               spatial_resolution_in_degrees=resolution)
   truth = schema.mock_truth_data(time_start="2020-01-01",
                                  time_stop="2020-01-27",
                                  time_resolution="6 hours", **specs)
@@ -1187,6 +1243,10 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=()):
   clim = schema.mock_hourly_climatology_data(hour_interval=6, **dict(
       specs, variables_3d=specs["variables_3d"] + list(clim_3d),
       variables_2d=specs["variables_2d"] + list(clim_2d)))
+  if latitudes is not None:
+    truth, forecast, clim = (
+        ds.isel(latitude=slice(0, len(latitudes))).assign_coords(
+            latitude=np.asarray(latitudes)) for ds in (truth, forecast, clim))
   n_lon, n_lat = truth.sizes["longitude"], truth.sizes["latitude"]
   rng = np.random.default_rng(SEED + 1)
   dry_fraction = rng.random((n_lon, n_lat), dtype=np.float32)
@@ -3533,11 +3593,423 @@ def e2e_derived_phase():
   return out
 
 
+# -- e2e_multi ----------------------------------------------------------------
+
+# WB2's published 64 x 32 grid (5.625 degrees, no poles): its 32 latitudes
+# split in two bands, where 121 (1.5 degrees) and 721 (0.25) do not
+GRID64_LATITUDES = np.linspace(-87.1875, 87.1875, 32)
+GRID64 = (64, 32)
+# the kernels' rows in a rank of the 1 x 2 world on that grid, for a
+# 16-init chunk of the three official configs (recorded from the world on
+# the CPU): kernel 1 per three-level and surface variable; kernel 2 for
+# mse (18 variable-levels and 3 wind-vector levels), ACC (both row groups
+# at once) and SEEPS (NaN cells)
+SPATIAL_DET_ROWS = (1008, 336)
+SPATIAL_REGION_ROWS = ((7056, False), (18144, False), (336, True))
+# two ranks on the one card talk over gloo (NCCL takes one rank a card)
+SHARED_CARD = ["cuda:0", "cuda:0"]
+CARD = "cuda"
+# launches a rank makes for a 16-init chunk of the three official configs
+# when it holds 8 of the inits, written down in PERF.md before the first
+# run: kernel 1 as with 16 (once per variable and config); kernel 2 once
+# fewer for each ACC (its rows fit one 1 GiB group)
+MULTI_LAUNCHES = (16, 7)
+ENSEMBLE64_MEMBERS = 10
+ENSEMBLE64_VARIABLES = ("geopotential", "2m_temperature")
+# bfloat16 keeps about three significant digits: an MSE moves by a few
+# parts in a thousand of its largest value (a bias or a SEEPS, near zero or
+# by category, can move by much more, and is only printed)
+TRANSFER_MSE_RTOL = 1e-2
+
+
+def multi_rank_counts(stats, expect_chunks, per_chunk=None, kernel_1=True):
+  """A world's per-rank counts (rank 0 returns every rank's); raises
+  unless every rank launched kernel 2, and kernel 1 where its metrics run,
+  as planned where given."""
+  if stats["chunks"] != expect_chunks:
+    raise AssertionError(f"{stats['chunks']} chunks, expected "
+                         f"{expect_chunks}")
+  ranks = []
+  for r, c in enumerate(stats["ranks"]):
+    launches = (c["fused_deterministic_sums_launches"],
+                c["fused_region_sums_launches"])
+    if min(launches[not kernel_1:]) < 1 or per_chunk is not None and (
+        launches != tuple(n * expect_chunks for n in per_chunk)):
+      raise AssertionError(f"rank {r} launched {launches} in "
+                           f"{expect_chunks} chunks, expected {per_chunk} a "
+                           "chunk")
+    ranks.append({"rank": r, "read_gib": c["read_bytes"] / 2**30,
+                  "h2d_gib": c["h2d_bytes"] / 2**30,
+                  "wait_host_s": c["wait_host_s"],
+                  "gathered_gib": c["gathered_bytes"] / 2**30,
+                  "fused_deterministic_sums": launches[0],
+                  "fused_region_sums": launches[1]})
+  return {"wall_s": stats["wall_s"], "chunks": stats["chunks"],
+          "read_gib": stats["read_bytes"] / 2**30,
+          "h2d_gib": stats["h2d_bytes"] / 2**30,
+          "wait_host_s_max": stats["wait_host_s"], "ranks": ranks}
+
+
+def equal_results(got, want, what):
+  """Raise unless two runs' results are equal bit for bit."""
+  n = 0
+  for cname in want:
+    for k in want[cname].keys():
+      w = want[cname][k].values
+      g = got[cname][k].transpose(*want[cname][k].dims).values
+      if not np.array_equal(g, w, equal_nan=True):
+        raise AssertionError(f"{what}: {cname}/{k} differs")
+      n += 1
+  return {"compared": n, "bit_for_bit": True}
+
+
+def write_ensemble64(root, gen):
+  """A 10-member ensemble of z (500, 850 hPa) and t2m on the 64 x 32 grid,
+  8 12-hourly inits x 21 leads, normal members around a truth's scale."""
+  from weatherbench2_torch import schema, xds
+
+  ds = schema.mock_forecast_data(
+      variables_3d=["geopotential"], variables_2d=["2m_temperature"],
+      levels=(500, 850), spatial_resolution_in_degrees=5.625,
+      time_start="2020-01-01", time_stop="2020-01-05",
+      time_resolution="12 hours", lead_start="0 days", lead_stop="10 days",
+      lead_resolution="12 hours", ensemble_size=ENSEMBLE64_MEMBERS)
+  ds = ds.isel(latitude=slice(0, 32)).assign_coords(
+      latitude=GRID64_LATITUDES)
+  ds = ds.copy(data={k: gen.standard_normal(v.shape, dtype=np.float32)
+                     for k, v in ds.variables_dict().items()})
+  path = os.path.join(root, "ensemble64.zarr")
+  xds.to_zarr(ds, path)
+  return path
+
+
+def ensemble64_run(forecast, truth, out_dir, device=None, mesh=None):
+  """The ensemble spread and skill (the two metrics spread/skill plots
+  read) of the 64 x 32 ensemble, three regions, chunks of 4 inits."""
+  from weatherbench2_torch import config, evaluation, metrics
+
+  ens = dict(ensemble_dim="realization")
+  cfgs = {"spread_skill": config.Eval(
+      metrics={"ensemble_stddev": metrics.EnsembleStddevSqrtBeforeTimeAvg(
+          **ens),
+               "ensemble_mean_rmse": (
+                   metrics.EnsembleMeanRMSESqrtBeforeTimeAvg(**ens))},
+      regions=three_regions())}
+  dc = config.Data(
+      selection=config.Selection(variables=list(ENSEMBLE64_VARIABLES),
+                                 levels=[500, 850],
+                                 time_slice=slice("2020-01-01",
+                                                  "2020-01-04T12")),
+      paths=config.Paths(forecast=forecast, obs=truth, output_dir=out_dir),
+      by_init=True)
+  return evaluation.evaluate_with_mesh(dc, cfgs,
+                                       input_chunks={"init_time": 4},
+                                       device=device, mesh=mesh)
+
+
+def spatial_rank(devices, grid_argv, official_argv, ensemble_args, n_lat):
+  """Every rank of the 1 x 2 batch x spatial world on ``devices``: the
+  official configs on the 64 x 32 grid, the ensemble, and the refusal of
+  the official grid's ``n_lat`` latitudes (before any collective, in both
+  ranks)."""
+  from weatherbench2_torch.cli import evaluate as cli
+  from weatherbench2_torch.parallel import mesh as mesh_lib
+
+  mesh = mesh_lib.make_mesh(axis_names=("batch", "spatial"),
+                            devices=devices, axis_sizes=[1, 2])
+  out = {"official": cli.run(cli.build_parser().parse_args(grid_argv), mesh),
+         "ensemble": ensemble64_run(*ensemble_args, mesh=mesh)}
+  try:
+    cli.run(cli.build_parser().parse_args(official_argv), mesh)
+  except ValueError as err:  # the refusal this world checks
+    out["refusal"] = str(err)
+  if f"does not divide the latitude size {n_lat}" not in out.get(
+      "refusal", ""):
+    raise AssertionError(f"{n_lat} latitudes were not refused: {out}")
+  return out
+
+
+def dying_rank(devices, argv, ckpt):
+  """A rank of a 2-rank world on ``devices``; rank 0 dies right after its
+  second state file is in place, which ends the world."""
+  import torch.distributed as dist
+
+  from weatherbench2_torch.cli import evaluate as cli
+
+  if dist.get_rank() == 0:
+    real, states = os.replace, []
+
+    def replace(src, dst):
+      real(src, dst)
+      if dst.startswith(ckpt):
+        states.append(dst)
+        if len(states) == 2:
+          os._exit(9)  # the process dies here, with no clean-up at all
+
+    os.replace = replace
+  cli.run_rank(argv, devices)
+
+
+def world_of_one_rank(devices, full_argv, resume_argv):
+  """The one rank of a world of one on ``devices``: run 1's configuration,
+  then a killed run resumed from its state file."""
+  from weatherbench2_torch.cli import evaluate as cli
+
+  return cli.run_rank(full_argv, devices), cli.run_rank(resume_argv, devices)
+
+
+def relative_deviation(got, want):
+  """{metric: max |got - want| / max |want|} over the variables of every
+  config (of a variable, per metric)."""
+  worst = {}
+  for cname in want:
+    names = [str(m) for m in np.asarray(
+        want[cname].coords_dict()["metric"].data)]
+    for k in want[cname].keys():
+      for i, m in enumerate(names):
+        w = np.asarray(want[cname][k].isel(metric=i).values, np.float64)
+        g = np.asarray(got[cname][k].isel(metric=i).transpose(
+            *want[cname][k].isel(metric=i).dims).values, np.float64)
+        if np.isfinite(w).any():
+          worst[m] = max(worst.get(m, 0.0), float(
+              np.nanmax(np.abs(g - w)) / np.nanmax(np.abs(w))))
+  return worst
+
+
+def visualization_card_vs_cpu(bf16, f32, ensemble):
+  """compute_relative_metrics and compute_spread_skill_ratio on results
+  whose payloads are on the card, against the same on the host; and the
+  plotting functions' named ImportError where matplotlib is absent."""
+  import torch
+
+  from weatherbench2_torch import visualization, xds
+
+  card = torch.device(CARD)
+  pair = {"float32": f32["deterministic"], "bfloat16": bf16["deterministic"]}
+  rel_card = visualization.compute_relative_metrics(
+      xds.to_device(pair, card), "float32", "mse")["bfloat16"]
+  rel_cpu = visualization.compute_relative_metrics(pair, "float32",
+                                                   "mse")["bfloat16"]
+  out = {"relative_mse": compare_results({"r": rel_card}, {"r": rel_cpu},
+                                         "relative metrics, card vs CPU")}
+  ratios = {}
+  for v in ensemble.keys():
+    got = visualization.compute_spread_skill_ratio(
+        xds.to_device(ensemble[v], card))
+    want = visualization.compute_spread_skill_ratio(ensemble[v])
+    ratios[v] = hold(np.asarray(got.values), np.asarray(want.values),
+                     f"spread/skill of {v}, card vs CPU")
+    ratios[v]["mean"] = float(np.nanmean(want.values))
+  out["spread_skill"] = ratios
+  try:
+    import matplotlib  # noqa: F401
+  except ImportError:
+    try:
+      visualization.plot_timeseries(pair, "mse", "geopotential", level=500)
+    except ImportError as err:  # the named error this check wants
+      out["plot_without_matplotlib"] = str(err)
+    if "matplotlib" not in out.get("plot_without_matplotlib", ""):
+      raise AssertionError("plotting without matplotlib did not name it")
+  else:
+    out["plot_without_matplotlib"] = "matplotlib is installed here"
+  return out
+
+
+def e2e_multi_phase():
+  """Multi-rank evaluation and the bfloat16 transfer mode on the card."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import evaluate as cli
+  from weatherbench2_torch.parallel import mesh as mesh_lib
+
+  out = {"configs": OFFICIAL_CONFIGS.split(","), "inits": OFFICIAL_INITS,
+         "shared_card_backend": mesh_lib.backend_for(SHARED_CARD),
+         "world1_backend": mesh_lib.backend_for(["cuda:0"]),
+         "predicted_launches_per_rank_chunk": dict(zip(
+             ("fused_deterministic_sums", "fused_region_sums"),
+             MULTI_LAUNCHES)), "tolerance": E2E_TOLERANCE}
+  steps = {}
+  with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_multi_") as root:
+    t0 = time.perf_counter()
+    paths = write_official_stores(os.path.join(root, "official"))
+    grid = write_official_stores(os.path.join(root, "grid64"),
+                                 resolution=5.625,
+                                 latitudes=GRID64_LATITUDES)
+    ensemble = write_ensemble64(root, np.random.default_rng(SEED + 8))
+    steps["write_stores_s"] = time.perf_counter() - t0
+    configs = f"--eval_configs={OFFICIAL_CONFIGS}"
+    chunks = "--input_chunks=init_time=16"
+
+    def args(out_dir, *more, stop="2020-01-16", stores=paths):
+      return official_args(stores, os.path.join(root, out_dir), stop,
+                           configs, chunks, *more)
+
+    # (1) the main path without a mesh (as a world of one in step 5)
+    t0 = time.perf_counter()
+    out["single"] = run_cli(args("single"), 2, OFFICIAL_LAUNCHES)
+    single = open_official_results(os.path.join(root, "single"),
+                                   OFFICIAL_INITS)
+    steps["single_s"] = time.perf_counter() - t0
+
+    # (2) two gloo ranks on the one card, a batch world
+    t0 = time.perf_counter()
+    world2 = mesh_lib.run_ranks(cli.run_rank, 2, devices=SHARED_CARD,
+                                args=(args("world2", "--n_devices=2"),
+                                      SHARED_CARD), timeout=600)
+    out["world2"] = multi_rank_counts(world2, 2, MULTI_LAUNCHES)
+    out["world2_vs_single"] = compare_results(
+        open_official_results(os.path.join(root, "world2"), OFFICIAL_INITS),
+        single, "2 ranks against no mesh")
+    steps["world2_s"] = time.perf_counter() - t0
+
+    # (3) a 1 x 2 batch x spatial world on the 64 x 32 grid, against one
+    # device; the 121 latitudes of 1.5 degrees refused
+    t0 = time.perf_counter()
+    # at 64 x 32 ACC's rows of 16 inits fit one group, as 8 do at 121 x 240
+    grid_single = run_cli(args("grid_single", stores=grid), 2,
+                          MULTI_LAUNCHES)
+    t1 = time.perf_counter()
+    cli.main(args("grid_cpu", "--device=cpu", stores=grid))
+    grid_cpu_s = time.perf_counter() - t1
+    ens_cpu = ensemble64_run(ensemble, grid["truth"],
+                             os.path.join(root, "ens_cpu"), device="cpu")
+    n_lat = xds.open_zarr(paths["truth"]).sizes["latitude"]
+    spatial = mesh_lib.run_ranks(
+        spatial_rank, 2, devices=SHARED_CARD,
+        args=(SHARED_CARD, args("grid_world", "--n_devices=2", stores=grid),
+              args("refused", "--n_devices=2"),
+              (ensemble, grid["truth"], os.path.join(root, "ens_world")),
+              n_lat), timeout=600)
+    out["spatial_single"] = grid_single
+    out["spatial"] = multi_rank_counts(spatial["official"], 2)
+    out["spatial_vs_single"] = compare_results(
+        open_official_results(os.path.join(root, "grid_world"),
+                              OFFICIAL_INITS, grid=GRID64),
+        open_official_results(os.path.join(root, "grid_single"),
+                              OFFICIAL_INITS, grid=GRID64),
+        "1 x 2 world against one device, 64 x 32")
+    # and against the CPU, where no kernel runs
+    out["spatial_vs_cpu"] = compare_results(
+        open_official_results(os.path.join(root, "grid_world"),
+                              OFFICIAL_INITS, grid=GRID64),
+        open_official_results(os.path.join(root, "grid_cpu"),
+                              OFFICIAL_INITS, grid=GRID64),
+        "1 x 2 world against the CPU, 64 x 32")
+    out["spatial_cpu_wall_s"] = grid_cpu_s
+    out["spatial_refusal"] = spatial["refusal"]
+    # the probabilistic plan: kernel 2 only
+    out["ensemble_spatial"] = multi_rank_counts(spatial["ensemble"], 2,
+                                                kernel_1=False)
+    ens_card = xds.open_netcdf(os.path.join(root, "ens_world",
+                                            "spread_skill.nc"))
+    ens_host = xds.open_netcdf(os.path.join(root, "ens_cpu",
+                                            "spread_skill.nc"))
+    out["ensemble_card_vs_cpu"] = compare_results(
+        {"e": ens_card}, {"e": ens_host}, "ensemble, 1 x 2 world vs CPU")
+    out["ensemble_cpu_wall_s"] = ens_cpu["wall_s"]
+    steps["spatial_s"] = time.perf_counter() - t0
+
+    # (4) a 2-rank world killed after its second chunk
+    t0 = time.perf_counter()
+    more = ("--eval_configs=deterministic", "--input_chunks=init_time=8")
+    ckpt = os.path.join(root, "state")
+    resumable = official_args(paths, os.path.join(root, "resumed"),
+                              "2020-01-16", *more, f"--checkpoint_path={ckpt}",
+                              "--checkpoint_every=1")
+    killed = official_args(paths, os.path.join(root, "killed"), "2020-01-16",
+                           *more, f"--checkpoint_path={ckpt}",
+                           "--checkpoint_every=1", "--n_devices=2")
+    try:
+      mesh_lib.run_ranks(dying_rank, 2, devices=SHARED_CARD,
+                         args=(SHARED_CARD, killed, ckpt), timeout=600)
+    except RuntimeError as err:  # the death this step causes
+      out["killed"] = str(err)
+    if "rank 0: exit code 9" not in out.get("killed", ""):
+      raise AssertionError(f"the world did not die as planned: {out}")
+    state = streaming_state(ckpt + ".deterministic")
+    steps["killed_s"] = time.perf_counter() - t0
+
+    # (5) a world of one on the card (NCCL): run 1's configuration, equal
+    # to step 1 bit for bit, then the killed run resumed as one rank
+    t0 = time.perf_counter()
+    world1, resumed = mesh_lib.run_ranks(
+        world_of_one_rank, 1, devices=SHARED_CARD[:1],
+        args=(SHARED_CARD[:1], args("world1", "--n_devices=1"),
+              resumable + ["--n_devices=1"]), timeout=600)
+    out["world1"] = multi_rank_counts(world1, 2, OFFICIAL_LAUNCHES)
+    out["world1_vs_single"] = equal_results(
+        open_official_results(os.path.join(root, "world1"), OFFICIAL_INITS),
+        single, "--n_devices=1 against no mesh")
+    out["kill_and_resume"] = {
+        "state": state, "resumed": multi_rank_counts(resumed, 2),
+        "resumed_vs_world2": compare_results(
+            {"deterministic": xds.open_netcdf(os.path.join(
+                root, "resumed", "deterministic.nc"))},
+            {"deterministic": xds.open_netcdf(os.path.join(
+                root, "world2", "deterministic.nc"))},
+            "resumed as one rank against the 2-rank world")}
+    steps["world1_and_resume_s"] = time.perf_counter() - t0
+
+    # (6) the bfloat16 transfer mode on run 1's configuration; card
+    # against CPU on the first 8 inits (one chunk)
+    t0 = time.perf_counter()
+    os.environ["WB2_TRANSFER_DTYPE"] = "bfloat16"
+    try:
+      bf16 = run_cli(args("bf16"), 2, OFFICIAL_LAUNCHES)
+      first8 = ("--input_chunks=init_time=8",)
+      bf16_first = run_cli(args("bf16_first8", *first8, stop="2020-01-04T12"),
+                           1, MULTI_LAUNCHES)
+      cli.main(args("bf16_first8_cpu", *first8, "--device=cpu",
+                    stop="2020-01-04T12"))
+    finally:
+      del os.environ["WB2_TRANSFER_DTYPE"]
+    bf16_results = open_official_results(os.path.join(root, "bf16"),
+                                         OFFICIAL_INITS)
+    out["bfloat16"] = {
+        "run": bf16, "h2d_over_float32": bf16["h2d_gib"]
+        / out["single"]["h2d_gib"],
+        "max_relative_deviation_from_float32_by_metric": relative_deviation(
+            bf16_results, single),
+        "first8_card": bf16_first,
+        "first8_card_vs_cpu": compare_results(
+            open_official_results(os.path.join(root, "bf16_first8"), 8),
+            open_official_results(os.path.join(root, "bf16_first8_cpu"), 8),
+            "bfloat16, card vs CPU")}
+    deviation = out["bfloat16"][
+        "max_relative_deviation_from_float32_by_metric"]
+    if not 0 < deviation["mse"] < TRANSFER_MSE_RTOL:
+      raise AssertionError(f"bfloat16 deviation {out['bfloat16']}")
+    steps["bfloat16_s"] = time.perf_counter() - t0
+
+    # (7) the visualization's computing functions, card against CPU
+    ens_vars = xds.open_netcdf(os.path.join(root, "ens_world",
+                                            "spread_skill.nc"))
+    out["visualization"] = visualization_card_vs_cpu(
+        bf16_results, single, ens_vars)
+    torch.cuda.empty_cache()
+  out["steps"] = steps
+  emit("e2e_multi", **out)
+  return out
+
+
+def streaming_state(path):
+  from weatherbench2_torch.parallel import streaming
+
+  state = streaming.StreamingState.load(path)
+  if (state.chunk_index, state.chunk_size, state.total) != (
+      2, 8, OFFICIAL_INITS):
+    raise AssertionError(f"state at chunk {state.chunk_index} of "
+                         f"{state.chunk_size} in {state.total}")
+  return {"chunk_index": state.chunk_index, "bytes": os.path.getsize(path)}
+
+
+
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
           "e2e_ensemble": e2e_ensemble_phase,
           "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase,
-          "e2e_prep2": e2e_prep2_phase}
+          "e2e_prep2": e2e_prep2_phase, "e2e_multi": e2e_multi_phase}
 
 
 def main(argv):
@@ -3590,6 +4062,7 @@ def main(argv):
   ensemble_run = results["e2e_ensemble"]
   derived_runs = results["e2e_derived"]
   prep2 = results["e2e_prep2"]
+  multi = results["e2e_multi"]
 
   summary = []
   for name, key, official, replaces in (
@@ -3613,6 +4086,8 @@ def main(argv):
             derived_runs[run]["main"]["launches"][name]
             for run in ("run1", "run2")),
         "launches_e2e_prep2": prep2["launches"][name],
+        # both ranks of the 2-rank world on the card
+        "launches_e2e_multi": sum(r[name] for r in multi["world2"]["ranks"]),
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

@@ -277,8 +277,12 @@ def test_cli_gaussian_quantile_thresholds_match_reference_cli(prob_stores):
 
 @pytest.mark.parametrize("flag,item", [("--n_devices=4", "A.12")])
 def test_cli_unported_flag_names_its_roadmap_item(stores, flag, item):
+  """The flag of ``item`` is ported (its runs are in
+  tests/test_torch_mesh.py): it shards the streaming engine, so without
+  ``--use_mesh`` it is refused by name rather than ignored."""
   tmp, paths = stores
-  with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+  assert item == "A.12"
+  with pytest.raises(ValueError, match="add --use_mesh"):
     cli.main(_port_args(paths, tmp / "unported_flag", flag))
 
 

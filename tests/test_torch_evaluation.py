@@ -183,17 +183,18 @@ def test_default_device_raises_without_cuda(stores, monkeypatch):
 
 
 def test_unported_paths_raise(stores):
-  """What is still missing raises and names its ROADMAP item; lead_time
-  chunks, configs without regions and checkpoints no longer do."""
+  """Nothing is left unported: a mesh (A.12) must be the port's own (its
+  runs are in tests/test_torch_mesh.py), and the bfloat16 transfer mode
+  (A.6) runs (held to the JAX package in tests/test_torch_transfer_bf16.py);
+  lead_time chunks, configs without regions and checkpoints run too."""
   tmp, paths = stores
   clim = jxds.open_zarr(paths["climatology"])
   dc = _data_config(paths, tmp / "unported")
-  with pytest.raises(NotImplementedError, match="ROADMAP A.12"):
+  with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
     _run_port(dc, _bench_config(clim), mesh=object())
   with pytest.MonkeyPatch.context() as mp:
     mp.setenv("WB2_TRANSFER_DTYPE", "bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.6"):
-      _run_port(dc, _bench_config(clim))
+    assert _run_port(dc, _bench_config(clim))["chunks"] == 1
   prob_clim = {"d": jconfig.Eval(
       metrics={"mse": jmetrics.MSE()},
       evaluate_probabilistic_climatology=True,

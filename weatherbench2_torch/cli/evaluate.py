@@ -26,13 +26,27 @@ All twelve eval configs of the reference CLI: the four deterministic ones
 ``gaussian_binary``), with ``--ensemble_dim`` and the thresholds of
 ``--quantile_thresholds``/``--threshold_method``; the derived variables of
 ``--derived_variables``; the persistence, climatology and probabilistic
-climatology baselines; checkpoint/resume.  ``--n_devices`` raises and names
-the ROADMAP item that will bring it.
+climatology baselines; checkpoint/resume.
+
+``--use_mesh --n_devices=N`` shards the stream over N ranks, one process
+each (a 1-D ``batch`` mesh, as the reference's flag builds): started here
+with ``torch.multiprocessing`` (rank r on ``cuda:r`` over NCCL, or on the
+CPU over gloo with ``--device=cpu``), or, inside a world that ``torchrun``
+launched on one host, joined as the rank it names (``WORLD_SIZE`` must be
+N; a world that spans hosts is refused)::
+
+  torchrun --nproc_per_node=4 -m weatherbench2_torch.cli.evaluate \
+    ... --use_mesh --n_devices=4
+
+Rank 0 writes the results and returns the counts.
 """
 import argparse
 import ast
+import os
+import sys
 
 import numpy as np
+import torch.distributed as dist
 
 from weatherbench2_torch import config
 from weatherbench2_torch import evaluation
@@ -41,6 +55,7 @@ from weatherbench2_torch import metrics
 from weatherbench2_torch import thresholds
 from weatherbench2_torch import xds
 from weatherbench2_torch.derived_variables import DERIVED_VARIABLE_DICT
+from weatherbench2_torch.parallel import mesh as mesh_lib
 from weatherbench2_torch.regions import CombinedRegion, LandRegion, SliceRegion
 
 _DEFAULT_VARIABLES = [
@@ -118,7 +133,9 @@ def build_parser() -> argparse.ArgumentParser:
   boolean("use_mesh", False,
           "Run via the streaming engine instead of fully in memory.")
   boolean("use_beam", False, "Compatibility alias for --use_mesh.")
-  integer("n_devices", None, "Number of devices (not ported yet).")
+  integer("n_devices", None,
+          "Number of ranks of the streaming engine's batch mesh, one "
+          "device each (default: one device, no mesh).")
   # accepted for CLI compatibility with the reference; ignored
   string("runner", None, "(ignored)")
   integer("fanout", None, "(ignored)")
@@ -329,16 +346,56 @@ def build_eval_configs(args, climatology, regions, threshold_list) -> dict:
   }
 
 
-def _refuse_unported(args) -> None:
-  if args.n_devices:
-    raise NotImplementedError("--n_devices is not ported yet (ROADMAP A.12)")
-
-
 def main(argv=None):
   """Parse ``argv`` (default: the command line) and run the evaluation;
-  returns the streaming engine's counts, or None for an in-memory run."""
+  returns the streaming engine's counts (rank 0's with ``--n_devices``),
+  or None for an in-memory run."""
+  argv = list(sys.argv[1:] if argv is None else argv)
   args = build_parser().parse_args(argv)
-  _refuse_unported(args)
+  if not args.n_devices:
+    return run(args)
+  if not (args.use_mesh or args.use_beam):
+    raise ValueError("--n_devices shards the streaming engine; add "
+                     "--use_mesh (the in-memory engine runs on one device)")
+  if args.device not in (None, "cpu", "cuda"):
+    raise ValueError(
+        f"--device={args.device} with --n_devices: rank r runs on cuda:r "
+        "(--device=cuda, the default) or on the CPU (--device=cpu)")
+  n = args.n_devices
+  devices = ["cpu"] * n if args.device == "cpu" else None
+  if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+    world = (dist.get_world_size() if dist.is_initialized()
+             else int(os.environ["WORLD_SIZE"]))
+    if world != n:
+      raise ValueError(f"--n_devices={n}, but this world has {world} ranks")
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", world))
+    if local != world:
+      raise ValueError(
+          f"this world of {world} ranks spans hosts ({local} on this one): "
+          "--n_devices runs every rank on one host, rank r on cuda:r")
+    if dist.is_initialized():
+      return run_rank(argv, devices)
+    mesh_lib.init_world(int(os.environ["RANK"]), n, devices)
+    try:
+      return run_rank(argv, devices)
+    finally:
+      dist.destroy_process_group()
+  return mesh_lib.run_ranks(run_rank, n, devices=devices,
+                            args=(argv, devices))
+
+
+def run_rank(argv, devices=None):
+  """One rank of ``--n_devices`` ranks in an initialised world: the
+  evaluation over a batch mesh of the world, rank r on ``devices[r]``
+  (default ``cuda:r``)."""
+  args = build_parser().parse_args(argv)
+  return run(args, mesh_lib.make_mesh(args.n_devices, devices=devices))
+
+
+def run(args, mesh=None):
+  """The evaluation that parsed ``args`` ask for, on one device or, every
+  rank of its world calling this, over ``mesh``; returns the streaming
+  engine's counts, or None for an in-memory run."""
   requested = args.eval_configs.split(",")
 
   data_config = config.Data(
@@ -399,7 +456,7 @@ def main(argv=None):
   if args.use_mesh or args.use_beam:
     return evaluation.evaluate_with_mesh(
         data_config, eval_configs, input_chunks=args.input_chunks,
-        skipna=args.skipna, device=args.device,
+        skipna=args.skipna, device=None if mesh else args.device, mesh=mesh,
         checkpoint_path=args.checkpoint_path,
         checkpoint_every=args.checkpoint_every)
   evaluation.evaluate_in_memory(data_config, eval_configs,

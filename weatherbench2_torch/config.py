@@ -78,3 +78,35 @@ class Eval:
           "probabilistic climatology requires start and end years")
     if self.output_format not in ("netcdf", "zarr"):
       raise ValueError(f"unrecognized output_format {self.output_format!r}")
+
+
+@dataclasses.dataclass
+class Viz:
+  """Visualization job configuration (see ``visualization.py``)."""
+
+  results: t.Dict[str, str]
+  save_kwargs: t.Dict[str, t.Any] = dataclasses.field(default_factory=dict)
+  colors: t.Optional[t.Dict[str, str]] = None
+  layout: t.Optional[t.Tuple[int, int]] = None
+  figsize: t.Optional[t.Tuple[int, int]] = None
+  tight_layout: t.Optional[bool] = True
+  labels: t.Optional[t.Dict[str, str]] = None
+  linestyles: t.Optional[t.Dict[str, str]] = None
+  marker: t.Optional[str] = None
+  markersize: t.Optional[int] = None
+
+
+@dataclasses.dataclass
+class Panel:
+  """One panel of a timeseries figure: what to plot and how to label it."""
+
+  metric: str
+  variable: str
+  level: t.Optional[int] = None
+  region: t.Optional[str] = None
+  relative: t.Optional[str] = None
+  title: t.Optional[str] = None
+  xlabel: t.Optional[str] = None
+  ylabel: t.Optional[str] = None
+  ylim: t.Optional[tuple] = None
+  xlim: t.Optional[tuple] = None

@@ -1,9 +1,10 @@
 """Evaluation entry points of the port: open data, evaluate, save results.
 
-Counterpart of ``weatherbench2_tpu/evaluation.py``, on one device:
-``evaluate_with_mesh`` streams chunks of (init_)time to the card, where
-every metric × region runs in the tiers of ``parallel/streaming.py``, with
-checkpoint/resume; ``evaluate_in_memory`` loads the selection whole and
+Counterpart of ``weatherbench2_tpu/evaluation.py``:
+``evaluate_with_mesh`` streams chunks of (init_)time to the card, or to
+every rank of a ``parallel.mesh.Mesh``, where every metric × region runs
+in the tiers of ``parallel/streaming.py``, with checkpoint/resume;
+``evaluate_in_memory`` loads the selection whole on one device and
 loops over metrics and regions.  Both substitute the persistence,
 climatology and probabilistic-climatology baselines for the forecast where
 a config asks, and compute its derived variables on the device after the
@@ -574,27 +575,36 @@ def evaluate_with_mesh(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
 ) -> dict:
-  """Stream every eval config through the metric tiers on one device.
+  """Stream every eval config through the metric tiers on one device, or
+  on every rank of a mesh.
 
   Configs whose inputs are built identically share one chunk stream: each
   chunk is read and moved to the device once.  Writes one results file
   per config (``output_format``) and returns the run's counts: chunks,
-  h2d bytes, seconds spent waiting on the host and on the device and
-  finalizing the results (see ``streaming.evaluate_streaming_multi``),
-  seconds spent writing the results files, and the wall time.
-  ``device=None`` is the CUDA card; pass ``device="cpu"`` to run on the
-  host.  With ``checkpoint_path`` each group of configs snapshots its
-  accumulators every ``checkpoint_every`` chunks into
-  ``<checkpoint_path>.<cfg[+cfg...]>``, and an existing file resumes the
-  run, grouped and lead_time-chunked streams included.  ``mesh`` (the JAX
-  package's multi-device option) is not ported yet and raises.
+  h2d bytes, bytes read, seconds spent waiting on the host and on the
+  device and finalizing the results (see
+  ``streaming.evaluate_streaming_multi``), seconds spent writing the
+  results files, and the wall time.  ``device=None`` is the CUDA card;
+  pass ``device="cpu"`` to run on the host.  With ``checkpoint_path`` each
+  group of configs snapshots its accumulators every ``checkpoint_every``
+  chunks into ``<checkpoint_path>.<cfg[+cfg...]>``, and an existing file
+  resumes the run, grouped and lead_time-chunked streams included.
+
+  ``mesh`` (a ``parallel.mesh.Mesh``) shards the stream over the ranks of
+  its world, each on the mesh's device for it: every rank calls this with
+  the same arguments, and rank 0 writes the results and the state files.
   """
+  from weatherbench2_torch.parallel import mesh as mesh_lib
   from weatherbench2_torch.parallel import streaming
 
-  if mesh is not None:
-    raise NotImplementedError(
-        "multi-device evaluation is not ported yet (ROADMAP A.12)")
-  dev = device_lib.resolve(device)
+  if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
+    raise TypeError(f"mesh must be a weatherbench2_torch.parallel.mesh.Mesh "
+                    f"(make_mesh), not {type(mesh).__name__}")
+  if mesh is not None and device is not None and (
+      torch.device(device) != mesh.device):
+    raise ValueError(f"device {device} is not this rank's mesh device "
+                     f"{mesh.device}")
+  dev = mesh.device if mesh is not None else device_lib.resolve(device)
   for name, eval_config in eval_configs.items():
     eval_config.validate()  # fail fast, not after hours of streaming
     if checkpoint_path and not eval_config.temporal_mean:
@@ -635,9 +645,10 @@ def evaluate_with_mesh(
         state=state,
         checkpoint_path=cpath,
         checkpoint_every=checkpoint_every,
+        mesh=mesh,
     )
     t_write = time.perf_counter()
-    for eval_name, results in results_by_config.items():
+    for eval_name, results in (results_by_config or {}).items():
       output_format = group[eval_name].output_format
       output_path = _get_output_path(data_config, eval_name, output_format)
       if output_format == "netcdf":

@@ -1,1 +1,1 @@
-"""Streaming evaluation engine of the port (one device)."""
+"""Streaming evaluation engine of the port and its meshes of ranks."""

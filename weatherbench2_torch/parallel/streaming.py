@@ -1,4 +1,4 @@
-"""Streaming evaluation engine on one device.
+"""Streaming evaluation engine, on one device or a mesh of ranks.
 
 Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
 
@@ -29,10 +29,17 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     distinct (day of year, hour) of a chunk and are expanded on the device;
   * ``StreamingState`` snapshots the accumulators every ``checkpoint_every``
     chunks (one background thread, a side stream, ``os.replace``), and an
-    existing state resumes the run.
-
-Not ported yet, and refused with an error that names the ROADMAP item:
-meshes and the bfloat16 transfer mode.
+    existing state resumes the run;
+  * with a ``parallel.mesh.Mesh`` every rank runs this engine on its share
+    (``_RankShare``): its rows of every chunk on the ``batch`` axis, its
+    latitude band on the ``spatial`` axis; the region kernels' band sums
+    are all-reduced over the spatial axis before any division, and each
+    chunk's (sum, count) leaves over the batch axis (one packed
+    ``all_reduce``) before they join the accumulators;
+  * ``WB2_TRANSFER_DTYPE=bfloat16`` moves large float payloads as bfloat16
+    and widens them to float32 on the device (``xds.to_device``); the base
+    fields of derived variables cross at full precision and are rounded on
+    the device after the derivation (``xds.round_to_bfloat16``).
 """
 from __future__ import annotations
 
@@ -46,6 +53,7 @@ from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import evaluation
@@ -53,7 +61,9 @@ from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import ops
 from weatherbench2_torch import utils
 from weatherbench2_torch import xds
+from weatherbench2_torch.parallel.mesh import BATCH, SPATIAL
 from weatherbench2_torch.xds import _xp
+from weatherbench2_torch.xds import io_zarr
 
 # Chunks prepared ahead of the one computing (each read, aligned and
 # copied to the device by its own host thread; the engine is host-bound,
@@ -375,6 +385,7 @@ def _fused_chunk_results(plan, f_c, t_c, skipna):
   """
   stat_idx = {"bias": 0, "mse": 1, "mae": 2}
   region_w = plan["region_w_dev"]
+  band_sum = plan.get("band_sum", _as_is)
   n_regions = region_w.shape[0]
   region_coord = xds.Variable(("region",), plan["region_names"])
   results = {name: xds.Dataset({}, coords={"region": region_coord})
@@ -400,12 +411,12 @@ def _fused_chunk_results(plan, f_c, t_c, skipna):
       # regions that hold it
       d = (f_b.reshape(b, l) - t_b.reshape(b, l)).to(torch.float32)
       sums, wsum, nanw = _inf_safe_region_sums(
-          torch.cat([d, d * d, d.abs()]), region_w)
+          torch.cat([d, d * d, d.abs()]), region_w, band_sum)
       sums = sums.reshape(n_regions, 3, b).permute(1, 0, 2)
       wsum, nanw = wsum[:, :b], nanw[:, :b]
     else:
-      sums, wsum, nanw = ops.fused_deterministic_sums(
-          f_b.reshape(b, l), t_b.reshape(b, l), None, region_w)
+      sums, wsum, nanw = band_sum(ops.fused_deterministic_sums(
+          f_b.reshape(b, l), t_b.reshape(b, l), None, region_w))
     means = sums / wsum[None]
     if not skipna:
       means = torch.where(nanw[None] > 0, torch.nan, means)
@@ -513,7 +524,12 @@ def _fused_prob_chunk_results(plan, f_c, t_c, skipna):
   return results
 
 
-def _inf_safe_region_sums(x, region_w):
+def _as_is(outs):
+  """A kernel's outputs on a rank that holds the whole grid."""
+  return outs
+
+
+def _inf_safe_region_sums(x, region_w, band_sum=_as_is):
   """Kernel 2's (sums, wsum_valid, nan_w) of rows that may hold ±inf.
 
   The tensor-core core takes finite numbers only, and a zero region weight
@@ -522,14 +538,15 @@ def _inf_safe_region_sums(x, region_w):
   (+inf, -inf) riding the same launch; a region whose positive weights
   meet +inf cells sums to +inf, -inf cells to -inf, both to NaN, as a
   reduction over the region's own cells gives (the generic per-region
-  loop, the JAX package's in-memory engine).
+  loop, the JAX package's in-memory engine).  ``band_sum`` adds a latitude
+  band's outputs over the spatial axis before the indicators are read.
   """
   x = x.to(torch.float32)
   n = x.shape[0]
   pos, neg = torch.isposinf(x), torch.isneginf(x)
-  sums, wsum, nanw = ops.fused_region_sums(
+  sums, wsum, nanw = band_sum(ops.fused_region_sums(
       torch.cat([torch.where(pos | neg, 0.0, x), pos.to(x.dtype),
-                 neg.to(x.dtype)]), region_w)
+                 neg.to(x.dtype)]), region_w))
   s, p, q = sums[:, :n], sums[:, n:2 * n] > 0, sums[:, 2 * n:] > 0
   s = torch.where(p & q, torch.nan,
                   torch.where(p, torch.inf, torch.where(q, -torch.inf, s)))
@@ -538,10 +555,12 @@ def _inf_safe_region_sums(x, region_w):
 
 def _region_reducer(plan, variables):
   """Kernel 2, or its inf-safe form for the rows of a variable that may be
-  ±inf by design (the geostrophic winds on the equator)."""
+  ±inf by design (the geostrophic winds on the equator); on a latitude
+  band, its outputs added over the spatial axis."""
+  band_sum = plan.get("band_sum", _as_is)
   if set(variables) & set(plan.get("infinite", ())):
-    return _inf_safe_region_sums
-  return ops.fused_region_sums
+    return lambda x, w: _inf_safe_region_sums(x, w, band_sum)
+  return lambda x, w: band_sum(ops.fused_region_sums(x, w))
 
 
 def fused_group_bytes() -> int:
@@ -723,9 +742,11 @@ def _chunk_slices(total: int, size: int):
     yield slice(start, min(start + size, total))
 
 
-def _auto_chunk_size(forecast, chunk_dim: str, companions: float = 2) -> int:
+def _auto_chunk_size(forecast, chunk_dim: str, batch: int = 1,
+                     companions: float = 2) -> int:
   """A chunk size targeting DEFAULT_CHUNK_BYTES of forecast per chunk,
-  scaled down when a per-chunk climatology rides along (companions > 2)."""
+  scaled down when a per-chunk climatology rides along (companions > 2),
+  in whole multiples of the batch axis where it can."""
   budget = DEFAULT_CHUNK_BYTES * 2.0 / max(companions, 2)
   total = forecast.sizes[chunk_dim]
   per_entry = 0
@@ -734,7 +755,10 @@ def _auto_chunk_size(forecast, chunk_dim: str, companions: float = 2) -> int:
       per_entry += v.size // v.sizes[chunk_dim] * np.dtype(v.dtype).itemsize
   if per_entry <= 0:
     return total
-  return min(total, max(1, int(budget // per_entry)))
+  size = max(1, int(budget // per_entry))
+  if batch > 1:
+    size = max(batch, size // batch * batch)
+  return min(total, size)
 
 
 def _pad_chunk(ds: xds.Dataset, chunk_dim: str, target: int) -> xds.Dataset:
@@ -950,6 +974,200 @@ class _Snapshots:
       self.pool.shutdown(wait=True)
 
 
+class _RankShare:
+  """What this rank of a mesh evaluates, and the collectives it calls.
+
+  On the ``batch`` axis a rank takes rows ``[b·c/W, (b+1)·c/W)`` of every
+  padded chunk of c entries; on the ``spatial`` axis it holds latitude band
+  s of S.  ``owner`` (spatial coordinate 0) adds results to the
+  accumulators: the kernels' sums are whole after ``band_sum``, and what
+  needs whole fields runs on one spatial rank only.  Each chunk's (sum,
+  count) leaves are added over the batch axis before they join the
+  accumulators, which every owner then holds alike (as the JAX package's
+  mesh sums each chunk's results over its devices): the accumulators are
+  formed in the same order under any world size, so a state saved by rank
+  0 resumes a world of any size, and a world of the same size bit for bit.
+  Rank 0 finalizes and writes.  ``mesh=None`` is the one-device engine:
+  every share is the whole and no collective runs.
+
+  Bands are gathered by an ``all_reduce(SUM)`` of zero-filled tensors of the
+  whole latitude axis, not through the host: gloo takes CUDA tensors for
+  ``all_reduce`` and ``broadcast`` only, NCCL for every collective, so one
+  collective serves both backends and the card; adding zeros is exact, so
+  the gathered field equals the field bit for bit.
+  """
+
+  def __init__(self, mesh, latitude: Optional[xds.Variable]):
+    self.mesh = mesh
+    if mesh is not None and (
+        mesh.axis_names[:1] != (BATCH,)
+        or not set(mesh.axis_names) <= {BATCH, SPATIAL}):
+      raise ValueError(
+          f"mesh axes {mesh.axis_names}: the engine shards over ('batch',) "
+          "or ('batch', 'spatial')")
+    size = mesh.size if mesh is not None else (lambda axis: 1)
+    coordinate = mesh.coordinate if mesh is not None else (lambda axis: 0)
+    self.batch, self.b = size(BATCH), coordinate(BATCH)
+    spatial = size(SPATIAL)
+    self.owner = coordinate(SPATIAL) == 0
+    self.lead = mesh is None or mesh.rank == 0
+    self.latitude = latitude
+    self.band = None
+    if spatial > 1:
+      if latitude is None:
+        raise ValueError("a mesh with a 'spatial' axis shards latitude; the "
+                         "forecast has none")
+      n_lat = latitude.shape[0]
+      if n_lat % spatial:
+        # the JAX package's refusal: a silent replication would waste the
+        # spatial axis (721 = 7 x 103 latitudes at 0.25 degrees, 121 at 1.5)
+        divisors = [d for d in range(2, n_lat + 1) if n_lat % d == 0]
+        raise ValueError(
+            f"mesh axis 'spatial'={spatial} does not divide the "
+            f"latitude size {n_lat}; valid spatial shard counts are "
+            f"{divisors[:8]}{'...' if len(divisors) > 8 else ''} — or "
+            "use a batch-only mesh (recommended at official geometries, "
+            "docs/scaling.md)")
+      h = n_lat // spatial
+      s = coordinate(SPATIAL)
+      self.band = slice(s * h, (s + 1) * h)
+    self.gathered_bytes = 0
+
+  def rows(self, n: int) -> slice:
+    """This rank's rows of a padded chunk of ``n`` (a multiple of batch)."""
+    per = n // self.batch
+    return slice(self.b * per, (self.b + 1) * per)
+
+  def to_band(self, obj):
+    """``obj`` with every Dataset and DataArray that spans the whole
+    latitude axis cut to this rank's band (lazily where it is lazy)."""
+    if self.band is None:
+      return obj
+    n_lat = self.latitude.shape[0]
+    if isinstance(obj, (xds.Dataset, xds.DataArray)):
+      if obj.sizes.get("latitude") == n_lat:
+        return obj.isel(latitude=self.band)
+      return obj
+    if isinstance(obj, dict):
+      return {k: self.to_band(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+      return type(obj)(self.to_band(v) for v in obj)
+    return obj
+
+  def band_sum(self, outs):
+    """A region kernel's band outputs added over the spatial axis."""
+    if self.band is None:
+      return outs
+    group = self.mesh.group(SPATIAL)
+    for t in outs:
+      dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    return outs
+
+  def _gather_payload(self, var: xds.Variable):
+    if "latitude" not in var.dims or not torch.is_tensor(var.data):
+      return var.data
+    ax = var.dims.index("latitude")
+    shape = list(var.shape)
+    shape[ax] = self.latitude.shape[0]
+    whole = var.data.new_zeros(shape)
+    whole.narrow(ax, self.band.start, self.band.stop - self.band.start).copy_(
+        var.data)
+    dist.all_reduce(whole, op=dist.ReduceOp.SUM,
+                    group=self.mesh.group(SPATIAL))
+    self.gathered_bytes += whole.numel() * whole.element_size()
+    return whole
+
+  def _whole_coords(self, coords):
+    out = {k: v for k, v in coords.items() if "latitude" not in v.dims}
+    if "latitude" in coords:
+      out["latitude"] = self.latitude
+    return out
+
+  def gather_bands(self, tree):
+    """``tree`` with every tensor on a latitude band gathered to the whole
+    latitude axis over the spatial axis (every spatial rank calls this)."""
+    if self.band is None:
+      return tree
+    if isinstance(tree, xds.Dataset):
+      return xds.Dataset(
+          {k: xds.Variable(v.dims, self._gather_payload(v), v.attrs)
+           for k, v in tree.variables_dict().items()},
+          coords=self._whole_coords(tree.coords_dict()), attrs=tree.attrs)
+    if isinstance(tree, xds.DataArray):
+      v = tree.variable
+      return xds.DataArray(
+          xds.Variable(v.dims, self._gather_payload(v), v.attrs),
+          coords=self._whole_coords(tree.coords), name=tree.name)
+    if isinstance(tree, dict):
+      return {k: self.gather_bands(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+      return type(tree)(self.gather_bands(v) for v in tree)
+    return tree
+
+  def sum_over_batch(self, tree, dev):
+    """``tree`` (float64 sums and counts, tensors or host arrays) added over
+    the batch axis: one ``all_reduce`` of all its payloads packed in one
+    float64 tensor on ``dev``.  A world of one rank reduces too."""
+    if self.mesh is None:
+      return tree
+    tree = _replace_leaves(tree, lambda x: torch.as_tensor(
+        _xp.to_numpy(x) if not torch.is_tensor(x) else x).to(
+            dev, torch.float64))
+    leaves = _leaves(tree, [])
+    if not leaves:
+      return tree
+    flat = torch.cat([t.reshape(-1) for t in leaves])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM,
+                    group=self.mesh.group(BATCH))
+    parts = iter(flat.split([t.numel() for t in leaves]))
+    return _replace_leaves(tree, lambda t: next(parts).view(t.shape))
+
+  def gather_rows(self, items: list) -> Optional[list]:
+    """Every batch rank's ``items`` on rank 0 (None elsewhere), through the
+    host: per-time results are host datasets by then."""
+    if self.mesh is None:
+      return items
+    out = [None] * self.batch if self.lead else None
+    dist.gather_object(items, out, dst=0, group=self.mesh.group(BATCH))
+    return [item for part in out for item in part] if self.lead else None
+
+  def agree(self, value, what: str) -> None:
+    """Raise unless every rank of the world holds rank 0's ``value``."""
+    if self.mesh is None:
+      return
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    if box[0] != value:
+      raise ValueError(f"rank {self.mesh.rank} has {what} {value!r}, rank 0 "
+                       f"{box[0]!r}")
+
+  def all_stats(self, mine: dict) -> list:
+    """Every rank's counts, in rank order."""
+    if self.mesh is None:
+      return [mine]
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine)
+    return out
+
+
+def _launch_counts() -> dict:
+  """The region kernels' launch counters of this process (0 for a wrapper
+  that a caller replaced with one that counts nothing)."""
+  return {f"{name}_launches": getattr(getattr(ops, name), "launches", 0)
+          for name in ("fused_deterministic_sums", "fused_region_sums")}
+
+
+def _transfer_dtype():
+  """``WB2_TRANSFER_DTYPE``: unset or empty moves payloads in their own
+  type; ``bfloat16`` moves large float payloads as bfloat16."""
+  name = os.environ.get("WB2_TRANSFER_DTYPE", "")
+  if name not in ("", "bfloat16"):
+    raise ValueError(
+        f"WB2_TRANSFER_DTYPE={name!r}: the transfer type is 'bfloat16' or "
+        "unset")
+  return torch.bfloat16 if name else None
+
+
 def evaluate_streaming_multi(
     forecast: xds.Dataset,
     truth: xds.Dataset,
@@ -963,20 +1181,36 @@ def evaluate_streaming_multi(
     state: Optional[StreamingState] = None,
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
-) -> dict:
+    mesh=None,
+) -> Optional[dict]:
   """Stream chunks ONCE through the metric programs of several configs.
 
   All configs must build their inputs identically (``evaluate_with_mesh``
   groups them).  Returns {config_name: results dataset}.  ``stats``, when
-  given, receives the run's counts: chunks, h2d bytes, and seconds the
-  main thread waited for host preparation and for the device (the final
-  copy of the accumulators to the host included), and seconds spent on the
-  host turning the accumulators into results (``finalize_s``).  ``state``
-  resumes a run; with ``checkpoint_path`` and ``checkpoint_every`` the
-  accumulators of every config are snapshotted together every so many
-  chunks, completed lead slices' results riding in the state.
+  given, receives the run's counts: chunks, h2d bytes, bytes read, and
+  seconds the main thread waited for host preparation and for the device
+  (the final copy of the accumulators to the host included), and seconds
+  spent on the host turning the accumulators into results
+  (``finalize_s``).  ``state`` resumes a run; with ``checkpoint_path`` and
+  ``checkpoint_every`` the accumulators of every config are snapshotted
+  together every so many chunks, completed lead slices' results riding in
+  the state.
+
+  With ``mesh`` (a ``parallel.mesh.Mesh``; every rank of its world calls
+  this with the same arguments) each rank reads, moves and scores its share
+  of every chunk on its own device (see ``_RankShare``); the chunk size is
+  rounded up to a multiple of the batch axis, as in the JAX package, so a
+  state's chunk grid is the same under any world size.  Rank 0 returns the
+  results (the other ranks None) and writes the snapshots; a state seeds
+  the accumulators of every rank that holds them (they are alike on every
+  rank of the batch axis).
+  ``stats`` then also holds ``ranks``, every rank's ``h2d_bytes``,
+  ``read_bytes``, ``wait_host_s``, ``gathered_bytes`` and the region
+  kernels' launches (``fused_deterministic_sums_launches``,
+  ``fused_region_sums_launches``); its ``h2d_bytes`` and ``read_bytes``
+  are their sums, ``wait_host_s`` the largest.
   """
-  dev = device_lib.resolve(device)
+  dev = mesh.device if mesh is not None else device_lib.resolve(device)
   cfg0 = next(iter(eval_configs.values()))
   for cfg in eval_configs.values():
     cfg.validate()
@@ -999,10 +1233,9 @@ def evaluate_streaming_multi(
             "checkpoint/resume requires temporal_mean=True (config "
             f"{cname!r} emits per-time results, which the accumulator "
             "state does not capture)")
-  if os.environ.get("WB2_TRANSFER_DTYPE", "") == "bfloat16":
-    raise NotImplementedError(
-        "the bfloat16 transfer mode (WB2_TRANSFER_DTYPE) is not ported yet "
-        "(ROADMAP A.6)")
+  transfer_dtype = _transfer_dtype()
+  reads0, launches0 = io_zarr.READS.bytes, _launch_counts()
+  share = _RankShare(mesh, forecast.coords_dict().get("latitude"))
 
   by_init = data_config.by_init
   chunk_dim = "init_time" if by_init else "time"
@@ -1015,9 +1248,12 @@ def evaluate_streaming_multi(
         4 * v.size for v in climatology.variables_dict().values()
     ) > metrics_lib.clim_device_budget():
       companions = 2.5  # the climatology gathers per chunk on the host
-    chunk_size = _auto_chunk_size(forecast, chunk_dim, companions)
+    chunk_size = _auto_chunk_size(forecast, chunk_dim, share.batch,
+                                  companions)
   if chunk_size < 1:
     raise ValueError(f"chunk size must be positive, got {chunk_size}")
+  # every rank takes an equal share of each chunk (the padded last one too)
+  chunk_size = -(-chunk_size // share.batch) * share.batch
   lead_chunk = int(input_chunks.get("lead_time", 0)) or None
   lead_slices = (list(_chunk_slices(forecast.sizes["lead_time"], lead_chunk))
                  if lead_chunk and "lead_time" in forecast.sizes
@@ -1034,8 +1270,8 @@ def evaluate_streaming_multi(
         "derived variable")
   infinite = {name for name, dv in cfg0.derived_variables.items()
               if dv.may_be_infinite}
-  prob_clim = (evaluation.probabilistic_climatology(truth, cfg0)
-               if cfg0.evaluate_probabilistic_climatology else None)
+  derived_bases = {base for dv in cfg0.derived_variables.values()
+                   for base in dv.base_variables}
 
   device_metrics_by = {
       c: {k: m for k, m in cfg.metrics.items() if m.supports_jit}
@@ -1051,18 +1287,40 @@ def evaluate_streaming_multi(
   # derived variables a truth with the lead axis: no dedup then
   truth_dedup = (by_init and not any_host and not lead_core
                  and "time" in truth.sizes and _UTIME not in truth.sizes)
+  # a rank reads its latitude band, unless a derived variable differences
+  # or integrates over latitude: then it reads the whole axis and keeps its
+  # band of the derived fields
+  whole_forecast = forecast
+  band_after_derive = share.band is not None and any(
+      "latitude" in dv.all_input_core_dims
+      for dv in cfg0.derived_variables.values())
+  if not band_after_derive:
+    forecast, truth, climatology = share.to_band(
+        (forecast, truth, climatology))
+  prob_clim = (evaluation.probabilistic_climatology(truth, cfg0)
+               if cfg0.evaluate_probabilistic_climatology else None)
   # the members of the probabilistic climatology are the forecast's
-  members_like = (forecast.assign_coords(number=np.arange(prob_clim.size))
-                  if prob_clim is not None and "number" not in forecast.sizes
-                  else forecast)
+  members_like = (
+      whole_forecast.assign_coords(number=np.arange(prob_clim.size))
+      if prob_clim is not None and "number" not in whole_forecast.sizes
+      else whole_forecast)
   plans_by = {}
   for cname in eval_configs:
+    # the region weights of the whole grid, cut to the band: the latitude
+    # weights stay normalized over the whole grid
     *plans, generic = _partition_fused(device_metrics_by[cname],
                                        regions_by[cname], members_like)
     for plan in plans:
       if plan is not None:
-        plan["region_w_dev"] = torch.as_tensor(plan["region_w"], device=dev)
+        region_w = plan["region_w"]
+        if share.band is not None:
+          n_lat = share.latitude.shape[0]
+          region_w = np.ascontiguousarray(region_w.reshape(
+              region_w.shape[0], -1, n_lat)[:, :, share.band].reshape(
+                  region_w.shape[0], -1))
+        plan["region_w_dev"] = torch.as_tensor(region_w, device=dev)
         plan["infinite"] = infinite
+        plan["band_sum"] = share.band_sum
     plans_by[cname] = (*plans, generic)
 
   def chunk_program(cname, f_c, t_c, prepared, time_mask, uinv):
@@ -1084,6 +1342,11 @@ def evaluate_streaming_multi(
           pw_plan, metrics, f_c, t_c, prepared, skipna)
       results.update(pw_results)
       generic_names.extend(leftover)
+    if generic_names:
+      # whole fields, on one spatial rank
+      f_c, t_c, prepared = share.gather_bands((f_c, t_c, prepared))
+      if not share.owner:
+        generic_names = []
     for name in generic_names:
       results[name] = _loop_over_regions(
           lambda region, name=name: metrics[name].compute_chunk_prepared(
@@ -1101,18 +1364,22 @@ def evaluate_streaming_multi(
   copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
   def prepare_one(ci, sl, lead_sl):
-    """Host work for one chunk (slice, align, prepare, pad) and its
-    transfer; the chunk is read and moved once for all configs.  Derived
-    variables and the probabilistic climatology's members are made on the
-    device after the copy, before the metrics prepare the chunk."""
+    """Host work for this rank's share of one chunk (slice, align, prepare,
+    pad) and its transfer; the share is read and moved once for all
+    configs.  Derived variables and the probabilistic climatology's members
+    are made on the device after the copy, before the metrics prepare the
+    chunk."""
     f_chunk = forecast.isel({chunk_dim: sl})
     if lead_sl != slice(None):
       f_chunk = f_chunk.isel(lead_time=lead_sl)
     n_real = f_chunk.sizes[chunk_dim]
-    f_chunk = _pad_chunk(f_chunk, chunk_dim,
-                         chunk_size if any_temporal else n_real)
-    time_mask = np.zeros(f_chunk.sizes[chunk_dim], dtype=np.float64)
-    time_mask[:n_real] = 1.0
+    padded = (chunk_size if any_temporal
+              else -(-n_real // share.batch) * share.batch)
+    f_chunk = _pad_chunk(f_chunk, chunk_dim, padded)
+    rows = share.rows(padded)
+    if rows != slice(0, padded):
+      f_chunk = f_chunk.isel({chunk_dim: rows})
+    time_mask = (np.arange(rows.start, rows.stop) < n_real).astype(np.float64)
     uinv = None
     uniq = None
     if truth_dedup:
@@ -1131,12 +1398,23 @@ def evaluate_streaming_multi(
       f_chunk, t_chunk, members = _make_truth_chunk(
           f_chunk, truth, climatology, cfg0, data_config, uniq, prob_clim)
       if members is not None or cfg0.derived_variables:
-        f_chunk, t_chunk = xds.to_device((f_chunk, t_chunk), dev, copy_stream,
-                                         counter)
+        # derived variables come from their base fields at full precision,
+        # as the JAX package derives on the host before its bfloat16 cast;
+        # those fields and the derived ones are rounded after the derivation
+        # (host metrics read every field at full precision, and the fields
+        # cross again below)
+        f_chunk, t_chunk = xds.to_device(
+            (f_chunk, t_chunk), dev, copy_stream, counter,
+            None if any_host else transfer_dtype,
+            full_precision=derived_bases)
         if members is not None:
           f_chunk = f_chunk.isel({utils.MEMBER_PAIR: members})
         f_chunk, t_chunk = evaluation.add_derived_variables(f_chunk, t_chunk,
                                                             cfg0)
+        if band_after_derive:
+          f_chunk, t_chunk = share.to_band((f_chunk, t_chunk))
+        if transfer_dtype is not None and not any_host:
+          f_chunk, t_chunk = xds.round_to_bfloat16((f_chunk, t_chunk))
       host_chunks = None
       if any_host:
         f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)
@@ -1146,19 +1424,21 @@ def evaluate_streaming_multi(
               for name, m in device_metrics_by[c].items()}
           for c in eval_configs
       }
+      # climatology gathers span the whole grid: cut them to the band
+      prepared = share.to_band(prepared)
       if truth_dedup:
         t_chunk = _rename_utime(t_chunk)
         prepared = _rename_utime(prepared)
       moved = xds.to_device(
           _normalize_any((f_chunk, t_chunk, prepared, uinv), chunk_dim),
-          dev, copy_stream, counter)
+          dev, copy_stream, counter, transfer_dtype)
       mask_dev = torch.as_tensor(time_mask).to(dev, non_blocking=True)
       event = None
       if copy_stream is not None:
         event = torch.cuda.Event()
         event.record(copy_stream)
-    return (ci, n_real, sl, moved, mask_dev, event, counter["h2d_bytes"],
-            host_chunks)
+    return (ci, n_real, sl, rows, moved, mask_dev, event,
+            counter["h2d_bytes"], host_chunks)
 
   if state is None:
     state = StreamingState()
@@ -1166,6 +1446,8 @@ def evaluate_streaming_multi(
   resume_lead = int(state.lead_index or 0)
   resume_chunk = int(state.chunk_index or 0)
   resume_configs = state.configs
+  share.agree((resume_lead, resume_chunk, resume_configs is not None),
+              "a state at (lead slice, chunk, accumulators)")
   lead_results = []
   wait_host = wait_device = finalize = 0.0
   h2d_bytes = n_chunks_run = 0
@@ -1177,14 +1459,13 @@ def evaluate_streaming_multi(
       lead_results.append(state.completed_leads[lead_i])
       continue
     resuming = lead_i == resume_lead and resume_configs is not None
-    if resuming:
+    sums_acc = {c: None for c in eval_configs}
+    counts_acc = {c: None for c in eval_configs}
+    if resuming and share.owner:
       sums_acc = {c: _tree_to_device(resume_configs[c][0], dev)
                   for c in eval_configs}
       counts_acc = {c: _tree_to_device(resume_configs[c][1], dev)
                     for c in eval_configs}
-    else:
-      sums_acc = {c: None for c in eval_configs}
-      counts_acc = {c: None for c in eval_configs}
     # a state saved in another variable order is aligned to this run's
     # chunk program at the first merge
     needs_align = {c: resuming for c in eval_configs}
@@ -1196,13 +1477,14 @@ def evaluate_streaming_multi(
     inflight: list = []
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
     snapshots = (_Snapshots(checkpoint_path, dev)
-                 if checkpoint_path and checkpoint_every else None)
+                 if checkpoint_path and checkpoint_every and share.lead
+                 else None)
     try:
       pending = [pool.submit(prepare_one, ci, sl, lead_sl)
                  for ci, sl in chunk_list[:PREFETCH_DEPTH]]
       for idx in range(len(chunk_list)):
         t0 = time.perf_counter()
-        (ci, n_real, sl, moved, mask_dev, event, nbytes,
+        (ci, n_real, sl, rows, moved, mask_dev, event, nbytes,
          host_chunks) = pending.pop(0).result()
         wait_host += time.perf_counter() - t0
         h2d_bytes += nbytes
@@ -1217,20 +1499,33 @@ def evaluate_streaming_multi(
           for t in _leaves((moved, mask_dev), []):
             t.record_stream(compute_stream)
         f_dev, t_dev, p_dev, u_dev = moved
+        if any_host and share.band is not None:
+          host_chunks = tuple(_host_dataset(ds) for ds in
+                              share.gather_bands((f_dev, t_dev)))
+        # this rank's real rows, for per-time results
+        real = np.arange(max(0, min(rows.stop, n_real) - rows.start))
+        chunk_sums = {}
         for cname, cfg in eval_configs.items():
           sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
                                        mask_dev, u_dev)
+          if not share.owner:
+            continue  # the owner of this band's results adds them
           for name, metric in host_metrics_by[cname].items():
             sums[name], counts[name] = _eval_host_metric(
-                metric, *host_chunks, regions_by[cname], skipna, n_real,
+                metric, *host_chunks, regions_by[cname], skipna, len(real),
                 chunk_dim, cfg.temporal_mean)
-          if not cfg.temporal_mean:
-            coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
+          if cfg.temporal_mean:
+            chunk_sums[cname] = (sums, counts)
+            continue
+          coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
+          if len(real):
             for name, res in sums.items():
-              res = res.isel({chunk_dim: np.arange(n_real)})
-              per_time[cname].append(
-                  (name, ci, res.assign_coords({chunk_dim: coord})))
-          elif sums_acc[cname] is None:
+              res = res.isel({chunk_dim: real})
+              per_time[cname].append((name, ci, share.b, res.assign_coords(
+                  {chunk_dim: coord[rows.start:rows.start + len(real)]})))
+        for cname, (sums, counts) in share.sum_over_batch(
+            chunk_sums, dev).items():
+          if sums_acc[cname] is None:
             sums_acc[cname], counts_acc[cname] = sums, counts
           else:
             if needs_align[cname]:
@@ -1265,11 +1560,18 @@ def evaluate_streaming_multi(
       if snapshots is not None:
         snapshots.close()
 
+    if not share.owner:
+      lead_results.append(None)
+      continue
     t0 = time.perf_counter()
     sums_acc, counts_acc, per_time = batched_device_get(
         (sums_acc, counts_acc, per_time))
+    per_time = {c: share.gather_rows(per_time[c]) for c in eval_configs}
     t1 = time.perf_counter()
     wait_device += t1 - t0
+    if not share.lead:
+      lead_results.append(None)
+      continue
     per_config = {}
     for cname, cfg in eval_configs.items():
       per_metric = []
@@ -1281,8 +1583,8 @@ def evaluate_streaming_multi(
               metric=np.asarray([name], dtype=object)))
       else:
         by_metric: dict = {}
-        for name, ci, res in per_time[cname]:
-          by_metric.setdefault(name, []).append((ci, res))
+        for name, ci, b, res in per_time[cname]:
+          by_metric.setdefault(name, []).append(((ci, b), res))
         for name in cfg.metrics:
           items = sorted(by_metric[name], key=lambda item: item[0])
           cat = xds.concat([r for _, r in items], chunk_dim)
@@ -1293,11 +1595,24 @@ def evaluate_streaming_multi(
     finalize += time.perf_counter() - t1
 
   if stats is not None:
+    mine = {"h2d_bytes": h2d_bytes,
+            "read_bytes": io_zarr.READS.bytes - reads0,
+            "wait_host_s": wait_host, "gathered_bytes": share.gathered_bytes,
+            **{k: v - launches0[k] for k, v in _launch_counts().items()}}
+    ranks = share.all_stats(mine)
     stats["chunks"] = stats.get("chunks", 0) + n_chunks_run
-    stats["h2d_bytes"] = stats.get("h2d_bytes", 0) + h2d_bytes
-    stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + wait_host
     stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
     stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
+    for key in ("h2d_bytes", "read_bytes"):
+      stats[key] = stats.get(key, 0) + sum(r[key] for r in ranks)
+    stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + max(
+        r["wait_host_s"] for r in ranks)
+    if mesh is not None:
+      before = stats.get("ranks") or [dict.fromkeys(mine, 0)] * len(ranks)
+      stats["ranks"] = [{k: a[k] + r[k] for k in mine}
+                        for a, r in zip(before, ranks)]
+  if not share.lead:
+    return None
   if len(lead_results) == 1:
     return lead_results[0]
   return {c: xds.concat([lr[c] for lr in lead_results], "lead_time")

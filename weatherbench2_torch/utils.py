@@ -40,6 +40,20 @@ from weatherbench2_torch.ops import climatology as clim_ops
 from weatherbench2_torch.xds import _xp
 
 
+def open_nc(filename: str) -> xds.Dataset:
+  """Open a NetCDF3 file from the filesystem."""
+  return xds.open_netcdf(filename)
+
+
+def random_like(dataset: xds.Dataset, seed: int = 0) -> xds.Dataset:
+  """Random normal dataset configured like ``dataset``: float64 draws of
+  ``np.random.RandomState(seed)``, the JAX package's, so fixtures made by
+  either package are equal."""
+  rs = np.random.RandomState(seed)
+  return dataset.copy(data={k: rs.normal(size=v.shape)
+                            for k, v in dataset.variables_dict().items()})
+
+
 def replace_time_with_doy(ds: xds.Dataset) -> xds.Dataset:
   """Replace time coordinate with days of year."""
   doy = ds["time"].dt.dayofyear.values

@@ -70,8 +70,20 @@ def to_netcdf(ds: core.Dataset, path: str) -> None:
         setattr(f, k, val)
 
 
+# The first bytes of a NetCDF4 file: it is an HDF5 file.
+_HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+
 def open_netcdf(path: str) -> core.Dataset:
-  """Read a NetCDF3 file written by ``to_netcdf``."""
+  """Read a NetCDF3 file written by ``to_netcdf``.  A NetCDF4 (HDF5) file,
+  what the JAX package writes by default, is refused by name: reading it
+  needs h5py, which the port does without."""
+  with open(path, "rb") as f:
+    if f.read(len(_HDF5_SIGNATURE)) == _HDF5_SIGNATURE:
+      raise ValueError(
+          f"{path} is a NetCDF4/HDF5 file; the port reads NetCDF3 only "
+          "(write results in NetCDF3, e.g. with weatherbench2_torch.xds."
+          "to_netcdf, or as Zarr)")
   with netcdf_file(path, "r", mmap=False) as f:
     variables: dict[str, core.Variable] = {}
     for name, v in f.variables.items():

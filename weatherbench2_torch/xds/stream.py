@@ -9,6 +9,7 @@ Dataset's payloads to the card through pinned memory on a side stream.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
@@ -206,7 +207,53 @@ def read(ds: core.Dataset) -> core.Dataset:
       else v.data for k, v in ds.variables_dict().items()})
 
 
-def to_device(obj, device: torch.device, stream=None, counter=None):
+# Host payloads up to this many entries cross in their own type even in
+# the bfloat16 transfer mode (the JAX package's rule).
+BFLOAT16_MIN_ENTRIES = 4096
+
+
+def bfloat16_bits(arr: np.ndarray) -> torch.Tensor:
+  """``arr`` (float32 or float64) rounded to bfloat16 on the host, as a
+  CPU bfloat16 tensor, bit for bit as ``arr.astype(ml_dtypes.bfloat16)``:
+  float64 rounds to float32 first (both steps to nearest, ties to even),
+  then the upper 16 bits round to nearest even; NaN becomes the quiet NaN
+  of its sign (0x7FC0 or 0xFFC0)."""
+  x = torch.from_numpy(np.ascontiguousarray(arr)).to(torch.float32)
+  u = x.view(torch.int32)
+  # (u + 0x7FFF + lsb) >> 16 in int32, whose sums stay in range for every
+  # value but NaN; the low 16 bits are the bfloat16
+  bits = (u >> 16) & 1
+  bits += u
+  bits += 0x7FFF
+  bits >>= 16
+  nan = torch.isnan(x)
+  if nan.any():
+    bits.masked_fill_(nan, 0x7FC0)
+    bits.masked_fill_(nan & (u < 0), -64)  # 0xFFC0
+  return bits.to(torch.int16).view(torch.bfloat16)
+
+
+def round_to_bfloat16(obj):
+  """``obj`` (Datasets, or a tuple of them) with every float32 or float64
+  tensor payload of more than ``BFLOAT16_MIN_ENTRIES`` entries rounded to
+  bfloat16 where it lies and widened to float32: the values that
+  ``to_device`` gives a host payload in the bfloat16 transfer mode
+  (through float32, to nearest even).  Host payloads stay as they are."""
+  if isinstance(obj, (list, tuple)):
+    return type(obj)(round_to_bfloat16(v) for v in obj)
+
+  def narrow(x):
+    if (core.is_tensor(x) and x.dtype in (torch.float32, torch.float64)
+        and x.numel() > BFLOAT16_MIN_ENTRIES):
+      return x.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    return x
+
+  return obj.copy(data={k: narrow(v.data)
+                        for k, v in obj.variables_dict().items()})
+
+
+def to_device(obj, device: torch.device, stream=None, counter=None,
+              transfer_dtype=None, full_precision=()):
   """Move the numpy payloads of a Dataset/DataArray (or a dict or tuple
   of them) to ``device``; coordinates stay on the host.
 
@@ -216,11 +263,15 @@ def to_device(obj, device: torch.device, stream=None, counter=None):
   stream wait for ``stream`` before reading the tensors.  A payload that
   appears more than once in ``obj`` (the thresholds that several metrics
   prepared) crosses once.  ``counter``, a dict, receives the bytes moved
-  under ``"h2d_bytes"``.
+  under ``"h2d_bytes"``.  With ``transfer_dtype=torch.bfloat16`` a float32
+  or float64 payload of more than ``BFLOAT16_MIN_ENTRIES`` entries crosses
+  as bfloat16 (``bfloat16_bits``) and becomes float32 on the device: half
+  the bytes of float32 at about three significant digits; the Dataset
+  variables named in ``full_precision`` cross in their own type.
   """
   moved = {}  # id of a host payload -> (payload, its tensor)
 
-  def put(x):
+  def put(x, narrowing=transfer_dtype):
     if core.is_tensor(x):
       return x
     if id(x) in moved:
@@ -228,21 +279,30 @@ def to_device(obj, device: torch.device, stream=None, counter=None):
     arr = np.ascontiguousarray(np.asarray(x))
     if arr.dtype.kind in "Mm" or arr.dtype == object:
       return arr
+    narrow = (narrowing == torch.bfloat16
+              and arr.dtype in (np.float32, np.float64)
+              and arr.size > BFLOAT16_MIN_ENTRIES)
+    host = bfloat16_bits(arr) if narrow else torch.from_numpy(arr)
     if counter is not None:
-      counter["h2d_bytes"] = counter.get("h2d_bytes", 0) + arr.nbytes
-    host = torch.from_numpy(arr)
+      counter["h2d_bytes"] = (counter.get("h2d_bytes", 0)
+                              + host.numel() * host.element_size())
     if device.type != "cuda":
       out = host
     else:
       with torch.cuda.stream(stream):
         out = host.pin_memory().to(device, non_blocking=True)
+    if narrow:
+      with (torch.cuda.stream(stream) if device.type == "cuda"
+            else contextlib.nullcontext()):
+        out = out.to(torch.float32)
     moved[id(x)] = (x, out)
     return out
 
   def walk(obj):
     if isinstance(obj, core.Dataset):
-      return obj.copy(data={k: put(v.data)
-                            for k, v in obj.variables_dict().items()})
+      return obj.copy(data={
+          k: put(v.data, None if k in full_precision else transfer_dtype)
+          for k, v in obj.variables_dict().items()})
     if isinstance(obj, core.DataArray):
       return obj.copy(data=put(obj.data))
     if isinstance(obj, dict):
