@@ -245,11 +245,14 @@ def cuda_time_ms(fn, arg_sets):
 
   A device sleep ahead of each start event lets the host enqueue the call
   before the device reaches it, so host launch overhead is not timed.
+  Three warm-up rounds first: the first timed function of a case read up
+  to 10% slow after one.
   """
   import torch
 
-  for args in arg_sets:
-    fn(*args)
+  for _ in range(3):
+    for args in arg_sets:
+      fn(*args)
   torch.cuda.synchronize()
   times = []
   for i in range(TIMED_LAUNCHES):
@@ -262,6 +265,65 @@ def cuda_time_ms(fn, arg_sets):
     times.append((start, end))
   torch.cuda.synchronize()
   return statistics.median(s.elapsed_time(e) for s, e in times)
+
+
+PASS_CALLS = 5  # calls under the profiler, for pass_times
+PASS_SESSIONS = 3
+
+
+def pass_times(runs, args):
+  """Device time of each launch of one call, by kernel name, per function.
+
+  ``runs`` maps a name to a function of ``args`` (the planned call).  Under
+  one torch.profiler session each runs PASS_CALLS times after a device
+  sleep, whose kernel cuts the sorted kernel list into one segment per
+  function.  A session whose segments do not come out one per function with
+  kernels in each (the profiler now and then drops events) is measured
+  again, at most PASS_SESSIONS times, and then left out: ``None``, "not
+  measured" (a time, not a check: the run goes on).  Per function: the device
+  launches a call, each kernel's mean device time a launch (µs), and their
+  sum a call (device busy time, the gaps between launches excluded).
+  """
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  for fn in runs.values():
+    fn(*args)
+  torch.cuda.synchronize()
+  for _ in range(PASS_SESSIONS):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      for fn in runs.values():
+        torch.cuda._sleep(1_000_000)
+        for _ in range(PASS_CALLS):
+          fn(*args)
+      torch.cuda.synchronize()
+    events = sorted(
+        (e for e in prof.events()
+         if e.device_type == torch.autograd.DeviceType.CUDA
+         and not e.name.lower().startswith(("memcpy", "memset"))),
+        key=lambda e: e.time_range.start)
+    segments = []
+    for e in events:
+      if "spin_kernel" in e.name:
+        segments.append([])
+      elif segments:
+        segments[-1].append(e)
+    if len(segments) == len(runs) and all(segments):
+      break
+  else:
+    return None
+  out = {}
+  for name, seg in zip(runs, segments):
+    by_kernel = {}
+    for e in seg:
+      key = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+      by_kernel.setdefault(key, []).append(e.time_range.elapsed_us())
+    out[name] = {
+        "launches_per_call": len(seg) / PASS_CALLS,
+        "us_per_launch": {k: statistics.mean(v) for k, v in by_kernel.items()},
+        "device_us_per_call": sum(e.time_range.elapsed_us()
+                                  for e in seg) / PASS_CALLS}
+  return out
 
 
 def at_offset(x, offset):
@@ -368,7 +430,23 @@ def compare(got, want, scale, names):
 
 
 NAMES = ("sums", "wsum_valid", "nan_w")
-CORES = {"scalar": 0, "vec4": 1, "mma": 2}
+CORES = {"scalar": 0, "vec4": 1, "mma": 2, "stream": 3}
+
+
+def kind_of(name, with_clim):
+  from weatherbench2_torch.ops import reductions
+
+  return (reductions.KIND_REGION if name == "fused_region_sums" else
+          reductions.KIND_DET_CLIM if with_clim else reductions.KIND_DET)
+
+
+def cores_taking(name, with_clim, n_regions):
+  """The names of the cores that take this kernel at R regions (16-byte
+  aligned input): each one forced in turn below."""
+  from weatherbench2_torch.ops import reductions
+
+  return [reductions.CORE_NAMES[c] for c in reductions.cores_for(
+      kind_of(name, with_clim), n_regions)]
 
 
 def kernel_functions(name, w):
@@ -466,11 +544,14 @@ def kernel_case(name, shape, n_regions, grid, nans, with_clim, gen,
       "grid": list(plan.grid), "errors": report, "tolerance": TOLERANCE,
       "bit_identical_relaunch": True,
       "kernel_ms": cuda_time_ms(kernel, sets),
-      # each 16-byte core forced on the same inputs, in the same process:
-      # vec4 (up to four regions) is the core that the tensor-core core
-      # must not lose to where the wrapper plans it
+      # every core that takes the row forced on the same inputs, in the
+      # same process (the vec4 and mma cores that other rows plan among
+      # them)
       "core_ms": {k: cuda_time_ms(forced(CORES[k]), sets)
-                  for k in ("vec4", "mma") if k == "mma" or n_regions <= 4},
+                  for k in cores_taking(name, with_clim, n_regions)},
+      # the planned call, launch by launch (every core is one launch a
+      # call: its tail sums the splits)
+      "passes": pass_times({"planned": kernel}, sets[0]),
       "plain_ms": cuda_time_ms(plain, sets),
       "library_ms": cuda_time_ms(library, sets),
       "library_call": library_call,
@@ -508,7 +589,8 @@ def path_cases(gen):
   16-byte alignment); the last two must plan the one-cell-a-step core.
   On the first layout every core is forced in turn (the CUDA-core 16-byte
   core up to four regions, which is all it is built for).  70 and 130 rows
-  fill no tile of any core (8 rows, 64 and 128 rows).
+  fill no tile of any core (8 rows, 64 and 128 rows).  Then 40 000 and
+  20 000 rows, more row blocks than a wave of tensor-core blocks holds.
   """
   import torch
 
@@ -545,8 +627,8 @@ def path_cases(gen):
             raise AssertionError(f"{layout} layout planned core {plan.core}")
           runs = [("planned", kernel)]
           if layout == "aligned":
-            runs += [(k, forced(v)) for k, v in CORES.items()
-                     if k != "vec4" or n_regions <= 4]
+            runs += [(k, forced(CORES[k]))
+                     for k in cores_taking(name, with_clim, n_regions)]
           for which, fn in runs:
             got = fn(*args)
             torch.cuda.synchronize()
@@ -565,6 +647,29 @@ def path_cases(gen):
                                    for v in report.values()))
             cores_seen.add(plan.core if which == "planned" else CORES[which])
             count += 1
+  # more row blocks than a wave of tensor-core blocks holds: each block
+  # walks several row blocks (40 000 rows of kernel 2, 20 000 of kernel 1)
+  grid = (64, 33)
+  cols = grid[0] * grid[1]
+  w = torch.as_tensor(region_weights(*grid, 13), device="cuda")
+  for name, args in (
+      ("fused_region_sums", region_inputs(40000, cols, gen, True)),
+      ("fused_deterministic_sums", det_inputs(20000, cols, gen, True)[:2]
+       + (None,))):
+    kernel, plain, _, scale_of = kernel_functions(name, w)
+    plan = reductions.launch_plan(kind_of(name, False), args[0].shape[0],
+                                  cols, 13)
+    if plan.core != CORES["mma"]:
+      raise AssertionError(f"{name} {args[0].shape[0]} rows planned core "
+                           f"{plan.core}")
+    got = kernel(*args)
+    report = compare(got, plain(*args), scale_of(*args), NAMES)
+    if not all(torch.equal(g, a) for g, a in zip(got, kernel(*args))):
+      raise AssertionError(f"{name} {args[0].shape[0]} rows: two launches "
+                           "differ")
+    worst = max(worst, max(v["max_err_over_bound"] for v in report.values()))
+    count += 1
+    del args, got
   if cores_seen != set(CORES.values()):
     raise AssertionError(f"cores launched: {cores_seen}")
   emit("kernels", path_cases=count, worst_err_over_bound=worst,
@@ -602,9 +707,10 @@ def infinite_cases(gen):
       scale = scale_of(*args)
       if all(bool(torch.isfinite(p).all()) for p in want):
         raise AssertionError(f"{name}: the infinite case is finite")
+      with_clim = len(args) > 1 and args[2] is not None
       runs = [("planned", kernel)] + [
-          (k, forced(v)) for k, v in CORES.items()
-          if k != "vec4" or n_regions <= 4]
+          (k, forced(CORES[k]))
+          for k in cores_taking(name, with_clim, n_regions)]
       for which, fn in runs:
         got = fn(*args)
         for g, p, sc, out in zip(got, want, scale, NAMES):
@@ -627,12 +733,12 @@ def infinite_cases(gen):
 def emulation_cases(gen):
   """The tensor-core core against its CPU emulation, bit for bit.
 
-  ops.reductions.tf32_split_sums_emulation repeats pass1_mma's arithmetic
-  in torch (the split, the order of the MMAs, the tensor core's adder, the
-  fp32 sums of chains and splits), and the CPU tests hold that emulation
-  against float64.  Here the kernel is held to it, so that neither can
-  drift from the other: weather-like magnitudes, NaN rows and scattered
-  NaNs, 2112 cells.
+  ops.reductions.tf32_split_sums_emulation repeats the arithmetic of
+  pass1_mma in torch (the split, the order of the products, the tensor
+  core's adder, the fp32 sums of chains and splits), and the CPU tests
+  hold that emulation against float64.  Here the core is held to it, so
+  that neither can drift from the other: weather-like magnitudes, NaN rows
+  and scattered NaNs, 2112 cells; both kernels on the mma core.
   """
   import torch
 
@@ -640,9 +746,8 @@ def emulation_cases(gen):
 
   grid = (64, 33)
   cols = grid[0] * grid[1]
-  mma = CORES["mma"]
   count = 0
-  for n_regions in (3, 13):
+  for n_regions in (3, 13, 16):
     w = torch.as_tensor(region_weights(*grid, n_regions), device="cuda")
     f, t, c = det_inputs(70, cols, gen, True)
     t = 5e4 + 3e3 * t
@@ -651,16 +756,18 @@ def emulation_cases(gen):
     (x,) = region_inputs(130, cols, gen, True)
     x = 5e4 + 3e3 * x
     cpu = lambda *tensors: [None if v is None else v.cpu() for v in tensors]
-    cases = (
-        ("fused_deterministic_sums, climatology",
-         reductions.launch_deterministic_sums(f, t, c, w, mma),
-         reductions.fused_deterministic_sums_tf32_emulation(*cpu(f, t, c, w))),
-        ("fused_deterministic_sums",
-         reductions.launch_deterministic_sums(f, t, None, w, mma),
-         reductions.fused_deterministic_sums_tf32_emulation(
-             *cpu(f, t, None, w))),
-        ("fused_region_sums", reductions.launch_region_sums(x, w, mma),
-         reductions.fused_region_sums_tf32_emulation(*cpu(x, w))))
+    mma = CORES["mma"]
+    cases = [("fused_deterministic_sums, climatology",
+              reductions.launch_deterministic_sums(f, t, c, w, mma),
+              reductions.fused_deterministic_sums_tf32_emulation(
+                  *cpu(f, t, c, w))),
+             ("fused_deterministic_sums",
+              reductions.launch_deterministic_sums(f, t, None, w, mma),
+              reductions.fused_deterministic_sums_tf32_emulation(
+                  *cpu(f, t, None, w))),
+             ("fused_region_sums",
+              reductions.launch_region_sums(x, w, mma),
+              reductions.fused_region_sums_tf32_emulation(*cpu(x, w)))]
     for what, got, want in cases:
       for g, e, out in zip(got, want, NAMES):
         if not torch.equal(g.cpu(), e):
@@ -670,7 +777,8 @@ def emulation_cases(gen):
               f"from its emulation in {int(differ.sum())} of {e.numel()} "
               f"values, by at most {float((g.cpu() - e).abs().max())}")
         count += 1
-  emit("kernels", emulation_outputs_bit_identical=count, regions=[3, 13],
+  emit("kernels", emulation_outputs_bit_identical=count,
+       regions=[3, 13, 16],
        shapes=[[70, cols], [130, cols]])
 
 
@@ -888,6 +996,68 @@ def check_results(path, n_leads, n_regions=3):
     if not np.isfinite(ds[k].values).all():
       raise AssertionError(f"non-finite results in {k}")
   return ds
+
+
+def reset_core_launches():
+  from weatherbench2_torch import ops
+
+  ops.fused_deterministic_sums.launches_by_core.clear()
+  ops.fused_region_sums.launches_by_core.clear()
+
+
+def core_launches():
+  from weatherbench2_torch import ops
+
+  return {"fused_deterministic_sums":
+          dict(ops.fused_deterministic_sums.launches_by_core),
+          "fused_region_sums": dict(ops.fused_region_sums.launches_by_core)}
+
+
+# Each core of the kernels line, with the timed case that shows it and
+# whether the e2e phase's rows (R 3 and, in e2e13, R 13) plan it: vec4 and
+# mma for kernel 1, stream and mma for kernel 2; the others are forced at
+# those cases.
+CORE_CASES = (
+    ("fused_deterministic_sums", "vec4", ("det", "main", False, False), True),
+    ("fused_deterministic_sums", "mma", ("det", "official16", 1008), True),
+    ("fused_deterministic_sums", "scalar", ("det", "main", False, False),
+     False),
+    ("fused_region_sums", "stream", ("region", "main", False), True),
+    ("fused_region_sums", "mma", ("region", "official16", 9072), True),
+    ("fused_region_sums", "vec4", ("region", "main", False), False),
+    ("fused_region_sums", "scalar", ("region", "main", False), False),
+)
+
+
+def core_summary(cases, by_core):
+  """One kernels-line entry per core: its launches in the e2e phase (0 for
+  a core that no row of that phase plans), its time at its case (forced
+  where the case plans another core), and the case's bound, plain and
+  library times.  Raises if a core that the e2e phase's rows plan did not
+  launch there."""
+  out = []
+  for name, core, key, planned_on_e2e in CORE_CASES:
+    c = cases[key]
+    launches = by_core[name].get(core, 0)
+    if planned_on_e2e and not launches:
+      raise AssertionError(f"{name}: the {core} core was not launched in "
+                           "the e2e phase")
+    out.append({
+        "name": f"{name} ({core} core)", "route": "cuda", "source": SOURCE,
+        "replaces": ("weatherbench2_tpu/ops/reductions.py:151"
+                     if name == "fused_deterministic_sums" else
+                     "weatherbench2_tpu/ops/reductions.py:366"),
+        "launches": launches, "planned_on_main_path": planned_on_e2e,
+        "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
+        "ms": c["core_ms"][core], "case": c["shape"] + [c["regions"]],
+        "planned_core_of_case": c["core"],
+        "device_launches_per_call":
+            None if c["passes"] is None or core != c["core"]
+            else c["passes"]["planned"]["launches_per_call"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"], "library_ms": c["library_ms"],
+        "library_call": c["library_call"]})
+  return out
 
 
 def reset_launches():
@@ -4046,7 +4216,11 @@ def main(argv):
   for name in PHASES:
     if name in wanted:
       t0 = time.perf_counter()
+      if name == "e2e":
+        reset_core_launches()
       results[name] = PHASES[name]()
+      if name == "e2e":
+        results["e2e_by_core"] = core_launches()
       seconds[f"{name}_s"] = time.perf_counter() - t0
   emit("times", **seconds, total_s=time.perf_counter() - t_start)
   if wanted != set(PHASES):
@@ -4095,6 +4269,7 @@ def main(argv):
         "official_shape": o["shape"] + [o["regions"]],
         "official_ms": o["kernel_ms"], "official_bound_ms": o["bound_ms"],
         "official_library_ms": o["library_ms"]})
+  summary += core_summary(cases, results["e2e_by_core"])
   print(json.dumps({"kernels": summary}), flush=True)
   print(smi, flush=True)
   print(json.dumps({"ok": True, "device": {

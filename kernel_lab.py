@@ -5,36 +5,27 @@ Run from the root of a checkout, on a machine with an NVIDIA H100:
 
     python3 kernel_lab.py [MODE ...]
 
-with modes chain, blocks, profile, stream (all four when none is named),
-at the official 0.25-degree shape (126, 1 038 240) with thirteen regions,
-and fixup:
+with modes chain, blocks, profile and stream (all when none is named),
+at the official 0.25-degree shape (126, 1 038 240) with thirteen regions:
 
   chain    builds csrc/reductions.cu with WB2_CHAIN_STAGES = 1, 2, 4, 16
            and 4096 (stages of 32 cells whose MMAs run into one tensor-core
            accumulator before it is added to the fp32 sum; 1 is what
            ships) and prints each build's time and its error against
            float64 sums, beside the plain float32 version's error;
-  blocks   times the shipped build at several numbers of pass-1 blocks
-           (the splits of the cell axis follow from it);
-  profile  device time of pass 1 and pass 2 apart (torch.profiler);
+  blocks   times the shipped build at several numbers of blocks for the
+           tensor-core core (the splits of the cell axis follow from it);
+  profile  device time of each launch of a call (torch.profiler);
   stream   what the card's memory gives plain streaming reads of the same
            arrays (torch.sum of one and of three arrays, float32), as a
-           measured ceiling beside the data-sheet rate;
-  fixup    the tensor-core core with its non-finite repair
-           (nonfinite_fixup) in the shipped build against builds of
-           earlier sources, each given as build/before/NAME.cu (its C
-           entry points take row flags if its text names them), at each
-           tensor-core shape that chip_smoke.py times, in turns (each
-           earlier build, the shipped one, then the same backwards).
+           measured ceiling beside the data-sheet rate.
 
 Each line is one JSON object; the first names the card and its power limit.
 The package itself has one build and one plan: the variants are built and
 launched here, through the same C entry points.
 """
-import ctypes
 import json
 import os
-import pathlib
 import statistics
 import subprocess
 import sys
@@ -77,24 +68,26 @@ def build_variant(define):
   return _build.bind(path)
 
 
-def launch(lib, arrays, w, target_blocks=None):
-  """One launch of `lib`'s tensor-core core: kernel 1 on (f, t, c) or
-  (f, t, None), kernel 2 on (x,).  `target_blocks` replaces the plan's
-  number of pass-1 blocks."""
+def launch(lib, arrays, w, core, target_blocks=None):
+  """One launch of `lib`'s `core`: kernel 1 on (f, t, c) or (f, t, None),
+  kernel 2 on (x,).  `target_blocks` replaces the plan's number of blocks
+  (a one-wave grid of them).  Returns the outputs and the grid."""
   rows, cols = arrays[0].shape
   kind = (red.KIND_REGION if len(arrays) == 1 else
           red.KIND_DET if arrays[2] is None else red.KIND_DET_CLIM)
-  plan = red.launch_plan(kind, rows, cols, w.shape[0], core=red.CORE_MMA)
+  plan = red.launch_plan(kind, rows, cols, w.shape[0], core=core)
   n_splits, split_len = plan.n_splits, plan.split_len
   if target_blocks is not None:
     n_splits, split_len = red.split_plan(
         rows, cols, plan.rows_per_block, target_blocks, one_wave=True)
+  stream = torch.cuda.current_stream().cuda_stream
   partial = torch.empty((n_splits,) + plan.out_shape, device="cuda")
   out = torch.empty(plan.out_shape, device="cuda")
-  stream = torch.cuda.current_stream().cuda_stream
+  counters = torch.zeros(plan.n_counters, dtype=torch.int32,
+                         device="cuda")
   ptrs = [None if x is None else x.data_ptr() for x in arrays]
-  tail = (rows, cols, w.shape[0], red.CORE_MMA, n_splits, split_len,
-          partial.data_ptr(), out.data_ptr(), stream)
+  tail = (rows, cols, w.shape[0], core, n_splits, split_len,
+          partial.data_ptr(), counters.data_ptr(), out.data_ptr(), stream)
   if kind == red.KIND_REGION:
     err = lib.wb2_fused_region_sums(ptrs[0], w.data_ptr(), *tail)
   else:
@@ -159,29 +152,35 @@ def chain(f, t, c, w):
                        for k in range(7)])
   for stages in (1, 2, 4, 16, 4096):
     lib = build_variant(f"WB2_CHAIN_STAGES={stages}")
-    got = launch(lib, (f, t, c), w)[0]
-    emit(what="3xTF32 kernel 1", chain_stages=stages,
+    got = launch(lib, (f, t, c), w, red.CORE_MMA)[0]
+    emit(what="3xTF32 kernel 1, mma core", chain_stages=stages,
          mmas_per_chain=12 * stages,
          err_over_scale=[rel_err(got[k], want[k], scale[k])
                          for k in range(7)],
-         kernel_ms=time_ms(lambda: launch(lib, (f, t, c), w)),
-         region_ms=time_ms(lambda: launch(lib, (f,), w)))
+         kernel_ms=time_ms(lambda: launch(lib, (f, t, c), w, red.CORE_MMA)),
+         region_ms=time_ms(lambda: launch(lib, (f,), w, red.CORE_MMA)))
 
 
 def blocks(f, t, c, w):
   lib = _build.library()
-  for target in (132, 132 * 2, 132 * 4, 132 * 8, 132 * 16):
+  for target in (66, 132, 132 * 2):
     emit(target_blocks=target,
-         det_grid=launch(lib, (f, t, c), w, target)[1],
-         region_grid=launch(lib, (f,), w, target)[1],
-         det_clim_ms=time_ms(lambda: launch(lib, (f, t, c), w, target)),
-         det_ms=time_ms(lambda: launch(lib, (f, t, None), w, target)),
-         region_ms=time_ms(lambda: launch(lib, (f,), w, target)))
+         det_grid=launch(lib, (f, t, c), w, red.CORE_MMA, target)[1],
+         region_grid=launch(lib, (f,), w, red.CORE_MMA, target)[1],
+         det_clim_ms=time_ms(
+             lambda: launch(lib, (f, t, c), w, red.CORE_MMA, target)),
+         det_ms=time_ms(
+             lambda: launch(lib, (f, t, None), w, red.CORE_MMA, target)),
+         region_ms=time_ms(
+             lambda: launch(lib, (f,), w, red.CORE_MMA, target)))
 
 
 def profile(f, t, c, w):
   from torch.profiler import ProfilerActivity, profile as prof
 
+  red.launch_deterministic_sums(f, t, c, w)
+  red.launch_region_sums(f, w)
+  torch.cuda.synchronize()
   with prof(activities=[ProfilerActivity.CUDA]) as p:
     for _ in range(5):
       red.launch_deterministic_sums(f, t, c, w)
@@ -204,76 +203,6 @@ def stream(f, t, c, w):
        three_arrays_ms=three, three_arrays_tb_s=3 * nbytes / three / 1e9)
 
 
-# (kind, rows, cols, regions) of the tensor-core launches chip_smoke.py times
-FIXUP_SHAPES = [
-    ("det", 1008, 29040, 13), ("det", 1008, 29040, 16),
-    ("det", 336, 29040, 16), ("det", 63, 1038240, 13),
-    ("det_clim", 126, 1038240, 13),
-    ("region", 4032, 29040, 3), ("region", 4032, 29040, 13),
-    ("region", 7056, 29040, 16), ("region", 9072, 29040, 16),
-    ("region", 6048, 29040, 16), ("region", 336, 29040, 16),
-    ("region", 630, 29040, 16), ("region", 210, 29040, 16),
-    ("region", 2856, 29040, 16), ("region", 126, 1038240, 13)]
-
-
-def bind_before(path):
-  """The library built from an earlier source, and whether its entry
-  points take a row-flags scratch pointer before the stream (typed with
-  it where they do)."""
-  flags = "row_flags" in path.read_text()
-  lib_path = _build.BUILD_DIR / f"libwb2kernels_{path.stem}.so"
-  os.makedirs(_build.BUILD_DIR, exist_ok=True)
-  subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v",
-                  "-o", str(lib_path), str(path)], check=True)
-  lib = ctypes.CDLL(str(lib_path))
-  for name, argtypes in _build._SIGNATURES.items():
-    fn = getattr(lib, name)
-    fn.argtypes = (argtypes[:-1] + [ctypes.c_void_p] + argtypes[-1:]
-                   if flags else argtypes)
-    fn.restype = ctypes.c_int
-  return lib, flags
-
-
-def fixup(f, t, c, w):
-  befores = {p.stem: bind_before(p)
-             for p in sorted(pathlib.Path("build", "before").glob("*.cu"))}
-  libs = {**befores, "shipped": (_build.library(), False)}
-  gen = torch.Generator(device="cuda")
-  gen.manual_seed(11)
-  for kind, rows, cols, n_regions in FIXUP_SHAPES:
-    n_lon = 1440 if cols == 1038240 else 240
-    wr = torch.as_tensor(region_weights(n_lon, cols // n_lon, n_regions),
-                         device="cuda")
-    x = 5e4 + 3e3 * torch.randn(rows, cols, generator=gen, device="cuda")
-    arrays = {"region": (x,), "det": (x, x + 1e2, None),
-              "det_clim": (x, x + 1e2, x - 3e2)}[kind]
-    flags = torch.empty(2 * rows + 1, dtype=torch.int32, device="cuda")
-
-    def run(lib, takes_flags):
-      k = (red.KIND_REGION if kind == "region" else
-           red.KIND_DET if kind == "det" else red.KIND_DET_CLIM)
-      plan = red.launch_plan(k, rows, cols, n_regions, core=red.CORE_MMA)
-      partial = torch.empty(plan.partial_shape, device="cuda")
-      out = torch.empty(plan.out_shape, device="cuda")
-      ptrs = [None if a is None else a.data_ptr() for a in arrays]
-      tail = (rows, cols, n_regions, red.CORE_MMA, plan.n_splits,
-              plan.split_len, partial.data_ptr(), out.data_ptr(),
-              *([flags.data_ptr()] if takes_flags else []),
-              torch.cuda.current_stream().cuda_stream)
-      if kind == "region":
-        err = lib.wb2_fused_region_sums(ptrs[0], wr.data_ptr(), *tail)
-      else:
-        err = lib.wb2_fused_deterministic_sums(*ptrs, wr.data_ptr(), *tail)
-      _build.check(err, "kernel_lab fixup launch")
-
-    times = {name: [] for name in libs}
-    names = list(libs)
-    for name in names + names[::-1]:
-      times[name].append(time_ms(lambda: run(*libs[name]), n=25))
-    emit(what="non-finite repair", kernel=kind, shape=[rows, cols],
-         regions=n_regions, **{f"{name}_ms": v for name, v in times.items()})
-
-
 def main(argv):
   smi = subprocess.run(
       ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -283,9 +212,10 @@ def main(argv):
   gen.manual_seed(7)
   f, t, c = weather_like(gen)
   w = torch.as_tensor(region_weights(*GRID, N_REGIONS), device="cuda")
-  for mode in argv or ("chain", "blocks", "profile", "stream"):
-    {"chain": chain, "blocks": blocks, "profile": profile,
-     "stream": stream, "fixup": fixup}[mode](f, t, c, w)
+  modes = {"chain": chain, "blocks": blocks, "profile": profile,
+           "stream": stream}
+  for mode in argv or modes:
+    modes[mode](f, t, c, w)
 
 
 if __name__ == "__main__":

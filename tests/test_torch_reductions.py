@@ -230,10 +230,14 @@ def test_split_plan_reaches_or_stays_within_its_target(rows, cols,
 def test_split_plan_of_the_cuda_core_path_is_unchanged():
   # (1008, 29040): 126 row blocks, 1056 / 126 rounded up = 9 splits
   assert reductions.split_plan(1008, 29040) == (9, 3328)
+  # the vec4 core plans in waves of its 396 resident blocks: three splits,
+  # one wave (each block's exit pays its tail)
   plan = reductions.launch_plan(reductions.KIND_DET, 1008, 29040, 3)
-  assert (plan.n_splits, plan.split_len) == (9, 3328)
-  # the tensor-core plan stays within one wave of 264 blocks
+  assert (plan.n_splits, plan.split_len) == (3, 9728)
+  # the tensor-core plan (64 rows a block) stays within one wave of 264
+  # blocks
   plan = reductions.launch_plan(reductions.KIND_DET, 1008, 29040, 13)
+  assert plan.core == reductions.CORE_MMA
   assert plan.grid == (16, 16)
 
 
@@ -256,24 +260,34 @@ def test_launch_plan_covers_rows_and_cells_once(rows, cols, n_regions):
     assert (plan.n_splits - 1) * plan.split_len < cols
     assert cols <= plan.n_splits * plan.split_len
     assert 1 <= plan.n_splits <= 65535
-    # every core's step divides a split
-    assert plan.split_len % 128 == 0
+    # every core's step divides a split: 128 cells for the CUDA-core
+    # cores, a 32-cell stage for the tensor-core one
+    tensor = plan.core == reductions.CORE_MMA
+    assert plan.split_len % (reductions.MMA_STAGE_CELLS if tensor
+                             else 128) == 0
     assert plan.split_len % reductions.MMA_STAGE_CELLS == 0
     # the row axis: row blocks tile [0, rows) exactly once, none empty
     row_blocks, n_splits = plan.grid
     assert n_splits == plan.n_splits
     assert (row_blocks - 1) * plan.rows_per_block < rows
     assert rows <= row_blocks * plan.rows_per_block
-    # which core: odd lengths cannot take 16-byte loads
+    # which core: odd lengths cannot take 16-byte loads; up to four
+    # regions the CUDA cores (kernel 2 streaming), else the tensor cores
+    region = kind == reductions.KIND_REGION
     if cols % 4:
       assert plan.core == reductions.CORE_SCALAR
-    elif n_regions <= 4 and kind != reductions.KIND_REGION:
-      assert plan.core == reductions.CORE_VEC4
+    elif n_regions <= 4:
+      assert plan.core == (reductions.CORE_STREAM if region
+                           else reductions.CORE_VEC4)
     else:
       assert plan.core == reductions.CORE_MMA
-    want_rows = (reductions.MMA_ROWS_PER_BLOCK[kind]
-                 if plan.core == reductions.CORE_MMA else 8)
+    want_rows = {reductions.CORE_MMA: reductions.MMA_ROWS_PER_BLOCK[kind],
+                 reductions.CORE_STREAM: reductions.STREAM_ROWS_PER_BLOCK
+                 }.get(plan.core, 8)
     assert plan.rows_per_block == want_rows
+    # the tail's counters: the grid barrier's two, then a row each (the
+    # tensor-core core's non-finite flags) or a row block each
+    assert plan.n_counters == 2 + (rows if tensor else row_blocks)
     # scratch and output shapes, as the C entry points are told them
     n_out = 3 if kind == reductions.KIND_REGION else 8
     assert plan.partial_shape == (plan.n_splits, n_out, n_regions, rows)
@@ -298,12 +312,101 @@ def test_launch_plan_unaligned_and_forced_cores(kind):
     reductions.launch_plan(kind, 126, 2112, 13, aligned=False,
                            core=reductions.CORE_VEC4)
   with pytest.raises(ValueError, match="unknown core"):
-    reductions.launch_plan(kind, 126, 2112, 13, core=3)
+    reductions.launch_plan(kind, 126, 2112, 13, core=4)
   for bad in (0, 17):
     with pytest.raises(ValueError, match="regions"):
       reductions.launch_plan(kind, 126, 2112, bad)
   with pytest.raises(ValueError, match="empty input"):
     reductions.launch_plan(kind, 0, 2112, 13)
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_launch_plan_new_cores_refuse_what_they_cannot_take(kind):
+  region = kind == reductions.KIND_REGION
+  # the streaming core is kernel 2's, up to four regions; the tensor-core
+  # core takes either kernel at any number of regions
+  if region:
+    plan = reductions.launch_plan(kind, 330, 29040, 2,
+                                  core=reductions.CORE_STREAM)
+    assert plan.core == reductions.CORE_STREAM
+    with pytest.raises(ValueError, match="four regions"):
+      reductions.launch_plan(kind, 126, 2112, 5,
+                             core=reductions.CORE_STREAM)
+  else:
+    with pytest.raises(ValueError, match="fused_region_sums"):
+      reductions.launch_plan(kind, 126, 2112, 3, core=reductions.CORE_STREAM)
+  plan = reductions.launch_plan(kind, 336, 29040, 3,
+                                core=reductions.CORE_MMA)
+  assert plan.core == reductions.CORE_MMA
+  for core in (reductions.CORE_STREAM, reductions.CORE_MMA):
+    with pytest.raises(ValueError, match="16-byte cores"):
+      reductions.launch_plan(kind, 126, 2015, 3, core=core)
+    with pytest.raises(ValueError, match="16-byte cores"):
+      reductions.launch_plan(kind, 126, 2112, 3, aligned=False, core=core)
+  # what cores_for lists is what a forced plan takes
+  for n_regions in (1, 4, 5, 16):
+    takes = reductions.cores_for(kind, n_regions)
+    for core in reductions.CORE_NAMES:
+      if core in takes:
+        assert reductions.launch_plan(kind, 70, 2112, n_regions,
+                                      core=core).core == core
+      else:
+        with pytest.raises(ValueError):
+          reductions.launch_plan(kind, 70, 2112, n_regions, core=core)
+
+
+@pytest.mark.parametrize("rows, cols, rows_per_block, slots", [
+    (8580, 29040, 8, 528), (660, 29040, 8, 528), (330, 29040, 8, 528),
+    (4290, 29040, 8, 528), (1, 1024, 8, 528), (70, 2112, 8, 528),
+    (126, 1038240, 8, 528), (3, 5, 8, 528)])
+def test_balanced_split_plan_fills_its_last_wave(rows, cols, rows_per_block,
+                                                 slots):
+  n_splits, split_len = reductions.balanced_split_plan(
+      rows, cols, rows_per_block, slots, 1024, 1024)
+  assert split_len % 128 == 0
+  assert (n_splits - 1) * split_len < cols <= n_splits * split_len
+  row_blocks = -(-rows // rows_per_block)
+  waves = -(-row_blocks * n_splits // slots)
+  # no other number of splits finishes sooner (waves x block length, a
+  # block's start counted as 1024 cells)
+  for n in range(1, max(1, cols // 1024) + 1):
+    length = -(-(-(-cols // n)) // 128) * 128
+    other = -(-row_blocks * -(-cols // length) // slots) * (length + 1024)
+    assert waves * (split_len + 1024) <= other
+  assert split_len >= 1024 or n_splits == 1
+
+
+def test_stream_plans_at_the_averages_and_moments_rows():
+  # few rows: one wave of 12 splits (504 blocks of 528); many rows: four
+  # splits, nine waves
+  plan = reductions.launch_plan(reductions.KIND_REGION, 330, 29040, 2)
+  assert plan.core == reductions.CORE_STREAM
+  assert (plan.n_splits, plan.split_len) == (12, 2432)
+  plan = reductions.launch_plan(reductions.KIND_REGION, 8580, 29040, 1)
+  assert (plan.n_splits, plan.split_len) == (4, 7296)
+  # one split: pass 1 writes the outputs, the wrapper allocates no partial
+  plan = reductions.launch_plan(reductions.KIND_REGION, 60000, 2048, 1)
+  assert plan.n_splits == 1
+
+
+@pytest.mark.parametrize("kind", _KINDS)
+def test_tensor_core_plans_of_many_rows_take_one_split(kind):
+  # more row blocks than a wave holds: one split, and the launch takes a
+  # wave of blocks that walk the row blocks (the C launch's grid)
+  plan = reductions.launch_plan(kind, 40000, 29040, 16)
+  assert plan.core == reductions.CORE_MMA
+  assert plan.n_splits == 1 and plan.split_len >= 29040
+  assert plan.grid[0] > 2 * reductions.N_SMS
+
+
+def test_launch_plan_follows_the_cards_sm_count():
+  plan = reductions.launch_plan(reductions.KIND_DET, 1008, 29040, 16,
+                                n_sms=114)
+  assert plan.grid[0] * plan.grid[1] <= (
+      reductions.MMA_BLOCKS_PER_SM * 114)
+  plan = reductions.launch_plan(reductions.KIND_REGION, 336, 1024, 16,
+                                n_sms=114)
+  assert plan.grid[0] * plan.grid[1] <= 2 * 114
 
 
 def test_launch_plan_fills_the_card_at_the_official_shape():
@@ -372,8 +475,25 @@ def test_python_constants_match_the_cuda_source():
       reductions._ROWS_PER_BLOCK)
   for name, value in (("kCoreScalar", reductions.CORE_SCALAR),
                       ("kCoreVec4", reductions.CORE_VEC4),
-                      ("kCoreMma", reductions.CORE_MMA)):
+                      ("kCoreMma", reductions.CORE_MMA),
+                      ("kCoreStream", reductions.CORE_STREAM)):
     assert constant(rf"constexpr int {name} = (\d+);") == value
+  assert len(re.findall(r"constexpr int kCore\w+ = \d+;", text)) == len(
+      reductions.CORE_NAMES)
+  # the streaming core's geometry
+  assert constant(r"constexpr int kStreamRows = (\d+);") == (
+      reductions.STREAM_ROWS_PER_BLOCK)
+  # the streaming ring: STREAM_BLOCKS_PER_SM blocks fit an SM, as the
+  # kernel's launch bounds ask
+  seg = constant(r"constexpr int kStreamSeg = (\d+);")
+  s_stages = constant(r"constexpr int kStreamStages = (\d+);")
+  s_regions = constant(r"constexpr int kStreamRegions = (\d+);")
+  s_smem = s_stages * (reductions.STREAM_ROWS_PER_BLOCK + s_regions) * seg * 4
+  assert reductions.STREAM_BLOCKS_PER_SM * (s_smem + 64 + 1024) <= 233472
+  assert constant(r"__launch_bounds__\(kStreamThreads, (\d+)\)") == (
+      reductions.STREAM_BLOCKS_PER_SM)
+  assert constant(r"__launch_bounds__\(kMmaThreads, (\d+)\)") == (
+      reductions.MMA_BLOCKS_PER_SM)
   # dynamic shared memory of two resident blocks fits the SM's 227 KB
   stages = constant(r"constexpr int kStages = (\d+);")
   k_j = reductions.MMA_STAGE_CELLS // 16

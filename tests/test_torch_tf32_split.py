@@ -227,3 +227,69 @@ def test_emulation_matches_the_jax_reference(with_clim):
   assert _worst(torch.stack(got2[:2]), torch.as_tensor(
       np.stack(want2[:2])), scale2) <= 1.0
   assert np.array_equal(got2[2].numpy(), want2[2])
+
+
+def test_statistic_split_keeps_twenty_one_bits():
+  # a statistic's hi is v rounded to TF32; lo = v - hi, of which the tensor
+  # core reads the truncation
+  rs = np.random.RandomState(5)
+  x = torch.as_tensor((rs.randn(4096) * 10.0 ** rs.randint(-8, 9, 4096))
+                      .astype(np.float32))
+  hi = reductions.tf32_round(x)
+  lo = reductions.tf32_truncate(x - hi)
+  err = (x.double() - hi.double() - lo.double()).abs()
+  assert bool((err <= x.double().abs() * 2.0**-21).all())
+  assert bool(((x.double() - hi.double()).abs()
+               <= x.double().abs() * 2.0**-11).all())
+
+
+def _one_point_five_degree(n_regions, rows, seed):
+  n_lon, n_lat = 240, 121
+  lat = np.linspace(-90, 90, n_lat)
+  lon = np.linspace(0, 360, n_lon, endpoint=False)
+  lw = metrics._cell_area_from_latitude(np.deg2rad(lat))
+  lw = (lw / lw.mean()).astype(np.float32)
+  masks = [SliceRegion().mask_weights(lat, lon)] + [
+      SliceRegion(lat_slice=slice(-80 + 10 * i, -45 + 10 * i),
+                  lon_slice=slice(20 * i, 20 * i + 150)).mask_weights(lat, lon)
+      for i in range(n_regions - 1)]
+  w = torch.as_tensor(reductions.make_region_weight_matrix(lw, masks, n_lon))
+  rs = np.random.RandomState(seed)
+  l = n_lon * n_lat
+  t = (5e4 + 3e3 * rs.randn(rows, l)).astype(np.float32)
+  f = (t + 1e2 * rs.randn(rows, l)).astype(np.float32)
+  c = (t + 5e2 * rs.randn(rows, l)).astype(np.float32)
+  f[rs.rand(rows, l) < 0.01] = np.nan
+  return [torch.as_tensor(x) for x in (f, t, c)] + [w]
+
+
+@pytest.mark.parametrize("with_clim", [True, False])
+def test_kernel1_emulation_at_sixteen_regions_holds_the_tolerance(with_clim):
+  # sixteen regions over WB2's 1.5-degree grid, as the official
+  # configuration launches kernel 1 (without a climatology)
+  f, t, c, w = _one_point_five_degree(16, 3, 16)
+  c = c if with_clim else None
+  sums, wsum, nanw = reductions.fused_deterministic_sums_tf32_emulation(
+      f, t, c, w)
+  stats, valid, nan = reductions._det_stats(f, t, c)
+  w64 = w.double().T
+  ref = torch.stack([(s.double() @ w64).T for s in stats + [valid]])
+  scale = torch.stack([(s.double().abs() @ w64.abs()).T
+                       for s in stats + [valid]])
+  assert _worst(torch.cat([sums, wsum[None]]), ref, scale) <= 1.0
+  assert torch.equal(nanw.double(), (nan.double() @ (w > 0).double().T).T)
+
+
+def test_tensor_core_emulation_is_the_split_sums_of_its_plan():
+  # kernel 1's emulation is the split sums at the planned core's split
+  # length (one-stage splits where the rows are few)
+  f, t, c, w = _one_point_five_degree(13, 2, 13)
+  stats, valid, _ = reductions._det_stats(f, t, c)
+  plan = reductions.launch_plan(reductions.KIND_DET_CLIM, 2, f.shape[1], 13)
+  assert plan.core == reductions.CORE_MMA
+  got = reductions.fused_deterministic_sums_tf32_emulation(f, t, c, w)
+  for k, s in enumerate(stats):
+    assert torch.equal(got[0][k], reductions.nonfinite_finish(
+        reductions.tf32_split_sums_emulation(s, w, plan.split_len), s, w))
+  assert torch.equal(got[1], reductions.tf32_split_sums_emulation(
+      valid, w, plan.split_len))

@@ -13,8 +13,7 @@
 //   6:    sum W.valid                (wsum_valid)
 //   7:    sum (W > 0).isnan(f|t|c)   (nan_w; weighted by W > 0, not W)
 // Without a climatology (c == nullptr) it computes the same function with
-// c = 0 and does not read a third array: the main path's deterministic
-// tier has no climatology, so this cuts its bytes by a third.
+// c = 0 and does not read a third array.
 //
 // Kernel 2 replaces weatherbench2_tpu/ops/reductions.py:_region_sums_kernel
 // (fused_region_sums). For (N, L) rows x, each row with its own NaN mask:
@@ -23,79 +22,102 @@
 // Bound on the card (H100 SXM: 3.35 TB/s HBM, 67 TFLOP/s fp32 on the CUDA
 // cores, 495 TFLOP/s TF32 on the tensor cores). Per cell, kernel 1 reads 8
 // bytes (12 with a climatology) and does 8R multiply-adds; kernel 2 reads 4
-// bytes and does 3R. With up to four regions both are memory-bound by a wide
-// margin. At the official thirteen regions the fp32 multiply-adds alone
-// (104 per 12 bytes) would take as long on the CUDA cores as the bytes take
-// to arrive, and 8 x 16 accumulators a thread leave one block resident per
-// SM. So the 16-byte paths come as two cores, chosen by the Python wrapper:
+// bytes and does 3R. Up to four regions, both are memory-bound by a wide
+// margin on the CUDA cores. Above four, the fp32 multiply-adds (128 per 8
+// bytes for kernel 1 at sixteen regions) would take longer on the CUDA
+// cores than the bytes take to arrive, so they go to the tensor cores with
+// an error-corrected TF32 split (3xTF32, 672 TF32 flops a cell-row for
+// kernel 1). There kernel 1 runs at about half its byte bound: the
+// products, at mma.sync's rate, and the statistics' CUDA-core work come on
+// top of the bytes. A wgmma core (m64n16k8, W split once per weight
+// matrix) was measured no faster (PERF.md), so it is not kept. The Python
+// wrapper (ops/reductions.py:launch_plan) picks one of four cores:
 //
-//  * CUDA-core core (pass1_vec4; R <= 4 only: kernel 1 on the wrapper's
-//    plan, kernel 2 as the baseline its tensor-core core is timed against).
-//    One warp per row, eight rows per block; a lane covers four cells per step with
-//    16-byte loads, the next step's loads started before this step's
-//    arithmetic; the block's rows share a double-buffered shared-memory
-//    copy of each (4, 128-cell) tile of W; NSTAT x 4 sums a thread,
-//    reduced over the 32 lanes by a fixed xor-shuffle tree.
-//  * Tensor-core core (pass1_mma; R > 4, and kernel 2 at any R, where it
-//    is the faster one at three regions too). Both kernels are the skinny
-//    product out[16 regions, rows] = W[16, cells] . stat[cells, rows], so
-//    one mma.sync.m16n8k8 (TF32 in, fp32 out) takes W's (16, 8 cells) as A
-//    and one statistic of 8 cells x 8 rows as B; a thread holds 4 sums per
-//    statistic instead of 16. Precision: every operand that is not exactly
-//    a TF32 number is split, v = hi + lo with hi = tf32(v) and lo =
-//    v - hi (of which the tensor core reads the upper 19 bits), and W.s
-//    is the three products Wlo.shi + Whi.slo + Whi.shi (3xTF32); the 0/1
-//    masks are exact, so the valid-weight sum takes Whi and Wlo and the
-//    NaN-hit sum takes (W > 0) alone. The tensor
-//    core does not round its running sum to nearest, so a chain of MMAs
-//    runs for one 32-cell stage only (12 MMAs into a zeroed accumulator),
-//    which is then added to the thread's fp32 sum on the CUDA cores.
-//    The statistics themselves are fp32 on the CUDA cores (stats_of).
-//    Range: the split is of finite numbers. An infinite statistic (an
-//    infinite input, or a square that overflows) has hi = inf and lo = NaN,
-//    so this core's sums of that (statistic, row) come out NaN in every
-//    region, where an fp32 matmul (and the CUDA-core cores) give +-inf in
-//    the regions whose positive weights meet infinities of one sign and
-//    NaN elsewhere (0 x inf). So nonfinite_fixup, after pass 2, tests each
-//    row's sums (a thread a row) and redoes the rows with a sum that is
-//    not finite, all threads of the row's block together: each statistic
-//    that is not finite there gets, region by region, the value fp32
-//    gives. Every region of such a statistic is +-inf or NaN (a region
-//    either holds the cell or weighs it zero), so no finite sum is lost.
-//    Passes 1 and 2 are not changed by it. A finite sum that overflows, or
-//    a weight within 2^-12 of the largest float, is not repaired: weights
-//    and fields of this framework are far from either.
-//    Layout: the cell index is summed over, so any assignment of cells to
-//    k works if A and B agree. A lane (g = lane / 4, tig = lane % 4) reads
-//    the four cells 16j + 4tig .. +3 of row g with one 16-byte load (four
-//    lanes cover 64 contiguous bytes of a row, a warp eight rows) and uses
-//    them as k = tig, tig + 4 of two MMA steps: no transposition and no
-//    cross-lane traffic for the data. The loads are cp.async (16 bytes,
-//    .cg, with an L2 hint that fetches the row's next stage too) into a
-//    ring of four stages in dynamic shared memory that is private to each
-//    thread (it reads back only what it copied), so data needs
-//    cp.async.wait_group and no barrier. W is shared: per stage, two
-//    warps load the (16, 32-cell) tile one stage ahead into registers,
-//    split it once and store Whi, Wlo and (W > 0) to shared memory in
-//    fragment order (one conflict-free 16-byte read per fragment); the one
-//    barrier per stage orders those stores. A block of eight warps holds
-//    64 rows (kernel 1) or 128 rows (kernel 2, two 8-row tiles a warp), so
-//    at 0.25 degrees W crosses L2 twice or once, not sixteen times.
-//  * Any L or alignment that the 16-byte paths cannot take goes to
-//    pass1_scalar: one cell per lane step, 4-byte loads, any R.
-//  * In every core a block covers one slice [l0, l1) of the cell axis and
-//    writes partial[split, stat, r, row]; pass 2 sums the splits of each
-//    output in a fixed order. No floating-point atomics: the same inputs
-//    give the same bits on every run. The wrapper picks the number of
-//    splits so that the grid fills the 132 SMs even for 126 rows.
-//  * Columns past L and rows past B contribute nothing.
+//  * pass1_stream (kernel 2, R <= 4, planned). The GEMV regime: 3R
+//    multiply-adds per 4 bytes is far under the CUDA cores' rate, so only
+//    the bytes in flight matter. A block holds eight rows (a consumer warp
+//    each) and one producer warp. Row segments of 256 cells (1 KB) stream
+//    into a four-stage shared-memory ring through 1D TMA bulk copies
+//    (cp.async.bulk ... mbarrier::complete_tx::bytes: no tensor map, so the
+//    build links no libcuda), issued by the producer's lanes, one copy per
+//    row and per region row of W, which the block's eight rows share. Full
+//    and empty mbarriers per stage order the ring: 4 KB a warp stay in flight
+//    whatever the row count. The wrapper tiles the (rows, cells) plane into
+//    blocks of 8 rows x split_len cells so that the last wave of blocks is
+//    as full as it can be (few rows: more splits; many rows: whole waves).
+//  * pass1_vec4 (kernel 1, R <= 4, planned). One warp per row, eight rows
+//    per block; a lane covers four cells per step with 16-byte loads, the
+//    next step's loads started before this step's arithmetic; the block's
+//    rows share a double-buffered shared-memory copy of each (4, 128-cell)
+//    tile of W.
+//  * pass1_mma (both kernels, R > 4, planned). The skinny product out[16
+//    regions, rows] = W[16, cells] . stat[cells, rows] as mma.sync.m16n8k8
+//    (TF32 in, fp32 out): W's (16 regions x 8 cells) is A and a statistic
+//    of 8 cells x 8 rows is B. A lane (g = lane / 4, t = lane % 4) reads
+//    the cells 16 j + 4 t .. + 3 of its row with one 16-byte cp.async into
+//    a four-stage ring private to the thread, and uses them as k = t, t + 4
+//    of two MMA steps. W's (16, 32-cell) tile is split by two warps a stage
+//    into Whi, Wlo and (W > 0) in shared memory. W.s is Wlo.shi + Whi.slo +
+//    Whi.shi, the valid weight Wlo.v + Whi.v, the NaN hits (W > 0).n; a
+//    chain runs for one 32-cell stage (12 MMAs into a zeroed accumulator)
+//    and is added to the fp32 sums on the CUDA cores, so that the tensor
+//    core's truncating adder never runs long. A block of eight warps holds
+//    64 rows (kernel 1) or 128 (kernel 2, two 8-row tiles a warp).
+//  * pass1_scalar: any L or alignment that the 16-byte cores cannot take;
+//    one cell per lane step, 4-byte loads, any R.
+//
+// Precision of the tensor-core core: every operand that is not exactly a
+// TF32 number is split, v = hi + lo with hi = tf32(v), rounded to nearest,
+// and lo = v - hi, exact in fp32, of which the tensor core reads the upper
+// 19 bits (it truncates): about 21 bits of v are kept. The 0/1 masks are
+// exact. Range: the split is of finite numbers. An infinite statistic has
+// hi = inf and lo = NaN, so that core's sums of that (statistic, row) come
+// out NaN in every region, where fp32 (and the CUDA-core cores) give +-inf
+// in the regions whose positive weights meet infinities of one sign and
+// NaN elsewhere (0 x inf). So its tail flags each row with a sum that is
+// not finite and redoes it as fp32 gives it, region by region
+// (repair_rows). A finite sum that overflows, or a weight within 2^-12 of
+// the largest float, is not repaired.
+//
+// One launch a call. Every core covers one slice [l0, l1) of the cell axis
+// per block (split) and ends in a tail that sums the splits in split order
+// (no floating-point atomics: the same inputs give the same bits on every
+// run); where the plan has one split, pass 1 writes out directly.
+//  * CUDA-core cores (grids planned in waves): each block publishes its
+//    partial, then increments its row block's arrival counter (after
+//    __threadfence); the last block to arrive sums that row block's
+//    splits and resets the counter.
+//  * The tensor-core core (one wave, launched cooperatively, so every block
+//    is resident; a block walks several row blocks where the rows
+//    outnumber the wave): a grid barrier, then every block sums a slice of
+//    all outputs, flagging rows with a sum that is not finite; a second
+//    barrier, then every block repairs the flagged rows of its slice.
+//    Its partials are large at few rows (16 regions x 8 statistics x 64
+//    rows a block, up to 264 splits), so no block sums them alone.
+// The splits are summed sixteen loads at a time, in order.
+// Columns past L and rows past B contribute nothing.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;  // rows per block in pass 1
 constexpr unsigned kFull = 0xffffffffu;
+
+// The launch, as every kernel takes it.
+struct Params {
+  const float* a;       // f (kernel 1) or x (kernel 2): (rows, L)
+  const float* b;       // t or nullptr
+  const float* c;       // climatology or nullptr
+  const float* w;       // (R, L)
+  int rows;
+  int R;
+  int n_splits;
+  int64_t L;
+  int64_t split_len;
+  float* partial;       // (n_splits, stats, R, rows); == out for one split
+  float* out;           // (stats, R, rows)
+  int* counters;        // zeroed scratch, left zeroed
+};
 
 // KIND 0: deterministic with climatology, 1: deterministic without,
 // 2: generic region sums.
@@ -145,63 +167,307 @@ __device__ __forceinline__ void accumulate(float (&acc)[NS][RP],
   acc[NS - 1][r] = fmaf(s[NS - 1], wp, acc[NS - 1][r]);
 }
 
+__device__ __forceinline__ int64_t out_index(const Params& p, int split,
+                                             int ns, int k, int r, int row) {
+  return ((static_cast<int64_t>(split) * ns + k) * p.R + r) * p.rows + row;
+}
+
 // The 32 lanes' sums of each (stat, region) by a fixed xor tree; lane 0
 // writes partial[split, stat, r, row].
 template <int NS, int RP>
 __device__ __forceinline__ void write_partials(float (&acc)[NS][RP],
                                                int lane, int split, int row,
-                                               int rows, int R,
-                                               float* __restrict__ partial) {
+                                               const Params& p) {
 #pragma unroll
   for (int k = 0; k < NS; ++k) {
 #pragma unroll
     for (int r = 0; r < RP; ++r) {
-      if (r < R) {
+      if (r < p.R) {
         float v = acc[k][r];
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           v += __shfl_xor_sync(kFull, v, off);
-        if (lane == 0)
-          partial[((static_cast<int64_t>(split) * NS + k) * R + r) * rows +
-                  row] = v;
+        if (lane == 0) p.partial[out_index(p, split, NS, k, r, row)] = v;
       }
     }
   }
 }
 
+// ---------------------------------------------------------------------------
+// Tails (see the header).
+
+// src[0] + src[stride] + ... (n terms) added in that order, sixteen loads
+// in flight: a split sum is a chain of L2 round trips otherwise.
+__device__ __forceinline__ float sum_in_order(const float* src,
+                                              int64_t stride, int n) {
+  float acc = 0.f;
+  int s = 0;
+  for (; s + 16 <= n; s += 16) {
+    float v[16];
+#pragma unroll
+    for (int u = 0; u < 16; ++u) v[u] = __ldcg(src + (s + u) * stride);
+#pragma unroll
+    for (int u = 0; u < 16; ++u) acc += v[u];
+  }
+  for (; s < n; ++s) acc += __ldcg(src + s * stride);
+  return acc;
+}
+
+// The last block of a row block to publish its partial sums the row
+// block's splits in split order and leaves the counter (counters[2 +
+// row block]; 0 and 1 are grid_sync's) zeroed. Every thread of the block
+// calls it.
+template <int NS>
+__device__ void finish_last_block(const Params& p, int rows_per_block) {
+  if (p.n_splits == 1) return;  // pass 1 wrote out
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(p.counters + 2 + blockIdx.x, 1) == p.n_splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int row0 = blockIdx.x * rows_per_block;
+  const int nrows = min(rows_per_block, p.rows - row0);
+  const int64_t stride = static_cast<int64_t>(NS) * p.R * p.rows;
+  for (int i = threadIdx.x; i < NS * p.R * nrows; i += blockDim.x) {
+    const int64_t idx = static_cast<int64_t>(i / nrows) * p.rows + row0 +
+                        i % nrows;
+    p.out[idx] = sum_in_order(p.partial + idx, stride, p.n_splits);
+  }
+  if (threadIdx.x == 0) p.counters[2 + blockIdx.x] = 0;
+}
+
+// All blocks of a cooperative launch meet here. counters[0] counts the
+// arrivals and counters[1] the barriers passed (it is never reset: a
+// block still waiting compares it with what it read), so the pair is
+// ready for the next barrier and the next launch.
+__device__ void grid_sync(int* counters) {
+  const unsigned n = gridDim.x * gridDim.y;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    volatile int* v = counters;
+    const int gen = v[1];
+    if (atomicAdd(counters, 1) == static_cast<int>(n) - 1) {
+      atomicExch(counters, 0);
+      __threadfence();
+      atomicAdd(counters + 1, 1);
+    } else {
+      while (v[1] == gen) __nanosleep(64);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// The rows [r0, r1) with a sum that is not finite, redone as fp32 gives
+// them (see the header). Such a row is flagged in counters[2 + row] where
+// its sums were written (finish_grid, or pass 1 for one split); a thread
+// reads one row's flag and clears it, then the block's threads redo each
+// flagged row together, classifying the row's cells.
+// Bits per weighted statistic: r for an infinity of either sign or a NaN
+// statistic meeting region r's weight where fp32 makes NaN of it (a NaN
+// statistic, or a zero weight), and r, 16 + r for +inf, -inf meeting a
+// positive weight.
+constexpr int kRepairRows = 128;  // rows tested at a time (<= blockDim.x)
+
+template <int KIND>
+__device__ void repair_rows(const Params& p, int r0, int r1) {
+  constexpr int NS = Stats<KIND>::N;
+  constexpr int NW = KIND == 2 ? 1 : 6;  // the statistics summed with W
+  __shared__ int marked[kRepairRows];
+  __shared__ int n_marked;
+  __shared__ unsigned nan_bits[NW], sign_bits[NW];
+  const int64_t L = p.L;
+  const int R = p.R;
+  for (int base = r0; base < r1; base += kRepairRows) {
+    if (threadIdx.x == 0) n_marked = 0;
+    __syncthreads();
+    const int own = base + threadIdx.x;
+    if (threadIdx.x < kRepairRows && own < r1 && __ldcg(p.counters + 2 + own)) {
+      p.counters[2 + own] = 0;
+      marked[atomicAdd(&n_marked, 1)] = own;
+    }
+    __syncthreads();
+    const int n = n_marked;
+    for (int j = 0; j < n; ++j) {
+      const int row = marked[j];
+      if (threadIdx.x < NW) {
+        nan_bits[threadIdx.x] = 0;
+        sign_bits[threadIdx.x] = 0;
+      }
+      __syncthreads();
+      unsigned nb[NW] = {}, sb[NW] = {};
+      for (int64_t l = threadIdx.x; l < L; l += blockDim.x) {
+        const int64_t i = static_cast<int64_t>(row) * L + l;
+        float s[NS];
+        stats_of<KIND>(p.a[i], KIND == 2 ? 0.f : p.b[i],
+                       KIND == 0 ? p.c[i] : 0.f, s);
+#pragma unroll
+        for (int k = 0; k < NW; ++k) {
+          if (isfinite(s[k])) continue;
+          for (int r = 0; r < R; ++r) {
+            const float wv = p.w[static_cast<int64_t>(r) * L + l];
+            if (isnan(s[k]) || wv == 0.f) {
+              nb[k] |= 1u << r;
+            } else {
+              sb[k] |= 1u << (s[k] > 0.f ? r : 16 + r);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < NW; ++k) {
+        if (nb[k]) atomicOr(nan_bits + k, nb[k]);
+        if (sb[k]) atomicOr(sign_bits + k, sb[k]);
+      }
+      __syncthreads();
+      for (int j2 = threadIdx.x; j2 < NW * R; j2 += blockDim.x) {
+        const int k = j2 / R, r = j2 % R;
+        const bool nan = (nan_bits[k] >> r) & 1u;
+        const bool pos = (sign_bits[k] >> r) & 1u;
+        const bool neg = (sign_bits[k] >> (16 + r)) & 1u;
+        const float inf = __int_as_float(0x7f800000);
+        if (nan || pos || neg)
+          p.out[(static_cast<int64_t>(k) * R + r) * p.rows + row] =
+              nan || (pos && neg) ? __int_as_float(0x7fc00000)
+                                  : pos ? inf : -inf;
+      }
+      __syncthreads();  // the shared bits are reset for the next row
+    }
+  }
+}
+
+// The tensor-core core's tail: every block of the (cooperative, one-wave)
+// grid sums a slice of the outputs over the splits, in split order, then
+// tests and repairs a slice of the rows.
+template <int KIND>
+__device__ void finish_grid(const Params& p) {
+  constexpr int NS = Stats<KIND>::N;
+  const int64_t n_blocks = static_cast<int64_t>(gridDim.x) * gridDim.y;
+  const int64_t block = static_cast<int64_t>(blockIdx.y) * gridDim.x +
+                        blockIdx.x;
+  if (p.n_splits > 1) {
+    grid_sync(p.counters);
+    const int64_t n_out = static_cast<int64_t>(NS) * p.R * p.rows;
+    for (int64_t i = block * blockDim.x + threadIdx.x; i < n_out;
+         i += n_blocks * blockDim.x) {
+      const float acc = sum_in_order(p.partial + i, n_out, p.n_splits);
+      p.out[i] = acc;
+      if (!isfinite(acc)) p.counters[2 + i % p.rows] = 1;
+    }
+  }
+  grid_sync(p.counters);
+  repair_rows<KIND>(p, static_cast<int>(block * p.rows / n_blocks),
+                    static_cast<int>((block + 1) * p.rows / n_blocks));
+}
+
+// ---------------------------------------------------------------------------
+// Asynchronous copies and barriers.
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; n = 0 writes zeros instead.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  // the L2 hint fetches the row's next 128 bytes (the next stage) too
+  asm volatile(
+      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;" ::"r"(
+          smem_addr(dst)),
+      "l"(src), "r"(n)
+      : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+// Waits for the completion of the barrier's phase of this parity.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_addr(bar)),
+      "r"(parity)
+      : "memory");
+}
+// A 1D TMA bulk copy global -> shared (16-byte aligned, bytes % 16 == 0),
+// reported to the barrier as transferred bytes.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// CUDA-core cores.
+
+constexpr int kWarps = 8;  // rows per block of pass1_scalar and pass1_vec4
+
 // Pass 1, one cell per lane step: any L, any alignment.
 template <int KIND, int RP>
 __global__ void __launch_bounds__(kWarps * 32)
-pass1_scalar(const float* __restrict__ a, const float* __restrict__ b,
-             const float* __restrict__ c, const float* __restrict__ w,
-             int rows, int64_t L, int R, int64_t split_len,
-             float* __restrict__ partial) {
+pass1_scalar(const Params p) {
   constexpr int NS = Stats<KIND>::N;
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int split = blockIdx.y;
-  if (row >= rows) return;  // whole warp: no block-wide barrier follows
-  const int64_t l0 = split * split_len;
-  const int64_t l1 = min(L, l0 + split_len);
-  const int64_t base = static_cast<int64_t>(row) * L;
-
-  float acc[NS][RP];
+  if (row < p.rows) {
+    const int64_t L = p.L;
+    const int64_t l0 = split * p.split_len;
+    const int64_t l1 = min(L, l0 + p.split_len);
+    const int64_t base = static_cast<int64_t>(row) * L;
+    float acc[NS][RP];
 #pragma unroll
-  for (int k = 0; k < NS; ++k)
+    for (int k = 0; k < NS; ++k)
 #pragma unroll
-    for (int r = 0; r < RP; ++r) acc[k][r] = 0.f;
-
-  for (int64_t l = l0 + lane; l < l1; l += 32) {
-    const float f = __ldg(a + base + l);
-    const float t = KIND == 2 ? 0.f : __ldg(b + base + l);
-    const float cl = KIND == 0 ? __ldg(c + base + l) : 0.f;
-    float s[NS];
-    stats_of<KIND>(f, t, cl, s);
+      for (int r = 0; r < RP; ++r) acc[k][r] = 0.f;
+    for (int64_t l = l0 + lane; l < l1; l += 32) {
+      const float f = __ldg(p.a + base + l);
+      const float t = KIND == 2 ? 0.f : __ldg(p.b + base + l);
+      const float cl = KIND == 0 ? __ldg(p.c + base + l) : 0.f;
+      float s[NS];
+      stats_of<KIND>(f, t, cl, s);
 #pragma unroll
-    for (int r = 0; r < RP; ++r)
-      if (r < R) accumulate(acc, s, __ldg(w + r * L + l), r);
+      for (int r = 0; r < RP; ++r)
+        if (r < p.R) accumulate(acc, s, __ldg(p.w + r * L + l), r);
+    }
+    write_partials(acc, lane, split, row, p);
   }
-  write_partials(acc, lane, split, row, rows, R, partial);
+  finish_last_block<NS>(p, kWarps);
 }
 
 // Pass 1, four cells per lane step with 16-byte loads, for L % 4 == 0 and
@@ -210,30 +476,31 @@ pass1_scalar(const float* __restrict__ a, const float* __restrict__ b,
 // buffered, the next tile loading while this one is used) and read by all
 // eight warps, and each warp starts its next step's data loads before this
 // step's arithmetic.
+// Registers for three blocks an SM (five without a second array): left
+// free, ptxas takes up to 122 for the tail's loads in flight, and two
+// blocks an SM run up to 30% slower.
 template <int KIND, int RP>
-__global__ void __launch_bounds__(kWarps * 32)
-pass1_vec4(const float* __restrict__ a, const float* __restrict__ b,
-           const float* __restrict__ c, const float* __restrict__ w,
-           int rows, int64_t L, int R, int64_t split_len,
-           float* __restrict__ partial) {
+__global__ void __launch_bounds__(kWarps * 32, KIND == 2 ? 5 : 3)
+pass1_vec4(const Params p) {
   constexpr int NS = Stats<KIND>::N;
   __shared__ float4 wtile[2][RP][32];
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   const int split = blockIdx.y;
-  const bool active = row < rows;  // idle warps still load W and sync
-  const int64_t L4 = L >> 2;
-  const int64_t q0 = (split * split_len) >> 2;  // split_len % 128 == 0
-  const int64_t q1 = min(L4, q0 + (split_len >> 2));
+  const bool active = row < p.rows;  // idle warps still load W and sync
+  const int64_t L4 = p.L >> 2;
+  const int64_t q0 = (split * p.split_len) >> 2;  // split_len % 128 == 0
+  const int64_t q1 = min(L4, q0 + (p.split_len >> 2));
   const int n_steps = static_cast<int>((q1 - q0 + 31) / 32);
   const int64_t base = static_cast<int64_t>(active ? row : 0) * L4;
-  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(a) + base;
+  const float4* __restrict__ a4 = reinterpret_cast<const float4*>(p.a) + base;
   const float4* __restrict__ b4 =
-      KIND == 2 ? nullptr : reinterpret_cast<const float4*>(b) + base;
+      KIND == 2 ? nullptr : reinterpret_cast<const float4*>(p.b) + base;
   const float4* __restrict__ c4 =
-      KIND == 0 ? reinterpret_cast<const float4*>(c) + base : nullptr;
-  const float4* __restrict__ w4 = reinterpret_cast<const float4*>(w);
+      KIND == 0 ? reinterpret_cast<const float4*>(p.c) + base : nullptr;
+  const float4* __restrict__ w4 = reinterpret_cast<const float4*>(p.w);
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int R = p.R;
 
   auto load_w = [&](int step, int buf) {
     for (int i = threadIdx.x; i < RP * 32; i += kWarps * 32) {
@@ -291,11 +558,129 @@ pass1_vec4(const float* __restrict__ a, const float* __restrict__ b,
     // this tile read and the next one written before either is reused
     __syncthreads();
   }
-  if (active) write_partials(acc, lane, split, row, rows, R, partial);
+  if (active) write_partials(acc, lane, split, row, p);
+  finish_last_block<NS>(p, kWarps);
+}
+
+// The streaming core of kernel 2 (see the header). Geometry of one block:
+constexpr int kStreamRows = 8;     // consumer warps, a row each
+constexpr int kStreamThreads = (kStreamRows + 1) * 32;  // + the producer
+constexpr int kStreamStages = 4;   // depth of the TMA ring
+constexpr int kStreamSeg = 256;    // cells per stage (1 KB a row)
+constexpr int kStreamRegions = 4;  // W rows per stage (R <= 4)
+constexpr int kStreamSlot = (kStreamRows + kStreamRegions) * kStreamSeg;
+constexpr size_t kStreamSmem =
+    static_cast<size_t>(kStreamStages) * kStreamSlot * 4 +
+    2 * kStreamStages * sizeof(uint64_t);
+
+__global__ void __launch_bounds__(kStreamThreads, 4)  // four blocks an SM
+pass1_stream(const Params p) {
+  constexpr int NS = 3;
+  constexpr int RP = kStreamRegions;
+  extern __shared__ __align__(128) float ring[];
+  uint64_t* const full =
+      reinterpret_cast<uint64_t*>(ring + kStreamStages * kStreamSlot);
+  uint64_t* const empty = full + kStreamStages;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * kStreamRows;
+  const int n_rows = min(kStreamRows, p.rows - row0);
+  const int split = blockIdx.y;
+  const int64_t L = p.L;
+  const int R = p.R;
+  const int64_t l0 = split * p.split_len;  // split_len % 128 == 0
+  const int64_t l1 = min(L, l0 + p.split_len);
+  const int n_seg = static_cast<int>((l1 - l0 + kStreamSeg - 1) / kStreamSeg);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStreamStages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, n_rows);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kStreamRows) {
+    // producer: lane i < n_rows copies row i, lane 8 + r region row r
+    for (int s = 0; s < n_seg; ++s) {
+      const int slot = s % kStreamStages;
+      if (s >= kStreamStages)
+        mbar_wait(empty + slot, ((s / kStreamStages) - 1) & 1);
+      const int64_t cell = l0 + static_cast<int64_t>(s) * kStreamSeg;
+      const uint32_t bytes =
+          static_cast<uint32_t>(min(static_cast<int64_t>(kStreamSeg),
+                                    l1 - cell)) * 4;
+      if (lane == 0) mbar_expect(full + slot, bytes * (n_rows + R));
+      __syncwarp();
+      float* const dst = ring + slot * kStreamSlot;
+      if (lane < n_rows)
+        bulk_copy(dst + lane * kStreamSeg,
+                  p.a + static_cast<int64_t>(row0 + lane) * L + cell, bytes,
+                  full + slot);
+      else if (lane >= kStreamRows && lane - kStreamRows < R)
+        bulk_copy(dst + lane * kStreamSeg,
+                  p.w + static_cast<int64_t>(lane - kStreamRows) * L + cell,
+                  bytes, full + slot);
+    }
+  } else if (warp < n_rows) {
+    float acc[NS][RP];
+#pragma unroll
+    for (int k = 0; k < NS; ++k)
+#pragma unroll
+      for (int r = 0; r < RP; ++r) acc[k][r] = 0.f;
+    for (int s = 0; s < n_seg; ++s) {
+      const int slot = s % kStreamStages;
+      mbar_wait(full + slot, (s / kStreamStages) & 1);
+      const float* const xs = ring + slot * kStreamSlot + warp * kStreamSeg;
+      const float* const ws = ring + slot * kStreamSlot +
+                              kStreamRows * kStreamSeg;
+      const int n = static_cast<int>(
+          min(static_cast<int64_t>(kStreamSeg),
+              l1 - l0 - static_cast<int64_t>(s) * kStreamSeg));
+#pragma unroll
+      for (int q = lane * 4; q < kStreamSeg; q += 128) {
+        if (q < n) {
+          const float4 v = *reinterpret_cast<const float4*>(xs + q);
+          float st[4][NS];
+          stats_of<2>(v.x, 0.f, 0.f, st[0]);
+          stats_of<2>(v.y, 0.f, 0.f, st[1]);
+          stats_of<2>(v.z, 0.f, 0.f, st[2]);
+          stats_of<2>(v.w, 0.f, 0.f, st[3]);
+#pragma unroll
+          for (int r = 0; r < RP; ++r) {
+            if (r < R) {
+              const float4 wv =
+                  *reinterpret_cast<const float4*>(ws + r * kStreamSeg + q);
+              accumulate(acc, st[0], wv.x, r);
+              accumulate(acc, st[1], wv.y, r);
+              accumulate(acc, st[2], wv.z, r);
+              accumulate(acc, st[3], wv.w, r);
+            }
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + slot);
+    }
+    write_partials(acc, lane, split, row0 + warp, p);
+  }
+  finish_last_block<NS>(p, kStreamRows);
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core core (see the header). Geometry of one block:
+// The tensor-core core (see the header).
+
+// v = hi + lo. hi is v rounded to TF32 (nearest, ties away from zero: an
+// integer add and mask, which rounds as cvt.rna.tf32.f32 does and is the
+// cheaper instruction); v - hi is exact in fp32, and the tensor core reads
+// its upper 19 bits. Finite v only: see "Precision" in the header.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(v - __uint_as_float(hi));
+}
+
+// Geometry of pass1_mma's block:
 constexpr int kMmaWarps = 8;
 constexpr int kMmaThreads = kMmaWarps * 32;
 constexpr int kStages = 4;               // depth of the cp.async ring
@@ -321,16 +706,6 @@ struct Mma {
   static constexpr size_t SMEM = (STAGES * STAGE_F4 + 2 * kWFragF4) * 16;
 };
 
-// v = hi + lo. hi is v rounded to TF32 (nearest, ties away from zero: an
-// integer add and mask, which rounds as cvt.rna.tf32.f32 does and is the
-// cheaper instruction); v - hi is exact in fp32, and the tensor core reads
-// its upper 19 bits. Finite v only: see "Range" in the header.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(v - __uint_as_float(hi));
-}
-
 // d += A(16x8, row) . B(8x8, col), TF32 operands, fp32 accumulate.
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
                                          uint32_t b0, uint32_t b1) {
@@ -341,30 +716,9 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint4& a,
       : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
-// 16 bytes global -> shared, asynchronously; n = 0 writes zeros instead.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int n) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  // the L2 hint fetches the row's next 128 bytes (the next stage) too
-  asm volatile(
-      "cp.async.cg.shared.global.L2::256B [%0], [%1], 16, %2;" ::"r"(d),
-               "l"(src), "r"(n)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
-
 template <int KIND>
 __global__ void __launch_bounds__(kMmaThreads, 2)
-pass1_mma(const float* __restrict__ a, const float* __restrict__ b,
-          const float* __restrict__ c, const float* __restrict__ w,
-          int rows, int64_t L, int R, int64_t split_len,
-          float* __restrict__ partial) {
+pass1_mma(const Params p) {
   using M = Mma<KIND>;
   constexpr int NS = Stats<KIND>::N;
   constexpr int NT = M::NT;
@@ -376,12 +730,18 @@ pass1_mma(const float* __restrict__ a, const float* __restrict__ b,
   const int g = lane >> 2;
   const int tig = lane & 3;
   const int split = blockIdx.y;
-  const int row0 = blockIdx.x * M::ROWS + (tid >> 5) * 8 * NT;
-  const bool warp_active = row0 < rows;
-  const int64_t l0 = split * split_len;  // split_len % kStageCells == 0
-  const int64_t l1 = min(L, l0 + split_len);
+  const int rows = p.rows;
+  const int R = p.R;
+  const int64_t L = p.L;
+  const int64_t l0 = split * p.split_len;  // split_len % kStageCells == 0
+  const int64_t l1 = min(L, l0 + p.split_len);
   const int n_it = static_cast<int>((l1 - l0 + kStageCells - 1) / kStageCells);
-  const float* const arrs[3] = {a, b, c};
+  const float* const arrs[3] = {p.a, p.b, p.c};
+  // row blocks blockIdx.x, + gridDim.x, ... (more than one where the rows
+  // outnumber the resident blocks)
+  for (int rb = blockIdx.x; rb * M::ROWS < rows; rb += gridDim.x) {
+  const int row0 = rb * M::ROWS + (tid >> 5) * 8 * NT;
+  const bool warp_active = row0 < rows;
 
   // This thread's 16-byte pieces of stage s, into ring slot s % STAGES.
   auto prefetch = [&](int s) {
@@ -416,9 +776,9 @@ pass1_mma(const float* __restrict__ a, const float* __restrict__ b,
                            16 * (tid >> 5) + 4 * tig;
       if (cell < l1) {
         if (g < R)
-          wa = __ldg(reinterpret_cast<const float4*>(w + g * L + cell));
+          wa = __ldg(reinterpret_cast<const float4*>(p.w + g * L + cell));
         if (g + 8 < R)
-          wb = __ldg(reinterpret_cast<const float4*>(w + (g + 8) * L + cell));
+          wb = __ldg(reinterpret_cast<const float4*>(p.w + (g + 8) * L + cell));
       }
     }
   };
@@ -530,176 +890,131 @@ pass1_mma(const float* __restrict__ a, const float* __restrict__ b,
         for (int i = 0; i < 4; ++i) {
           const int r = g + (i >> 1) * 8;
           const int row = row0 + nt * 8 + 2 * tig + (i & 1);
-          if (r < R && row < rows)
-            partial[((static_cast<int64_t>(split) * NS + k) * R + r) * rows +
-                    row] = sum[nt][k][i];
-        }
-  }
-}
-
-// Pass 2: out[i] = sum over splits of partial[split, i], in split order.
-__global__ void pass2(const float* __restrict__ partial, int n_splits,
-                      int64_t n_out, float* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= n_out) return;
-  // eight loads in flight, added in split order
-  float acc = 0.f;
-  int s = 0;
-  for (; s + 8 <= n_splits; s += 8) {
-    float v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = __ldg(partial + (s + u) * n_out + i);
-#pragma unroll
-    for (int u = 0; u < 8; ++u) acc += v[u];
-  }
-  for (; s < n_splits; ++s) acc += __ldg(partial + s * n_out + i);
-  out[i] = acc;
-}
-
-// The rows of a tensor-core launch with a sum that is not finite, redone as
-// fp32 gives them (see the header). A thread tests one row's sums (out is
-// (stats, R, rows): a warp reads 32 consecutive rows of each), then the
-// block's threads redo each of its marked rows together, classifying the
-// row's cells. Bits per weighted statistic: r for an infinity of either
-// sign or a NaN statistic meeting region r's weight where fp32 makes NaN
-// of it (a NaN statistic, or a zero weight), and r, 16 + r for +inf, -inf
-// meeting a positive weight.
-constexpr int kFixupThreads = 256;
-
-template <int KIND>
-__global__ void __launch_bounds__(kFixupThreads)
-nonfinite_fixup(const float* __restrict__ a, const float* __restrict__ b,
-                const float* __restrict__ c, const float* __restrict__ w,
-                int rows, int64_t L, int R, float* __restrict__ out) {
-  constexpr int NS = Stats<KIND>::N;
-  constexpr int NW = KIND == 2 ? 1 : 6;  // the statistics summed with W
-  __shared__ int marked[kFixupThreads];
-  __shared__ int n_marked;
-  __shared__ unsigned nan_bits[NW], sign_bits[NW];
-  if (threadIdx.x == 0) n_marked = 0;
-  __syncthreads();
-  const int own = blockIdx.x * kFixupThreads + threadIdx.x;
-  if (own < rows) {
-    bool finite = true;
-#pragma unroll 8
-    for (int k = 0; k < NS * R; ++k)
-      finite &= isfinite(out[static_cast<int64_t>(k) * rows + own]);
-    if (!finite) marked[atomicAdd(&n_marked, 1)] = own;
-  }
-  __syncthreads();
-  for (int j = 0; j < n_marked; ++j) {
-    const int row = marked[j];
-    if (threadIdx.x < NW) {
-      nan_bits[threadIdx.x] = 0;
-      sign_bits[threadIdx.x] = 0;
-    }
-    __syncthreads();
-    unsigned nb[NW] = {}, sb[NW] = {};
-    for (int64_t l = threadIdx.x; l < L; l += blockDim.x) {
-      const int64_t i = static_cast<int64_t>(row) * L + l;
-      float s[NS];
-      stats_of<KIND>(a[i], KIND == 2 ? 0.f : b[i], KIND == 0 ? c[i] : 0.f, s);
-#pragma unroll
-      for (int k = 0; k < NW; ++k) {
-        if (isfinite(s[k])) continue;
-        for (int r = 0; r < R; ++r) {
-          const float wv = w[static_cast<int64_t>(r) * L + l];
-          if (isnan(s[k]) || wv == 0.f) {
-            nb[k] |= 1u << r;
-          } else {
-            sb[k] |= 1u << (s[k] > 0.f ? r : 16 + r);
+          if (r < R && row < rows) {
+            const float v = sum[nt][k][i];
+            p.partial[out_index(p, split, NS, k, r, row)] = v;
+            if (p.n_splits == 1 && !isfinite(v)) p.counters[2 + row] = 1;
           }
         }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      if (nb[k]) atomicOr(nan_bits + k, nb[k]);
-      if (sb[k]) atomicOr(sign_bits + k, sb[k]);
-    }
-    __syncthreads();
-    for (int j2 = threadIdx.x; j2 < NW * R; j2 += blockDim.x) {
-      const int k = j2 / R, r = j2 % R;
-      const bool nan = (nan_bits[k] >> r) & 1u;
-      const bool pos = (sign_bits[k] >> r) & 1u;
-      const bool neg = (sign_bits[k] >> (16 + r)) & 1u;
-      const float inf = __int_as_float(0x7f800000);
-      if (nan || pos || neg)
-        out[(static_cast<int64_t>(k) * R + r) * rows + row] =
-            nan || (pos && neg) ? __int_as_float(0x7fc00000)
-                                : pos ? inf : -inf;
-    }
-    __syncthreads();  // the shared bits are reset for the next row
   }
+  __syncthreads();  // the W fragments are rewritten by the next row block
+  }
+  finish_grid<KIND>(p);
 }
 
-cudaError_t finish(const float* partial, int n_splits, int64_t n_out,
-                   float* out, cudaStream_t stream) {
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int threads = 256;
-  pass2<<<static_cast<unsigned>((n_out + threads - 1) / threads), threads, 0,
-          stream>>>(partial, n_splits, n_out, out);
-  return cudaGetLastError();
-}
+// ---------------------------------------------------------------------------
+// Launches.
 
 // The cores, as the wrapper names them.
 constexpr int kCoreScalar = 0;
 constexpr int kCoreVec4 = 1;
 constexpr int kCoreMma = 2;
+constexpr int kCoreStream = 3;
+
+// What a call site keeps per device: whether the kernel's dynamic
+// shared-memory allowance is set (it is not a property of a launch) and
+// how many of its blocks the card holds at once.
+struct Setup {
+  bool done[64];
+  int resident[64];
+};
+
+template <typename Kernel>
+cudaError_t setup(Kernel kernel, int threads, size_t smem, Setup& s,
+                  int* resident) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!s.done[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    s.resident[dev] = per_sm * sms;
+    s.done[dev] = true;
+  }
+  *resident = s.resident[dev];
+  return cudaSuccess;
+}
+
+// One launch with every block resident at once (the tails' grid barrier):
+// the plan's splits, and as many row blocks as fit beside them (each
+// block then takes every gridDim.x-th row block).
+template <typename Kernel>
+cudaError_t launch_cooperative(Kernel kernel, Setup& s, int rows_per_block,
+                               int threads, size_t smem, cudaStream_t stream,
+                               const Params& p) {
+  int resident = 0;
+  cudaError_t err = setup(kernel, threads, smem, s, &resident);
+  if (err != cudaSuccess) return err;
+  if (p.n_splits > resident) return cudaErrorInvalidValue;
+  const int row_blocks = (p.rows + rows_per_block - 1) / rows_per_block;
+  const dim3 grid(min(row_blocks, resident / p.n_splits), p.n_splits);
+  void* args[] = {const_cast<Params*>(&p)};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
+                                     grid, threads, args, smem, stream);
+}
 
 template <int KIND>
-cudaError_t launch(int core, const float* a, const float* b, const float* c,
-                   const float* w, int rows, int64_t L, int R, int n_splits,
-                   int64_t split_len, float* partial, float* out,
-                   cudaStream_t stream) {
-  if (rows <= 0 || L <= 0 || R <= 0 || R > 16 || n_splits <= 0 ||
-      n_splits > 65535 || split_len <= 0)
+cudaError_t launch(int core, Params p, cudaStream_t stream) {
+  if (p.rows <= 0 || p.L <= 0 || p.R <= 0 || p.R > 16 || p.n_splits <= 0 ||
+      p.n_splits > 65535 || p.split_len <= 0 || p.counters == nullptr ||
+      (p.n_splits > 1 && p.partial == nullptr))
     return cudaErrorInvalidValue;
-  auto aligned = [](const float* p) {
-    return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  if (p.n_splits == 1) p.partial = p.out;  // pass 1 writes out
+  auto aligned = [](const float* q) {
+    return q == nullptr || reinterpret_cast<uintptr_t>(q) % 16 == 0;
   };
-  // the 16-byte cores take what the wrapper's plan promises, nothing else
+  // the 16-byte cores take what the wrapper's plan promises, nothing else:
+  // splits of whole block steps (128 cells) or stages (32, tensor cores)
+  const int step = core == kCoreMma ? kStageCells : 128;
   if (core != kCoreScalar &&
-      !(L % 4 == 0 && aligned(a) && aligned(b) && aligned(c) && aligned(w) &&
-        split_len % (core == kCoreVec4 ? 128 : kStageCells) == 0))
+      !(p.L % 4 == 0 && aligned(p.a) && aligned(p.b) && aligned(p.c) &&
+        aligned(p.w) && p.split_len % step == 0))
     return cudaErrorInvalidValue;
-  const dim3 simt_grid((rows + kWarps - 1) / kWarps, n_splits);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 simt_grid((p.rows + kWarps - 1) / kWarps, p.n_splits);
   if (core == kCoreMma) {
-    using M = Mma<KIND>;
-    cudaError_t err = cudaFuncSetAttribute(
-        pass1_mma<KIND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(M::SMEM));
-    if (err != cudaSuccess) return err;
-    dim3 grid((rows + M::ROWS - 1) / M::ROWS, n_splits);
-    pass1_mma<KIND><<<grid, kMmaThreads, M::SMEM, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
-    err = finish(partial, n_splits,
-                 static_cast<int64_t>(Stats<KIND>::N) * R * rows, out, stream);
-    if (err != cudaSuccess) return err;
-    nonfinite_fixup<KIND>
-        <<<(rows + kFixupThreads - 1) / kFixupThreads, kFixupThreads, 0,
-           stream>>>(a, b, c, w, rows, L, R, out);
-    return cudaGetLastError();
-  } else if (core == kCoreVec4) {
-    if (R > 4) return cudaErrorInvalidValue;  // the wrapper plans it so
-    pass1_vec4<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
+    static Setup once = {};
+    return launch_cooperative(pass1_mma<KIND>, once, Mma<KIND>::ROWS,
+                              kMmaThreads, Mma<KIND>::SMEM, stream, p);
+  }
+  if (core == kCoreStream) {
+    if constexpr (KIND != 2) {
+      return cudaErrorInvalidValue;  // built for kernel 2
+    } else {
+      if (p.R > kStreamRegions) return cudaErrorInvalidValue;
+      static Setup once = {};
+      int resident = 0;
+      err = setup(pass1_stream, kStreamThreads, kStreamSmem, once, &resident);
+      if (err != cudaSuccess) return err;
+      pass1_stream<<<dim3((p.rows + kStreamRows - 1) / kStreamRows,
+                          p.n_splits),
+                     kStreamThreads, kStreamSmem, stream>>>(p);
+      return cudaGetLastError();
+    }
+  }
+  if (core == kCoreVec4) {
+    if (p.R > 4) return cudaErrorInvalidValue;  // the wrapper plans it so
+    pass1_vec4<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(p);
   } else if (core != kCoreScalar) {
     return cudaErrorInvalidValue;
-  } else if (R <= 4) {
-    pass1_scalar<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
-  } else if (R <= 8) {
-    pass1_scalar<KIND, 8><<<simt_grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
+  } else if (p.R <= 4) {
+    pass1_scalar<KIND, 4><<<simt_grid, kWarps * 32, 0, stream>>>(p);
+  } else if (p.R <= 8) {
+    pass1_scalar<KIND, 8><<<simt_grid, kWarps * 32, 0, stream>>>(p);
   } else {
-    pass1_scalar<KIND, 16><<<simt_grid, kWarps * 32, 0, stream>>>(
-        a, b, c, w, rows, L, R, split_len, partial);
+    pass1_scalar<KIND, 16><<<simt_grid, kWarps * 32, 0, stream>>>(p);
   }
-  return finish(partial, n_splits,
-                static_cast<int64_t>(Stats<KIND>::N) * R * rows, out, stream);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -707,33 +1022,38 @@ cudaError_t launch(int core, const float* a, const float* b, const float* c,
 extern "C" {
 
 // core: 0 one cell a step (any L, any alignment), 1 CUDA cores with 16-byte
-// loads (R <= 4), 2 tensor cores; 1 and 2 need L % 4 == 0, 16-byte aligned
-// arrays and split_len a multiple of 128 (core 1) or 32 (core 2).
+// loads (R <= 4), 2 tensor cores (mma.sync), 3 the TMA streaming core
+// (kernel 2, R <= 4); all but 0 need L % 4 == 0, 16-byte aligned arrays and
+// split_len a multiple of 128 (of 32 for the tensor-core core 2).
+// partial: (n_splits, stats, R, rows) scratch, unused (may be null) for
+// one split. counters: int scratch, zeroed before the first launch, two
+// for the grid barrier and, after them, one per row block (cores 0, 1, 3:
+// arrival counts) or per row (core 2: non-finite flags); a launch
+// leaves them ready for the next.
 
-// Kernel 1. f, t, (c or null): (rows, L); w: (R, L); partial:
-// (n_splits, 8, R, rows) scratch; out: (8, R, rows). Returns cudaError_t.
+// Kernel 1. f, t, (c or null): (rows, L); w: (R, L); out: (8, R, rows).
+// Returns cudaError_t.
 int wb2_fused_deterministic_sums(const float* f, const float* t,
                                  const float* c, const float* w, int rows,
-                                 int64_t L, int R, int core, int n_splits,
+                                 int64_t L,
+                                 int R, int core, int n_splits,
                                  int64_t split_len, float* partial,
-                                 float* out, void* stream) {
+                                 int* counters, float* out, void* stream) {
+  const Params p{f, t, c, w, rows, R, n_splits, L, split_len, partial, out,
+                 counters};
   auto s = static_cast<cudaStream_t>(stream);
-  if (c != nullptr)
-    return launch<0>(core, f, t, c, w, rows, L, R, n_splits, split_len,
-                     partial, out, s);
-  return launch<1>(core, f, t, nullptr, w, rows, L, R, n_splits, split_len,
-                   partial, out, s);
+  if (c != nullptr) return launch<0>(core, p, s);
+  return launch<1>(core, p, s);
 }
 
-// Kernel 2. x: (rows, L); w: (R, L); partial: (n_splits, 3, R, rows)
-// scratch; out: (3, R, rows). Returns cudaError_t.
+// Kernel 2. x: (rows, L); w: (R, L); out: (3, R, rows). Returns cudaError_t.
 int wb2_fused_region_sums(const float* x, const float* w, int rows,
                           int64_t L, int R, int core, int n_splits,
-                          int64_t split_len, float* partial, float* out,
-                          void* stream) {
-  return launch<2>(core, x, nullptr, nullptr, w, rows, L, R, n_splits,
-                   split_len, partial, out,
-                   static_cast<cudaStream_t>(stream));
+                          int64_t split_len, float* partial, int* counters,
+                          float* out, void* stream) {
+  const Params p{x, nullptr, nullptr, w, rows, R, n_splits, L, split_len,
+                 partial, out, counters};
+  return launch<2>(core, p, static_cast<cudaStream_t>(stream));
 }
 
 const char* wb2_error_string(int err) {

@@ -31,9 +31,10 @@ _I64 = ctypes.c_int64
 _SIGNATURES = {
     "wb2_fused_deterministic_sums": [_P, _P, _P, _P, ctypes.c_int, _I64,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                     _I64, _P, _P, _P],
+                                     _I64, _P, _P, _P, _P],
     "wb2_fused_region_sums": [_P, _P, ctypes.c_int, _I64, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, _I64, _P, _P, _P],
+                              ctypes.c_int, ctypes.c_int, _I64, _P, _P, _P,
+                              _P],
 }
 
 

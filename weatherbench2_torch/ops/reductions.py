@@ -20,17 +20,22 @@ the counterparts of the JAX package's ``*_reference`` functions in IEEE
 float32 (TF32 is off, see ``device.py``); the tests and ``chip_smoke.py``
 hold the kernels against them.
 
-The CUDA source has three cores (see its header): one cell a step for any
-length and alignment, CUDA cores with 16-byte loads for up to four regions,
-and tensor cores with an error-corrected TF32 split (3xTF32) for more.
-``launch_plan`` picks the core and the tiling here, in Python, and the C
-entry points are told the result.  ``tf32_split_sums_emulation`` repeats
-the tensor-core core's arithmetic in torch for the tests and for
-``chip_smoke.py``, which holds that core against it.
+The CUDA source has four cores (see its header): one cell a step for any
+length and alignment; CUDA cores with 16-byte loads (kernel 1 up to four
+regions); a TMA streaming core (kernel 2 up to four regions); and a
+tensor-core core (``mma.sync``) with an error-corrected TF32 split
+(3xTF32) for more regions.  Each call is one device launch: the splits of
+the cell axis are summed, and the tensor-core core's non-finite rows
+repaired, in the kernel's tail.  ``launch_plan`` picks the core and the
+tiling here, in Python, and the C entry points are told the result.
+``tf32_split_sums_emulation`` repeats the tensor-core core's arithmetic in
+torch for the tests and for ``chip_smoke.py``, which holds that core
+against it.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -43,29 +48,44 @@ STAT_NAMES = ("bias", "mse", "mae", "acc_num", "acc_fvar", "acc_tvar")
 N_STATS = len(STAT_NAMES)
 MAX_REGIONS = 16
 
-N_SMS = 132  # H100 SXM
+N_SMS = 132  # H100 SXM; a launch plans for its own card's count
 
 # The cores of csrc/reductions.cu, by the numbers its entry points take.
 CORE_SCALAR = 0  # one cell a lane step: any length, any alignment
 CORE_VEC4 = 1    # CUDA cores, 16-byte loads, W tiles shared by 8 rows
-CORE_MMA = 2     # tensor cores, 3xTF32, cp.async ring
+CORE_MMA = 2     # tensor cores (mma.sync), 3xTF32, cp.async ring
+CORE_STREAM = 3  # kernel 2, CUDA cores, TMA bulk copies into an mbarrier ring
+CORE_NAMES = {CORE_SCALAR: "scalar", CORE_VEC4: "vec4", CORE_MMA: "mma",
+              CORE_STREAM: "stream"}
 # The kernels: fused_deterministic_sums with and without a climatology,
 # and fused_region_sums (KIND 0, 1, 2 of the CUDA source).
 KIND_DET_CLIM, KIND_DET, KIND_REGION = 0, 1, 2
 _N_OUT = {KIND_DET_CLIM: 8, KIND_DET: 8, KIND_REGION: 3}
 
-# CUDA-core cores: a block holds eight rows (one a warp), and a block of
-# eight warps leaves room for eight resident blocks on each SM.
+# CUDA-core cores: a block holds eight rows (one a warp).  The scalar core
+# fills the card with eight blocks an SM; the vec4 core's registers leave
+# three resident (its launch bounds), planned in waves as the streaming
+# core is (a block's exit costs its tail's fence and count).
 _ROWS_PER_BLOCK = 8
 _TARGET_BLOCKS = N_SMS * 8
-# Tensor-core core: a block of eight warps holds 64 rows (128 for
-# fused_region_sums, two 8-row tiles a warp), two blocks are resident per
-# SM, a pipeline stage is 32 cells, and the grid is one wave of those 264
-# blocks at most (few long blocks measured faster than many short ones).
+VEC4_BLOCKS_PER_SM = 3
+# Streaming core: eight rows a block (and a producer warp), 48 KB of ring,
+# four blocks resident per SM.  It and the vec4 core plan in waves
+# (balanced_split_plan): splits of at least 256 cells (a ring segment),
+# a block's start counted as 1024 cells.
+STREAM_ROWS_PER_BLOCK = 8
+STREAM_BLOCKS_PER_SM = 4
+_WAVE_MIN_SPLIT = 256
+_BLOCK_START_CELLS = 1024
+# Tensor-core core: a pipeline stage is 32 cells, and the grid is one
+# wave, launched cooperatively (its tail meets at a grid barrier).  A block
+# of eight warps holds 64 rows (128 for fused_region_sums, two 8-row tiles
+# a warp), two blocks resident per SM.  Splits as short as one stage where
+# the rows are few (1024-cell bands): the tail sums them on every SM.
 MMA_ROWS_PER_BLOCK = {KIND_DET_CLIM: 64, KIND_DET: 64, KIND_REGION: 128}
 MMA_STAGE_CELLS = 32
-_MMA_TARGET_BLOCKS = N_SMS * 2
-_MMA_MIN_SPLIT = 512
+MMA_BLOCKS_PER_SM = 2
+_TC_MIN_SPLIT = MMA_STAGE_CELLS
 
 
 def make_region_weight_matrix(
@@ -91,24 +111,51 @@ def make_region_weight_matrix(
 
 def split_plan(rows: int, cols: int, rows_per_block: int = _ROWS_PER_BLOCK,
                target_blocks: int = _TARGET_BLOCKS,
-               min_split: int = 256, one_wave: bool = False
-               ) -> tuple[int, int]:
+               min_split: int = 256, one_wave: bool = False,
+               step: int = 128) -> tuple[int, int]:
   """(n_splits, split_len) of the cell axis for pass 1.
 
   Enough splits that the grid fills the card even for few rows (126 at
   0.25 degrees), but no split shorter than ``min_split`` cells: the grid
   reaches ``target_blocks`` (the splits per row block rounded up) or, with
   ``one_wave``, stays within it (rounded down), so that no block waits for
-  a second wave.  ``split_len`` is a multiple of 128, which every core's
-  step divides.
+  a second wave.  ``split_len`` is a multiple of ``step``: 128 cells for
+  the CUDA-core cores, whose block steps are 128 cells; 32, a pipeline
+  stage, for the tensor-core cores.
   """
   row_blocks = -(-rows // rows_per_block)
   per_row_block = (target_blocks // row_blocks if one_wave
                    else -(-target_blocks // row_blocks))
   n_splits = max(1, min(per_row_block, -(-cols // min_split), 65535))
   split_len = -(-cols // n_splits)
-  split_len = -(-split_len // 128) * 128
+  split_len = -(-split_len // step) * step
   return -(-cols // split_len), split_len
+
+
+def balanced_split_plan(rows: int, cols: int, rows_per_block: int,
+                        slots: int, min_split: int,
+                        block_start: int) -> tuple[int, int]:
+  """(n_splits, split_len) that finish the blocks of ``rows_per_block``
+  rows x ``split_len`` cells soonest on ``slots`` resident blocks.
+
+  Blocks of equal work run in waves, so a grid costs its number of waves
+  times a block's length, counted as ``split_len + block_start`` cells (a
+  block's start, its ring filling, costs about ``block_start`` cells): few
+  rows take many splits (one full wave), many rows few (the last wave as
+  full as it gets).  No split is shorter than ``min_split`` cells (but
+  one); ``split_len`` is a multiple of 128.
+  """
+  row_blocks = -(-rows // rows_per_block)
+  most = max(1, min(65535, cols // min_split))
+  best = None
+  for n in range(1, most + 1):
+    split_len = -(-cols // n)
+    split_len = -(-split_len // 128) * 128
+    n_splits = -(-cols // split_len)
+    cost = -(-row_blocks * n_splits // slots) * (split_len + block_start)
+    if best is None or cost < best[0]:
+      best = (cost, n_splits, split_len)
+  return best[1], best[2]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,22 +170,47 @@ class LaunchPlan:
 
   @property
   def grid(self) -> tuple[int, int]:
+    """(row blocks, splits).  A tensor-core launch is one wave: where the
+    row blocks outnumber the resident blocks it takes fewer blocks, each
+    taking several row blocks in turn."""
     return (-(-self.out_shape[2] // self.rows_per_block), self.n_splits)
 
+  @property
+  def n_counters(self) -> int:
+    """Ints of scratch the tail needs, zeroed before a stream's first
+    launch: two for the tensor-core core's grid barrier, then one per row
+    (its non-finite flags) or per row block (the CUDA-core cores' arrival
+    counters)."""
+    tensor = self.core == CORE_MMA
+    return 2 + (self.out_shape[2] if tensor else self.grid[0])
 
+
+def cores_for(kind: int, n_regions: int) -> tuple[int, ...]:
+  """The cores that take ``kind`` at ``n_regions`` on 16-byte-aligned
+  input with ``cols % 4 == 0`` (the others raise when forced)."""
+  few = n_regions <= 4
+  if kind == KIND_REGION:
+    return (CORE_SCALAR, *((CORE_VEC4, CORE_STREAM) if few else ()),
+            CORE_MMA)
+  return (CORE_SCALAR, *((CORE_VEC4,) if few else ()), CORE_MMA)
+
+
+@functools.lru_cache(maxsize=4096)
 def launch_plan(kind: int, rows: int, cols: int, n_regions: int,
-                aligned: bool = True, core: Optional[int] = None
-                ) -> LaunchPlan:
+                aligned: bool = True, core: Optional[int] = None,
+                n_sms: int = N_SMS) -> LaunchPlan:
   """Core, tiling and scratch shapes of one kernel launch.
 
   ``aligned`` says that every array starts on a 16-byte boundary.  The
   16-byte cores also need ``cols % 4 == 0`` (every row then starts
-  aligned); anything else takes the one-cell-a-step core.  Kernel 1 with up
-  to four regions stays on the CUDA cores; more regions, and kernel 2 with
-  any number (the tensor-core core is faster there at three regions too),
-  go to the tensor cores.  ``core`` forces one (for measurements); forcing
-  a 16-byte core on input it cannot take, or the CUDA-core one on more
-  than four regions (it is built for no more), raises.
+  aligned); anything else takes the one-cell-a-step core.  Up to four
+  regions both kernels stay on the CUDA cores (kernel 1 on the 16-byte
+  core, kernel 2 on the streaming one); more go to the tensor cores
+  (``mma.sync``).  ``core`` forces one (for measurements); forcing a core
+  on input it cannot take (a 16-byte core on other input, a CUDA-core
+  16-byte core on more than four regions, the streaming core on kernel 1)
+  raises.
+  ``n_sms`` is the card's number of SMs.
   """
   if not 1 <= n_regions <= MAX_REGIONS:
     raise ValueError(f"{n_regions} regions: the kernel takes "
@@ -146,21 +218,38 @@ def launch_plan(kind: int, rows: int, cols: int, n_regions: int,
   if rows < 1 or cols < 1:
     raise ValueError(f"empty input: {rows} rows, {cols} cells")
   wide = aligned and cols % 4 == 0
+  few = n_regions <= 4
+  region = kind == KIND_REGION
   if core is None:
     core = (CORE_SCALAR if not wide
-            else CORE_VEC4 if n_regions <= 4 and kind != KIND_REGION
+            else (CORE_STREAM if region else CORE_VEC4) if few
             else CORE_MMA)
-  elif core not in (CORE_SCALAR, CORE_VEC4, CORE_MMA):
+  elif core not in CORE_NAMES:
     raise ValueError(f"unknown core {core}")
   elif core != CORE_SCALAR and not wide:
     raise ValueError("the 16-byte cores need cols % 4 == 0 and 16-byte "
                      "aligned arrays")
-  elif core == CORE_VEC4 and n_regions > 4:
-    raise ValueError("the CUDA-core 16-byte core takes up to four regions")
+  elif core in (CORE_VEC4, CORE_STREAM) and not few:
+    raise ValueError(f"the {CORE_NAMES[core]} core takes up to four "
+                     "regions")
+  elif core == CORE_STREAM and not region:
+    raise ValueError("the stream core is built for fused_region_sums")
   if core == CORE_MMA:
     rpb = MMA_ROWS_PER_BLOCK[kind]
-    n_splits, split_len = split_plan(rows, cols, rpb, _MMA_TARGET_BLOCKS,
-                                     _MMA_MIN_SPLIT, one_wave=True)
+    n_splits, split_len = split_plan(rows, cols, rpb,
+                                     n_sms * MMA_BLOCKS_PER_SM,
+                                     _TC_MIN_SPLIT, one_wave=True,
+                                     step=MMA_STAGE_CELLS)
+  elif core == CORE_STREAM:
+    rpb = STREAM_ROWS_PER_BLOCK
+    n_splits, split_len = balanced_split_plan(
+        rows, cols, rpb, n_sms * STREAM_BLOCKS_PER_SM, _WAVE_MIN_SPLIT,
+        _BLOCK_START_CELLS)
+  elif core == CORE_VEC4:
+    rpb = _ROWS_PER_BLOCK
+    n_splits, split_len = balanced_split_plan(
+        rows, cols, rpb, n_sms * VEC4_BLOCKS_PER_SM, _WAVE_MIN_SPLIT,
+        _BLOCK_START_CELLS)
   else:
     rpb = _ROWS_PER_BLOCK
     n_splits, split_len = split_plan(rows, cols)
@@ -251,37 +340,73 @@ def launch_deterministic_sums(f, t, c, w, core: Optional[int] = None):
   """Kernel 1 on contiguous float32 CUDA tensors of matching shapes.
 
   What ``fused_deterministic_sums`` calls once it has checked its
-  arguments.  ``core`` forces a core, for measurements.
+  arguments: one device launch.  ``core`` forces a core, for measurements.
   """
   b, l = f.shape
   kind = KIND_DET if c is None else KIND_DET_CLIM
-  plan = launch_plan(kind, b, l, w.shape[0], _is_aligned(f, t, c, w), core)
-  partial = torch.empty(plan.partial_shape, dtype=torch.float32,
-                        device=f.device)
-  out = torch.empty(plan.out_shape, dtype=torch.float32, device=f.device)
+  plan = launch_plan(kind, b, l, w.shape[0], _is_aligned(f, t, c, w), core,
+                     _n_sms(f.device))
+  stream = torch.cuda.current_stream(f.device)
+  partial, counters, out = _scratch(plan, f.device, stream)
   err = _build.library().wb2_fused_deterministic_sums(
       f.data_ptr(), t.data_ptr(), None if c is None else c.data_ptr(),
       w.data_ptr(), b, l, w.shape[0], plan.core, plan.n_splits,
-      plan.split_len, partial.data_ptr(), out.data_ptr(),
-      torch.cuda.current_stream(f.device).cuda_stream)
+      plan.split_len,
+      None if partial is None else partial.data_ptr(), counters.data_ptr(),
+      out.data_ptr(), stream.cuda_stream)
   _build.check(err, "fused_deterministic_sums kernel")
-  fused_deterministic_sums.launches += 1
+  _count(fused_deterministic_sums, plan.core)
   return out[:N_STATS], out[N_STATS], out[N_STATS + 1]
 
 
 fused_deterministic_sums.launches = 0
+fused_deterministic_sums.launches_by_core = {}
+
+
+def _count(wrapper, core: int) -> None:
+  """One launch of ``wrapper``'s kernel on ``core``."""
+  wrapper.launches += 1
+  name = CORE_NAMES[core]
+  wrapper.launches_by_core[name] = wrapper.launches_by_core.get(name, 0) + 1
+
+
+@functools.lru_cache(maxsize=None)
+def _n_sms(device: torch.device) -> int:
+  return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# int32 scratch for the kernels' tails, per (device, stream), zeroed when
+# made: the kernels leave it ready for the next launch (the grid barrier's
+# count of barriers passed keeps growing, in its own slot), so one buffer
+# serves every launch on a stream.
+_COUNTERS: dict = {}
+
+
+def _scratch(plan: LaunchPlan, device, stream):
+  """(partial or None, counters, out) of one launch."""
+  key = (device, stream.cuda_stream)
+  counters = _COUNTERS.get(key)
+  if counters is None or counters.numel() < plan.n_counters:
+    counters = torch.zeros(max(plan.n_counters, 1024), dtype=torch.int32,
+                           device=device)
+    _COUNTERS[key] = counters
+  partial = (torch.empty(plan.partial_shape, dtype=torch.float32,
+                         device=device) if plan.n_splits > 1 else None)
+  out = torch.empty(plan.out_shape, dtype=torch.float32, device=device)
+  return partial, counters, out
 
 
 def tf32_round(x: torch.Tensor) -> torch.Tensor:
   """float32 rounded to TF32 (10 mantissa bits), nearest with ties away
-  from zero: the kernel's ``hi_of`` (and ``cvt.rna.tf32.f32``)."""
+  from zero: the kernel's ``split_tf32`` (and ``cvt.rna.tf32.f32``)."""
   bits = x.contiguous().view(torch.int32)
   return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
 
 
 def tf32_truncate(x: torch.Tensor) -> torch.Tensor:
   """float32 with the 13 low mantissa bits cleared: what the tensor core
-  reads of an operand that was not rounded first (the kernel's ``lo``)."""
+  reads of an operand that was not rounded first (``split_tf32``'s
+  ``lo``)."""
   bits = x.contiguous().view(torch.int32)
   return (bits & ~0x1FFF).view(torch.float32)
 
@@ -501,24 +626,26 @@ def fused_region_sums(x, region_w=None):
 def launch_region_sums(x, w, core: Optional[int] = None):
   """Kernel 2 on contiguous float32 CUDA tensors of matching shapes.
 
-  What ``fused_region_sums`` calls once it has checked its arguments.
-  ``core`` forces a core, for measurements.
+  What ``fused_region_sums`` calls once it has checked its arguments: one
+  device launch.  ``core`` forces a core, for measurements.
   """
   n, l = x.shape
-  plan = launch_plan(KIND_REGION, n, l, w.shape[0], _is_aligned(x, w), core)
-  partial = torch.empty(plan.partial_shape, dtype=torch.float32,
-                        device=x.device)
-  out = torch.empty(plan.out_shape, dtype=torch.float32, device=x.device)
+  plan = launch_plan(KIND_REGION, n, l, w.shape[0], _is_aligned(x, w), core,
+                     _n_sms(x.device))
+  stream = torch.cuda.current_stream(x.device)
+  partial, counters, out = _scratch(plan, x.device, stream)
   err = _build.library().wb2_fused_region_sums(
       x.data_ptr(), w.data_ptr(), n, l, w.shape[0], plan.core,
-      plan.n_splits, plan.split_len, partial.data_ptr(), out.data_ptr(),
-      torch.cuda.current_stream(x.device).cuda_stream)
+      plan.n_splits, plan.split_len,
+      None if partial is None else partial.data_ptr(), counters.data_ptr(),
+      out.data_ptr(), stream.cuda_stream)
   _build.check(err, "fused_region_sums kernel")
-  fused_region_sums.launches += 1
+  _count(fused_region_sums, plan.core)
   return out[0], out[1], out[2]
 
 
 fused_region_sums.launches = 0
+fused_region_sums.launches_by_core = {}
 
 
 def fused_deterministic_metrics(
