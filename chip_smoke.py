@@ -10,7 +10,7 @@ exits non-zero without the final line):
 
   device   the card as nvidia-smi and torch report it, torch/CUDA versions;
   build    nvcc build of csrc/reductions.cu (ptxas register report on
-           stderr);
+           stderr); the host codec csrc/codecs.cpp with the C++ compiler;
   kernels  each CUDA kernel against its plain PyTorch version on the card:
            timed at the main path's shapes (three regions), at the
            240x121 shapes with the thirteen official regions, at the
@@ -125,11 +125,25 @@ exits non-zero without the final line):
            and the deviation from float32 per metric, card against CPU on
            8 inits; (7) visualization's relative metrics and spread/skill
            on card-resident results against the host, and the plots'
-           named ImportError without matplotlib.
+           named ImportError without matplotlib;
+  e2e_blosc blosc stores through the port's Zarr layer (csrc/codecs.cpp):
+           (a) e2e_official's stores written uncompressed, in zarr-python's
+           default layout (blosc lz4, clevel 5, byte shuffle) and
+           bit-shuffled lz4, e2e_official's main run through the CLI on
+           each, the blosc runs' results equal to the uncompressed run's
+           bit for bit and their kernel launches equal, with wall, host
+           wait, bytes read and decoded, decode seconds and compression
+           ratio; (b) the committed fixtures of every codec and shuffle
+           (weatherbench2_torch/testdata/blosc, written by the JAX package)
+           decoded, each array's sha256 against the manifest; (c) decode
+           GB/s of a 0.25-degree lz4 store (13 levels x 8 times) at one
+           reading thread and at the prefetch pool's depth.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
 """
+import concurrent.futures
+import hashlib
 import json
 import os
 import shutil
@@ -148,6 +162,7 @@ RTOL = 1e-5
 TIMED_LAUNCHES = 25
 SEED = 20200101
 SOURCE = "weatherbench2_torch/csrc/reductions.cu"
+CODEC_SOURCE = "weatherbench2_torch/csrc/codecs.cpp"
 WIDE_RESOLUTION = 0.25  # degrees: the 1440x721 grid of the e2e025 phase
 TOLERANCE = (f"|kernel-plain| <= {RTOL}*(|plain| + sum|W*stat|): float32 "
              "(the kernel's tensor-core path: 3xTF32) summed in another order")
@@ -1385,7 +1400,7 @@ DETERMINISTIC_LAUNCHES_8 = (8, 3)
 
 
 def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
-                          resolution=1.5, latitudes=None):
+                          resolution=1.5, latitudes=None, compressor=None):
   """The official 1.5-degree configuration's stores, from the seed: the
   CLI's seven default variables at 500/700/850 hPa and 24 h precipitation
   (non-negative, half of it dry); 32 12-hourly inits x 21 leads; 6-hourly
@@ -1396,7 +1411,8 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
   to be real, and a quarter of the random draws is enough.  ``extra_2d``
   adds surface variables to all three stores, ``clim_3d``/``clim_2d`` rows
   to the climatology alone (the derived variables').  ``resolution`` and
-  ``latitudes`` (a grid without poles) give another grid."""
+  ``latitudes`` (a grid without poles) give another grid; ``compressor``
+  is the port's writer's (default uncompressed)."""
   from weatherbench2_torch import schema, xds
 
   specs = dict(variables_3d=list(VARIABLES_3D),
@@ -1456,7 +1472,8 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
     if name == "truth":
       template["land_sea_mask"] = xds.stub_variable(
           ("longitude", "latitude"), template.sizes, np.float32)
-    writer = xds.RegionWriter(path, template, chunks=chunks)
+    writer = xds.RegionWriter(path, template, chunks=chunks,
+                              compressor=compressor)
     if name == "truth":
       writer.write_array("land_sea_mask", (slice(None), slice(None)),
                          rng.random((n_lon, n_lat), dtype=np.float32))
@@ -4175,11 +4192,216 @@ def streaming_state(path):
 
 
 
+# -- e2e_blosc ----------------------------------------------------------------
+
+# the official stores three ways: uncompressed; zarr-python's default
+# compressor (Blosc(cname="lz4", clevel=5, shuffle=1), what xarray's
+# to_zarr writes without an encoding); bit-shuffled lz4
+BLOSC_LAYOUTS = {
+    "none": None,
+    "zarr_default": {"id": "blosc", "cname": "lz4", "clevel": 5,
+                     "shuffle": 1},
+    "lz4_bitshuffle": {"id": "blosc", "cname": "lz4", "clevel": 5,
+                       "shuffle": 2},
+}
+# committed stores of every blosc codec, written by the JAX package
+BLOSC_FIXTURES = "weatherbench2_torch/testdata/blosc"
+# the decode-throughput store: 0.25 degrees, 13 levels, one time a chunk
+DECODE_LEVELS, DECODE_TIMES = 13, 8
+DECODE_REPEATS = 3
+
+
+def bitwise_results(got, want, what):
+  """Raise unless two runs' results hold the same bytes."""
+  n = 0
+  for cname in want:
+    for k in want[cname].keys():
+      w = np.ascontiguousarray(want[cname][k].values)
+      g = np.ascontiguousarray(
+          got[cname][k].transpose(*want[cname][k].dims).values)
+      if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+        raise AssertionError(f"{what}: {cname}/{k} differs")
+      n += 1
+  return {"compared": n, "bit_for_bit": True}
+
+
+def blosc_official_run(root, layout):
+  """The official stores written in ``layout``, then e2e_official's main
+  run (32 inits, three configs in one stream) on the card with the reads'
+  and the decodes' counters; the stores are removed after it."""
+  from weatherbench2_torch.xds import io_zarr
+
+  store_dir = os.path.join(root, f"stores_{layout}")
+  t0 = time.perf_counter()
+  paths = write_official_stores(store_dir,
+                                compressor=BLOSC_LAYOUTS[layout])
+  write_s = time.perf_counter() - t0
+  gib = store_gib(paths)
+  out_dir = os.path.join(root, f"results_{layout}")
+  io_zarr.DECODES.reset()
+  run = run_cli(official_args(paths, out_dir, "2020-01-16",
+                              f"--eval_configs={OFFICIAL_CONFIGS}",
+                              "--input_chunks=init_time=16"),
+                OFFICIAL_INITS // 16, OFFICIAL_LAUNCHES)
+  decoded = io_zarr.DECODES.bytes / 2**30
+  run.update(compressor=BLOSC_LAYOUTS[layout], write_stores_s=write_s,
+             store_gib=gib, decoded_gib=decoded,
+             decode_s=io_zarr.DECODES.seconds,
+             compression_ratio=decoded / run["read_gib"] if decoded else 1.0)
+  shutil.rmtree(store_dir)
+  return run, open_official_results(out_dir, OFFICIAL_INITS)
+
+
+def blosc_fixture_check():
+  """Every committed fixture store opened by the port, each array's sha256
+  against the manifest the JAX package's reads gave."""
+  from weatherbench2_torch import xds
+
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      BLOSC_FIXTURES)
+  with open(os.path.join(root, "manifest.json")) as f:
+    manifest = json.load(f)
+  codecs = set()
+  for store, want in sorted(manifest.items()):
+    ds = xds.open_zarr(os.path.join(root, store))
+    got = {n: hashlib.sha256(np.ascontiguousarray(
+        np.asarray(ds[n].values)).tobytes()).hexdigest()
+           for n in list(ds.keys()) + list(ds.coords_dict())}
+    if got != want:
+      raise AssertionError(f"fixture {store}: {sorted(set(got) ^ set(want))}"
+                           f" {[n for n in want if got.get(n) != want[n]]}")
+    codecs.add(store.split("_shuffle")[0])
+  return {"stores": len(manifest), "arrays": sum(map(len, manifest.values())),
+          "codecs": sorted(codecs), "sha256_match": True}
+
+
+def decode_throughput(root):
+  """A 0.25-degree float32 store (13 levels x 8 times, one time a chunk),
+  written with blosc-lz4 at shuffle 1 from a smooth seeded field plus
+  noise on a grid of 1/8; its chunks read and decoded by one thread and by
+  PREFETCH_DEPTH threads, as the prefetch pool's workers read them.  The
+  files were just written: the page cache holds them, so the wall is the
+  decode and the copies."""
+  from weatherbench2_torch import convert, xds
+  from weatherbench2_torch.parallel import streaming
+  from weatherbench2_torch.xds import io_zarr
+
+  gen = np.random.default_rng(SEED + 11)
+  lon = np.arange(1440) * 0.25
+  lat = np.linspace(-90, 90, 721)
+  base = (5000 + 300 * np.sin(np.radians(lon))[:, None]
+          * np.cos(np.radians(lat))[None, :])
+  levels = np.arange(DECODE_LEVELS)
+  field = (base[None, None] + 100 * levels[None, :, None, None]
+           + 2 * gen.standard_normal(
+               (DECODE_TIMES, DECODE_LEVELS, 1440, 721), dtype=np.float32))
+  field = (np.round(field * 8) / 8).astype(np.float32)
+  ds = convert.dataset_from_arrays(
+      {"geopotential": (("time", "level", "longitude", "latitude"), field)},
+      coords={"time": np.datetime64("2020-01-01T00", "ns")
+                      + np.arange(DECODE_TIMES) * np.timedelta64(6, "h"),
+              "level": levels, "longitude": lon, "latitude": lat})
+  path = os.path.join(root, "decode025.zarr")
+  t0 = time.perf_counter()
+  xds.to_zarr(ds, path, chunks={"time": 1},
+              compressor=BLOSC_LAYOUTS["zarr_default"])
+  out = {"write_s": time.perf_counter() - t0,
+         "chunk_mb": field[0].nbytes / 1e6, "chunks": DECODE_TIMES,
+         "cpu_count": os.cpu_count(), "compressor":
+         BLOSC_LAYOUTS["zarr_default"]}
+  arr = io_zarr.open_zarr_array(path, "geopotential")
+  box = [(0, DECODE_LEVELS), (0, 1440), (0, 721)]
+
+  def read(t):
+    return arr.read_box([(t, t + 1)] + box)
+
+  for workers in (1, streaming.PREFETCH_DEPTH):
+    walls, decode_s = [], []
+    for _ in range(DECODE_REPEATS):
+      io_zarr.READS.reset()
+      io_zarr.DECODES.reset()
+      t0 = time.perf_counter()
+      with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        got = list(pool.map(read, range(DECODE_TIMES)))
+      walls.append(time.perf_counter() - t0)
+      decode_s.append(io_zarr.DECODES.seconds)
+      # checked outside the timed reads
+      if np.concatenate(got).tobytes() != field.tobytes():
+        raise AssertionError(f"decoded store differs ({workers} workers)")
+      del got
+    decoded = io_zarr.DECODES.bytes
+    out[f"workers_{workers}"] = {
+        "walls_s": walls, "decoded_gb": decoded / 1e9,
+        "file_gb": io_zarr.READS.bytes / 1e9,
+        "gb_per_s": decoded / statistics.median(walls) / 1e9,
+        # decoding alone (no file read, no allocation), summed over threads
+        "decode_s_summed": decode_s,
+        "decode_gb_per_s_per_thread":
+            decoded / statistics.median(decode_s) / 1e9}
+  out["compression_ratio"] = decoded / io_zarr.READS.bytes
+
+  # the codec alone: the chunk files' bytes in memory, each thread decoding
+  # into one buffer of its own that it reuses (no file read, no fresh pages)
+  from weatherbench2_torch.xds import _codec
+
+  raws = []
+  for t in range(DECODE_TIMES):
+    with open(os.path.join(path, "geopotential", f"{t}.0.0.0"), "rb") as f:
+      raws.append(f.read())
+  for workers in (1, streaming.PREFETCH_DEPTH):
+    bufs = [np.empty_like(field[0]) for _ in range(workers)]
+
+    def decode(k):
+      for t in range(k, DECODE_TIMES, workers):
+        _codec.decode_into(raws[t], bufs[k], "decode_throughput")
+
+    walls = []
+    for _ in range(DECODE_REPEATS):
+      t0 = time.perf_counter()
+      with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+        list(pool.map(decode, range(workers)))
+      walls.append(time.perf_counter() - t0)
+    out[f"in_memory_workers_{workers}"] = {
+        "walls_s": walls,
+        "gb_per_s": field.nbytes / statistics.median(walls) / 1e9}
+  return out
+
+
+def e2e_blosc_phase():
+  """Blosc stores through the port's Zarr layer: (a) the official
+  configuration's stores uncompressed, in zarr-python's default layout and
+  bit-shuffled, each through the evaluate CLI on the card, the blosc runs'
+  results equal to the uncompressed run's bit for bit and their kernel
+  launches equal; (b) the committed fixtures of every codec against their
+  manifest; (c) decode throughput at 0.25 degrees."""
+  out = {}
+  with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_blosc_") as root:
+    runs, results = {}, {}
+    for layout in BLOSC_LAYOUTS:
+      runs[layout], results[layout] = blosc_official_run(root, layout)
+    for layout in BLOSC_LAYOUTS:
+      if layout == "none":
+        continue
+      if runs[layout]["launches"] != runs["none"]["launches"]:
+        raise AssertionError(f"{layout}: launches {runs[layout]['launches']}"
+                             f" against {runs['none']['launches']}")
+      runs[layout]["vs_uncompressed"] = bitwise_results(
+          results[layout], results["none"], f"{layout} against uncompressed")
+    out["official"] = runs
+    t0 = time.perf_counter()
+    out["fixtures"] = blosc_fixture_check()
+    out["fixtures"]["seconds"] = time.perf_counter() - t0
+    out["decode_throughput"] = decode_throughput(root)
+  emit("e2e_blosc", **out)
+  return out
+
+
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
           "e2e_ensemble": e2e_ensemble_phase,
           "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase,
-          "e2e_prep2": e2e_prep2_phase, "e2e_multi": e2e_multi_phase}
+          "e2e_prep2": e2e_prep2_phase, "e2e_multi": e2e_multi_phase,
+          "e2e_blosc": e2e_blosc_phase}
 
 
 def main(argv):
@@ -4192,6 +4414,7 @@ def main(argv):
   try:
     from weatherbench2_torch import device as device_lib  # noqa: F401
     from weatherbench2_torch.ops import _build
+    from weatherbench2_torch.xds import _codec
   except ImportError as err:
     print(f"chip_smoke: run from the repository root ({err})",
           file=sys.stderr)
@@ -4204,7 +4427,13 @@ def main(argv):
 
   t0 = time.perf_counter()
   _build.build(verbose=True)
-  emit("build", seconds=time.perf_counter() - t0, source=SOURCE)
+  build_s = time.perf_counter() - t0
+  # the host codec of the Zarr layer, with the host's C++ compiler
+  t0 = time.perf_counter()
+  codec_lib = _codec.build()
+  emit("build", seconds=build_s, source=SOURCE,
+       codec_seconds=time.perf_counter() - t0, codec_source=CODEC_SOURCE,
+       codec_library=codec_lib, codec_compiler=_codec.compiler())
 
   # every phase with no arguments (as the contract runs it); a list of phase
   # names runs those only and prints no kernel summary

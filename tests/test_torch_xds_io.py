@@ -1,10 +1,14 @@
 """The port's plain-numpy Zarr and NetCDF IO against the JAX package's.
 
 Stores written by the port open in ``weatherbench2_tpu.xds.open_zarr``
-(tensorstore), uncompressed JAX-written stores open in the port, with the
-same arrays, coords and CF time values; results files written by the port
-open in ``weatherbench2_tpu.xds.open_netcdf``; a blosc store is refused.
+(tensorstore), JAX-written stores open in the port (uncompressed and in
+the JAX package's default, bit-shuffled blosc-zstd), with the same arrays,
+coords and CF time values; results files written by the port open in
+``weatherbench2_tpu.xds.open_netcdf``; filters and unknown compressors are
+refused, naming the store (``tests/test_torch_blosc.py`` holds every blosc
+variant).
 """
+import json
 import os
 
 import numpy as np
@@ -123,16 +127,38 @@ def test_region_writer_template_fills_nan(tmp_path):
     assert np.isnan(got[:2]).all() and np.isnan(got[6:]).all()
 
 
-def test_blosc_store_is_refused(tmp_path, monkeypatch):
+@pytest.mark.parametrize("lazy", [False, True])
+def test_jax_default_store_opens_in_port(tmp_path, monkeypatch, lazy):
   monkeypatch.setenv("WB2_ZARR_COMPRESSOR", "zstd3")
   path = str(tmp_path / "blosc.zarr")
   jxds.to_zarr(jschema.mock_truth_data(
       variables_3d=[], variables_2d=["2m_temperature"],
       time_start="2020-01-01", time_stop="2020-01-03",
       spatial_resolution_in_degrees=30.0), path)
-  with pytest.raises(ValueError, match="blosc") as err:
+  meta = json.loads((tmp_path / "blosc.zarr" / "2m_temperature" /
+                     ".zarray").read_text())
+  assert meta["compressor"]["cname"] == "zstd"
+  _assert_same(xds.open_zarr(path, lazy=lazy), jxds.open_zarr(path))
+
+
+@pytest.mark.parametrize("field, value, match", [
+    ("filters", [{"id": "delta", "dtype": "<f4"}], "filters"),
+    ("compressor", {"id": "lzma", "preset": 1}, "'lzma'"),
+    ("compressor", {"id": "blosc", "cname": "lzo", "clevel": 5,
+                    "shuffle": 1}, "'lzo'"),
+])
+def test_port_refuses_filters_and_unknown_compressors(tmp_path, field, value,
+                                                      match):
+  path = str(tmp_path / "port.zarr")
+  xds.to_zarr(_sample(), path)
+  zarray = tmp_path / "port.zarr" / "t2m" / ".zarray"
+  meta = json.loads(zarray.read_text())
+  meta[field] = value
+  zarray.write_text(json.dumps(meta))
+  os.remove(tmp_path / "port.zarr" / ".zmetadata")
+  with pytest.raises(ValueError, match=match) as err:
     xds.open_zarr(path)
-  assert path in str(err.value)
+  assert path in str(err.value) and "'t2m'" in str(err.value)
 
 
 def test_missing_store_raises(tmp_path):

@@ -1,14 +1,16 @@
 """Zarr v2 directory stores in plain numpy, for the PyTorch port.
 
 The JAX package opens stores through tensorstore; the port's machines have
-neither tensorstore nor a blosc codec, so this module reads and writes the
-on-disk format itself: ``.zgroup``/``.zattrs``/``.zarray`` JSON, one file
-per chunk, compressor ``null`` or ``zlib`` (stdlib).  It follows the same
-xarray convention as ``weatherbench2_tpu/xds/io_zarr.py`` (an
-``_ARRAY_DIMENSIONS`` attribute per array, CF-encoded datetimes as int64
-with a ``units`` attribute, string arrays as JSON in the group attrs under
-``_xds_string_arrays``), so stores written here open in the JAX package and
-uncompressed JAX-written stores open here.  Local paths only.
+no tensorstore, so this module reads and writes the on-disk format itself:
+``.zgroup``/``.zattrs``/``.zarray`` JSON, one file per chunk.  Chunks are
+read uncompressed, zlib or gzip (stdlib) or blosc with any of its codecs
+and shuffles (the port's own C++ codec, ``xds/_codec.py``); they are written
+uncompressed, zlib or blosc-lz4.  It follows the same xarray convention as
+``weatherbench2_tpu/xds/io_zarr.py`` (an ``_ARRAY_DIMENSIONS`` attribute per
+array, CF-encoded datetimes as int64 with a ``units`` attribute, string
+arrays as JSON in the group attrs under ``_xds_string_arrays``), so stores
+written here open in the JAX package and the JAX package's stores, in its
+default bit-shuffled zstd too, open here.  Local paths only.
 """
 from __future__ import annotations
 
@@ -16,12 +18,13 @@ import itertools
 import json
 import os
 import threading
+import time
 import zlib
 from typing import Any, Mapping, Optional
 
 import numpy as np
 
-from . import core
+from . import _codec, core
 
 _CF_UNITS = {
     "nanoseconds": "ns",
@@ -58,8 +61,34 @@ class ReadCounter:
       self.bytes = 0
 
 
-# every chunk-file read of this module counts here
+class DecodeCounter:
+  """Bytes decoded from compressed chunks and the seconds the decoding took,
+  summed over every thread that decodes (reading the file is not in it)."""
+
+  def __init__(self):
+    self._lock = threading.Lock()
+    self.bytes = 0
+    self.seconds = 0.0
+
+  def add(self, n: int, seconds: float) -> None:
+    with self._lock:
+      self.bytes += int(n)
+      self.seconds += seconds
+
+  def reset(self) -> None:
+    with self._lock:
+      self.bytes = 0
+      self.seconds = 0.0
+
+
+# every chunk-file read of this module counts here (the file's bytes, as
+# stored), and every decoded chunk in DECODES
 READS = ReadCounter()
+DECODES = DecodeCounter()
+
+BLOSC_CNAMES = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
+# the queue item of the encoder the port's writer lacks
+ZSTD_ENCODER_ITEM = "ROADMAP A.14 (a zstd encoder)"
 
 # Of an uncompressed chunk, the rows a selection needs are read on their
 # own when each is at least this long; shorter rows read the whole file.
@@ -136,12 +165,31 @@ def _write_json(path: str, obj) -> None:
 
 
 def _compressor_meta(compressor):
+  """Zarr metadata of a writer's compressor: None/"none", "zlib", the JAX
+  package's "lz4" (its metadata) or a blosc dict with cname lz4."""
   if compressor in (None, "none"):
     return None
   if compressor == "zlib":
     return {"id": "zlib", "level": 1}
+  if compressor == "lz4":
+    compressor = {"id": "blosc", "cname": "lz4", "clevel": 1, "shuffle": 0}
+  if compressor == "zstd3" or (isinstance(compressor, Mapping) and (
+      compressor.get("id") == "blosc" and compressor.get("cname") != "lz4")):
+    raise ValueError(
+        f"compressor {compressor!r}: the port writes blosc only with lz4; "
+        f"other codecs wait for {ZSTD_ENCODER_ITEM}")
+  if isinstance(compressor, Mapping) and compressor.get("id") == "blosc":
+    meta = {"id": "blosc", "cname": "lz4",
+            "clevel": int(compressor.get("clevel", 5)),
+            "shuffle": int(compressor.get("shuffle", 1)),
+            "blocksize": int(compressor.get("blocksize", 0))}
+    if meta["shuffle"] not in (0, 1, 2) or not 0 <= meta["clevel"] <= 9:
+      raise ValueError(f"blosc compressor {compressor!r}: shuffle 0, 1 or "
+                       "2 and clevel 0-9")
+    return meta
   raise ValueError(
-      f"unknown compressor {compressor!r}; options: None, 'zlib'")
+      f"unknown compressor {compressor!r}; options: None, 'zlib', 'lz4', "
+      "{'id': 'blosc', 'cname': 'lz4', 'clevel': ..., 'shuffle': 0|1|2}")
 
 
 class ZarrArray:
@@ -151,21 +199,24 @@ class ZarrArray:
     self.store = store
     self.name = name
     self.path = os.path.join(store, name)
+    self.where = f"zarr store {store!r} array {name!r}"
     comp = meta.get("compressor")
-    if comp is not None and comp.get("id") not in ("zlib", "gzip"):
+    if comp is not None and comp.get("id") == "blosc":
+      if comp.get("cname") not in BLOSC_CNAMES:
+        raise ValueError(f"{self.where} uses blosc codec "
+                         f"{comp.get('cname')!r}; this reader decodes "
+                         f"{', '.join(BLOSC_CNAMES)}")
+      _codec.library(self.where)  # built here, so a store fails at open
+    elif comp is not None and comp.get("id") not in ("zlib", "gzip"):
       raise ValueError(
-          f"zarr store {store!r} array {name!r} uses compressor "
-          f"{comp.get('id')!r} ({comp}); this reader decodes only "
-          "uncompressed and zlib/gzip chunks. Rewrite the store "
-          "uncompressed (the JAX package writes one under "
-          "WB2_ZARR_COMPRESSOR=none)."
-      )
+          f"{self.where} uses compressor {comp.get('id')!r} ({comp}); this "
+          "reader decodes uncompressed, zlib, gzip and blosc chunks")
     if meta.get("filters"):
-      raise ValueError(f"zarr store {store!r} array {name!r} uses filters "
-                       f"{meta['filters']}, which this reader cannot decode")
+      raise ValueError(f"{self.where} uses filters {meta['filters']}, "
+                       "which this reader cannot decode")
     if meta.get("order", "C") != "C":
-      raise ValueError(f"zarr store {store!r} array {name!r} is in "
-                       "Fortran order, which this reader does not support")
+      raise ValueError(f"{self.where} is in Fortran order, which this "
+                       "reader does not support")
     self.compressor = comp
     self.shape = tuple(int(s) for s in meta["shape"])
     self.chunks = tuple(int(c) for c in meta["chunks"]) or ()
@@ -187,19 +238,57 @@ class ZarrArray:
     path = self._chunk_path(idx)
     if not os.path.exists(path):
       return np.full(shape, self.fill_value, dtype=self.dtype)
+    out = np.empty(shape, dtype=self.dtype)
+    self._read_into(path, out)
+    return out
+
+  def _read_into(self, path: str, out: np.ndarray) -> None:
+    """``out[...] =`` the chunk file at ``path``, decoded in place: ``out``
+    is C-contiguous and of the chunk's shape."""
+    flat = out.reshape(-1).view(np.uint8)
+    where = f"{self.where} chunk {os.path.basename(path)!r}"
+    if self.compressor is None:
+      with open(path, "rb") as f:
+        n = f.readinto(flat)
+      READS.add(n)
+      if n != out.nbytes:
+        raise ValueError(f"{where} holds {n} bytes, expected {out.nbytes}")
+      return
     with open(path, "rb") as f:
       raw = f.read()
     READS.add(len(raw))
-    if self.compressor is not None:
-      raw = zlib.decompress(raw, 31 if self.compressor["id"] == "gzip"
-                            else 15)
-    return np.frombuffer(raw, dtype=self.dtype).reshape(shape)
+    t0 = time.perf_counter()
+    if self.compressor["id"] == "blosc":
+      _codec.decode_into(raw, out, where)
+    else:
+      data = zlib.decompress(raw, 31 if self.compressor["id"] == "gzip"
+                             else 15)
+      if len(data) != out.nbytes:
+        raise ValueError(f"{where} decodes to {len(data)} bytes, expected "
+                         f"{out.nbytes}")
+      flat[...] = np.frombuffer(data, np.uint8)
+    DECODES.add(out.nbytes, time.perf_counter() - t0)
 
   def _write_chunk(self, idx, arr: np.ndarray) -> None:
-    raw = np.ascontiguousarray(arr, dtype=self.dtype).tobytes()
-    if self.compressor is not None:
-      raw = zlib.compress(raw, self.compressor.get("level", 1))
+    data = np.ascontiguousarray(arr, dtype=self.dtype)
+    comp = self.compressor
     path = self._chunk_path(idx)
+    if comp is None:
+      raw = data.tobytes()
+    elif comp["id"] == "blosc":
+      try:  # the writer's own check: lz4 and shuffle 0-2 only
+        _compressor_meta(comp)
+      except ValueError as err:
+        raise ValueError(f"{self.where}: {err}") from None
+      # the metadata's clevel is kept as given: the greedy encoder has one
+      # level
+      raw = _codec.encode_lz4(
+          data, int(comp.get("shuffle", 1)), int(comp.get("blocksize", 0)),
+          f"{self.where} chunk {os.path.basename(path)!r}")
+    else:
+      wbits = 31 if comp["id"] == "gzip" else 15
+      enc = zlib.compressobj(comp.get("level", 1), zlib.DEFLATED, wbits)
+      raw = enc.compress(data.tobytes()) + enc.flush()
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -256,14 +345,9 @@ class ZarrArray:
       k -= 1
     row = int(np.prod(self.chunks[k:])) if k < len(full) else 1
     row_bytes = row * self.dtype.itemsize
-    if self.compressor is None and k == 0 and target.flags.c_contiguous:
-      # the whole chunk, straight into place
-      with open(path, "rb") as f:
-        n = f.readinto(memoryview(target).cast("B"))
-      if n != target.nbytes:
-        raise ValueError(f"zarr chunk {path!r} holds {n} bytes, "
-                         f"expected {target.nbytes}")
-      READS.add(n)
+    if k == 0 and target.flags.c_contiguous:
+      # the whole chunk, read (and decoded) straight into place
+      self._read_into(path, target)
       return
     if self.compressor is None and 0 < k and (
         row_bytes >= MIN_PARTIAL_READ_BYTES):
