@@ -137,11 +137,27 @@ exits non-zero without the final line):
            (weatherbench2_torch/testdata/blosc, written by the JAX package)
            decoded, each array's sha256 against the manifest; (c) decode
            GB/s of a 0.25-degree lz4 store (13 levels x 8 times) at one
-           reading thread and at the prefetch pool's depth.
+           reading thread and at the prefetch pool's depth;
+  e2e_zstd  the JAX package's default layout written by the port: (a)
+           e2e_official's stores with WB2_ZARR_COMPRESSOR unset
+           (bit-shuffled blosc-zstd, clevel 3), its main run through the
+           CLI on them, equal to the uncompressed run bit for bit with its
+           launches; (b) regrid (0.25 to 1.5 degrees) and
+           compute_statistical_moments (kernel 2, R 1) under the default
+           and under "none", their outputs zstd3 and uncompressed by their
+           .zarray and equal in values; (c) encode GB/s of the 0.25-degree
+           field, zstd3 beside lz4, at one thread and at the writer's;
+           (d) the committed tensorstore zstd fixtures encoded again, each
+           header equal to tensorstore's, the bytes within the bound.
+
+The phases write their input stores uncompressed (e2e_blosc and e2e_zstd
+in the layouts they measure); the data-prep twins' outputs follow the
+writer's default, as the JAX scripts' do.
 
 The last lines are the kernel summary, the nvidia-smi name and power
 limit, and {"ok": true, "device": {...}}.
 """
+import atexit
 import concurrent.futures
 import hashlib
 import json
@@ -944,7 +960,7 @@ def write_stores(root, resolution=1.5, forecast_stop="2020-02-01",
         {k: xds.stub_variable(v.dims, v.sizes, np.float32)
          for k, v in ds.variables_dict().items()},
         coords=dict(ds.coords_dict()))
-    writer = xds.RegionWriter(path, template, chunks=chunks)
+    writer = xds.RegionWriter(path, template, chunks=chunks, compressor=None)
     n = ds.sizes[dim]
     for start in range(0, n, block):
       sl = slice(start, min(start + block, n))
@@ -1412,7 +1428,7 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
   adds surface variables to all three stores, ``clim_3d``/``clim_2d`` rows
   to the climatology alone (the derived variables').  ``resolution`` and
   ``latitudes`` (a grid without poles) give another grid; ``compressor``
-  is the port's writer's (default uncompressed)."""
+  is the port's writer's (default uncompressed, passed on as None)."""
   from weatherbench2_torch import schema, xds
 
   specs = dict(variables_3d=list(VARIABLES_3D),
@@ -1492,6 +1508,20 @@ def write_official_stores(root, extra_2d=(), clim_3d=(), clim_2d=(),
     writer.finish()
     paths[name] = path
   return paths
+
+
+# e2e_official's stores as write_official_stores makes them by default, for
+# the phases that only read them: written once, removed at exit
+_OFFICIAL_STORES = []
+
+
+def official_stores():
+  """The default official stores' paths (written at the first call)."""
+  if not _OFFICIAL_STORES:
+    root = tempfile.mkdtemp(prefix="wb2_chip_smoke_stores_")
+    atexit.register(shutil.rmtree, root, True)
+    _OFFICIAL_STORES.append(write_official_stores(root))
+  return _OFFICIAL_STORES[0]
 
 
 def official_args(paths, out_dir, stop, *more):
@@ -1813,7 +1843,7 @@ def e2e_official_phase():
              OFFICIAL_LAUNCHES))}
   with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_official_") as root:
     t0 = time.perf_counter()
-    paths = write_official_stores(root)
+    paths = official_stores()
     out["write_stores_s"] = time.perf_counter() - t0
     out["store_gib"] = store_gib(paths)
     configs = f"--eval_configs={OFFICIAL_CONFIGS}"
@@ -1997,7 +2027,7 @@ def write_ensemble_stores(root):
     if name == "truth":
       template["land_sea_mask"] = xds.stub_variable(
           ("longitude", "latitude"), template.sizes, np.float32)
-    writer = xds.RegionWriter(path, template, chunks=chunks)
+    writer = xds.RegionWriter(path, template, chunks=chunks, compressor=None)
     if name == "truth":
       writer.write_array("land_sea_mask", (slice(None), slice(None)),
                          np.random.default_rng(SEED + 3).random(
@@ -2618,7 +2648,8 @@ def write_prob_clim_stores(root):
       template["land_sea_mask"] = xds.stub_variable(
           ("longitude", "latitude"), sizes, np.float32)
     path = os.path.join(root, f"{name}.zarr")
-    writer = xds.RegionWriter(path, template, chunks={"time": block})
+    writer = xds.RegionWriter(path, template, chunks={"time": block},
+                              compressor=None)
     if name == "truth":
       writer.write_array("land_sea_mask", (slice(None), slice(None)),
                          np.random.default_rng(SEED + 5).random(
@@ -2736,7 +2767,8 @@ def write_wide_store(root, n_times=WIDE_TIMES, name="wide"):
   template = xds.Dataset(
       {k: xds.stub_variable(v.dims, v.sizes, np.float32)
        for k, v in ds.variables_dict().items()}, coords=dict(ds.coords_dict()))
-  writer = xds.RegionWriter(path, template, chunks={"time": 4})
+  writer = xds.RegionWriter(path, template, chunks={"time": 4},
+                            compressor=None)
   for start in range(0, n_times, 4):
     sl = slice(start, min(start + 4, n_times))
     for vname, v in ds.variables_dict().items():
@@ -2984,7 +3016,8 @@ def write_grid_store(path, variables, times, resolution, levels, gen,
           for k, has in variables.items()}
   template = xds.Dataset({k: xds.stub_variable(d, sizes, np.float32)
                           for k, d in dims.items()}, coords=coords)
-  writer = xds.RegionWriter(path, template, chunks={"time": chunk})
+  writer = xds.RegionWriter(path, template, chunks={"time": chunk},
+                            compressor=None)
   for start in range(0, len(times), chunk):
     sl = slice(start, min(start + chunk, len(times)))
     for name, d in dims.items():
@@ -3064,7 +3097,7 @@ def regrid_run(root):
                         np.full(shape, np.nan, np.float32))
   t2_path = os.path.join(root, "t2m.zarr")
   xds.to_zarr(xds.read(xds.open_zarr(wide, lazy=True)[["2m_temperature"]]),
-              t2_path, chunks={"time": 4})
+              t2_path, chunks={"time": 4}, compressor=None)
   out["write_stores_s"] = time.perf_counter() - t0
   out["store_gib"] = store_gib({"wide": wide})
   for method, path in (("conservative", wide), ("bilinear", t2_path),
@@ -3546,7 +3579,8 @@ def ensemble_mean_run(root):
   template = xds.Dataset({k: xds.stub_variable(v.dims, v.sizes, np.float32)
                           for k, v in ds.variables_dict().items()},
                          coords=dict(ds.coords_dict()))
-  writer = xds.RegionWriter(path, template, chunks={"time": 1})
+  writer = xds.RegionWriter(path, template, chunks={"time": 1},
+                            compressor=None)
   for i in range(ds.sizes["time"]):
     for name, v in ds.variables_dict().items():
       shape = tuple(1 if d == "time" else v.sizes[d] for d in v.dims)
@@ -3627,7 +3661,7 @@ def official_runs(root):
   from weatherbench2_torch.cli import index_on_valid_time
 
   t0 = time.perf_counter()
-  paths = write_official_stores(root)
+  paths = official_stores()
   out = {"write_stores_s": time.perf_counter() - t0,
          "store_gib": store_gib(paths)}
   dst = os.path.join(root, "valid.zarr")
@@ -3866,7 +3900,7 @@ def write_ensemble64(root, gen):
   ds = ds.copy(data={k: gen.standard_normal(v.shape, dtype=np.float32)
                      for k, v in ds.variables_dict().items()})
   path = os.path.join(root, "ensemble64.zarr")
-  xds.to_zarr(ds, path)
+  xds.to_zarr(ds, path, compressor=None)
   return path
 
 
@@ -4019,7 +4053,7 @@ def e2e_multi_phase():
   steps = {}
   with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_multi_") as root:
     t0 = time.perf_counter()
-    paths = write_official_stores(os.path.join(root, "official"))
+    paths = official_stores()
     grid = write_official_stores(os.path.join(root, "grid64"),
                                  resolution=5.625,
                                  latitudes=GRID64_LATITUDES)
@@ -4225,16 +4259,19 @@ def bitwise_results(got, want, what):
   return {"compared": n, "bit_for_bit": True}
 
 
-def blosc_official_run(root, layout):
-  """The official stores written in ``layout``, then e2e_official's main
-  run (32 inits, three configs in one stream) on the card with the reads'
-  and the decodes' counters; the stores are removed after it."""
+def blosc_official_run(root, layout, compressor=None):
+  """The official stores in ``layout`` (``compressor``, default
+  BLOSC_LAYOUTS'; uncompressed: official_stores()), then e2e_official's
+  main run (32 inits, three configs in one stream) on the card with the
+  reads' and the decodes' counters; compressed stores are removed after
+  it."""
   from weatherbench2_torch.xds import io_zarr
 
+  compressor = compressor or BLOSC_LAYOUTS[layout]
   store_dir = os.path.join(root, f"stores_{layout}")
   t0 = time.perf_counter()
-  paths = write_official_stores(store_dir,
-                                compressor=BLOSC_LAYOUTS[layout])
+  paths = (official_stores() if compressor is None else
+           write_official_stores(store_dir, compressor=compressor))
   write_s = time.perf_counter() - t0
   gib = store_gib(paths)
   out_dir = os.path.join(root, f"results_{layout}")
@@ -4244,12 +4281,43 @@ def blosc_official_run(root, layout):
                               "--input_chunks=init_time=16"),
                 OFFICIAL_INITS // 16, OFFICIAL_LAUNCHES)
   decoded = io_zarr.DECODES.bytes / 2**30
-  run.update(compressor=BLOSC_LAYOUTS[layout], write_stores_s=write_s,
+  run["zarray_compressors"] = sorted(set(
+      map(json.dumps, zarray_compressors(paths["forecast"]).values())))
+  run.update(compressor=compressor, write_stores_s=write_s,
              store_gib=gib, decoded_gib=decoded,
              decode_s=io_zarr.DECODES.seconds,
-             compression_ratio=decoded / run["read_gib"] if decoded else 1.0)
-  shutil.rmtree(store_dir)
+             # partial reads decode only the blocks of their rows: not a
+             # compression ratio
+             decoded_over_read=decoded / run["read_gib"])
+  if compressor is not None:
+    shutil.rmtree(store_dir)
   return run, open_official_results(out_dir, OFFICIAL_INITS)
+
+
+# the uncompressed official run that the compressed ones are held to, made
+# once for e2e_blosc and e2e_zstd: (counts, results held in memory)
+_UNCOMPRESSED_RUN = []
+
+
+def uncompressed_official_run():
+  if not _UNCOMPRESSED_RUN:
+    with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_none_") as root:
+      _UNCOMPRESSED_RUN.append(blosc_official_run(root, "none"))
+  return _UNCOMPRESSED_RUN[0]
+
+
+def held_to_uncompressed(runs, results, what):
+  """Each compressed layout's launches and results against the
+  uncompressed run's, bit for bit."""
+  for layout in runs:
+    if layout == "none":
+      continue
+    if runs[layout]["launches"] != runs["none"]["launches"]:
+      raise AssertionError(f"{layout}: launches {runs[layout]['launches']}"
+                           f" against {runs['none']['launches']}")
+    runs[layout]["vs_uncompressed"] = bitwise_results(
+        results[layout], results["none"], f"{what} {layout} against "
+        "uncompressed")
 
 
 def blosc_fixture_check():
@@ -4377,16 +4445,11 @@ def e2e_blosc_phase():
   out = {}
   with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_blosc_") as root:
     runs, results = {}, {}
+    runs["none"], results["none"] = uncompressed_official_run()
     for layout in BLOSC_LAYOUTS:
-      runs[layout], results[layout] = blosc_official_run(root, layout)
-    for layout in BLOSC_LAYOUTS:
-      if layout == "none":
-        continue
-      if runs[layout]["launches"] != runs["none"]["launches"]:
-        raise AssertionError(f"{layout}: launches {runs[layout]['launches']}"
-                             f" against {runs['none']['launches']}")
-      runs[layout]["vs_uncompressed"] = bitwise_results(
-          results[layout], results["none"], f"{layout} against uncompressed")
+      if layout != "none":
+        runs[layout], results[layout] = blosc_official_run(root, layout)
+    held_to_uncompressed(runs, results, "e2e_blosc")
     out["official"] = runs
     t0 = time.perf_counter()
     out["fixtures"] = blosc_fixture_check()
@@ -4396,12 +4459,252 @@ def e2e_blosc_phase():
   return out
 
 
+# -- e2e_zstd -------------------------------------------------------------------
+
+# the JAX package's default layout, as the port's writer resolves it with
+# WB2_ZARR_COMPRESSOR unset
+ZSTD3 = {"id": "blosc", "cname": "zstd", "clevel": 3, "shuffle": 2,
+         "blocksize": 0}
+# file bytes of the port's chunks over tensorstore's, per variable
+ZSTD_RATIO_BOUND = {clevel: 1.10 if clevel <= 5 else 1.20
+                    for clevel in range(1, 10)}
+# the moments twin's input: two months of WB2's 1.5-degree grid
+ZSTD_MOMENTS_TIMES = ("2020-01-01", "2020-03-01")
+ENCODE_REPEATS = 3
+
+
+class compressor_env:
+  """WB2_ZARR_COMPRESSOR set to ``value`` (None: unset) inside the block."""
+
+  def __init__(self, value):
+    self.value = value
+
+  def __enter__(self):
+    self.old = os.environ.pop("WB2_ZARR_COMPRESSOR", None)
+    if self.value is not None:
+      os.environ["WB2_ZARR_COMPRESSOR"] = self.value
+
+  def __exit__(self, *exc):
+    os.environ.pop("WB2_ZARR_COMPRESSOR", None)
+    if self.old is not None:
+      os.environ["WB2_ZARR_COMPRESSOR"] = self.old
+
+
+def zarray_compressors(path):
+  """{array: its .zarray compressor} of a store."""
+  out = {}
+  for name in sorted(os.listdir(path)):
+    meta = os.path.join(path, name, ".zarray")
+    if os.path.exists(meta):
+      with open(meta) as f:
+        out[name] = json.load(f)["compressor"]
+  return out
+
+
+def zstd_twin_runs(root):
+  """regrid (0.25 degrees to 1.5, conservative) and
+  compute_statistical_moments (kernel 2 at R 1) with WB2_ZARR_COMPRESSOR
+  unset and set to "none": the first's output bit-shuffled zstd3 by its
+  .zarray, the second's uncompressed, their values equal."""
+  import torch
+
+  from weatherbench2_torch import xds
+  from weatherbench2_torch.cli import compute_statistical_moments
+  from weatherbench2_torch.cli import regrid
+
+  t0 = time.perf_counter()
+  wide = write_wide_store(root, n_times=4, name="wide_zstd")
+  times = np.arange(np.datetime64(ZSTD_MOMENTS_TIMES[0], "ns"),
+                    np.datetime64(ZSTD_MOMENTS_TIMES[1], "ns"),
+                    np.timedelta64(6, "h"))
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(SEED + 12)
+
+  def values(name, shape, g, _):
+    return 250.0 + 10.0 * torch.randn(shape, generator=g, device="cuda")
+
+  grid = write_grid_store(os.path.join(root, "moments_in.zarr"),
+                          PREP2_YEAR_VARIABLES, times, PREP_RESOLUTION,
+                          PREP_LEVELS, gen, values, 61)
+  out = {"write_inputs_s": time.perf_counter() - t0,
+         "input_gib": store_gib({"wide": wide, "grid": grid})}
+  blocks = -(-len(times) // xds.default_block(xds.open_zarr(grid, lazy=True),
+                                              "time", "cuda"))
+  twins = {
+      "regrid": (regrid.main, [f"--input_path={wide}", *PREP_GRID], 0),
+      "compute_statistical_moments": (
+          compute_statistical_moments.main,
+          [f"--input_path={grid}", "--start_year=2020", "--end_year=2020"],
+          blocks * len(PREP2_YEAR_VARIABLES))}
+  for name, (main, argv, launches) in twins.items():
+    run = out[name] = {}
+    paths = {}
+    for env in (None, "none"):
+      tag = "zstd3" if env is None else "none"
+      paths[tag] = os.path.join(root, f"{name}_{tag}.zarr")
+      with compressor_env(env):
+        counts = prep2_cli(main, argv + [f"--output_path={paths[tag]}"],
+                           launches)
+      run[tag] = {k: counts[k] for k in ("wall_s", "write_s", "read_s",
+                                         "device_s", "launches")}
+      run[tag]["store_gib"] = store_gib({tag: paths[tag]})
+    layouts = {tag: set(map(json.dumps, zarray_compressors(p).values()))
+               for tag, p in paths.items()}
+    if layouts != {"zstd3": {json.dumps(ZSTD3)}, "none": {"null"}}:
+      raise AssertionError(f"{name}: output layouts {layouts}")
+    equal_stores(paths["zstd3"], paths["none"])
+    run["equal_values"] = True
+    emit("e2e_zstd_twin", run=name, **run)
+  return out
+
+
+def encode_throughput(root):
+  """Encode GB/s of the port's writer on decode_throughput's 0.25-degree
+  field (13 levels of one time, a chunk of 54 MB): zstd3 and the two lz4
+  layouts, at one thread and at ENCODE_THREADS; each chunk decoded again
+  and checked outside the timed calls.  Then zstd3's decode GB/s."""
+  from weatherbench2_torch.xds import _codec
+
+  gen = np.random.default_rng(SEED + 11)
+  lon = np.arange(1440) * 0.25
+  lat = np.linspace(-90, 90, 721)
+  base = (5000 + 300 * np.sin(np.radians(lon))[:, None]
+          * np.cos(np.radians(lat))[None, :])
+  levels = np.arange(DECODE_LEVELS)
+  field = (base[None] + 100 * levels[:, None, None]
+           + 2 * gen.standard_normal((DECODE_LEVELS, 1440, 721),
+                                     dtype=np.float32))
+  field = (np.round(field * 8) / 8).astype(np.float32)
+  out = {"chunk_mb": field.nbytes / 1e6, "cpu_count": os.cpu_count(),
+         "encode_threads": _codec.ENCODE_THREADS}
+  threads = _codec.ENCODE_THREADS
+  for name, comp in (("zstd3", ZSTD3),
+                     ("lz4_zarr_default", BLOSC_LAYOUTS["zarr_default"]),
+                     ("lz4_jax", {"id": "blosc", "cname": "lz4", "clevel": 1,
+                                  "shuffle": 0})):
+    row = out[name] = {}
+    for n_threads in sorted({1, threads}):
+      _codec.ENCODE_THREADS = n_threads
+      walls = []
+      try:
+        for _ in range(ENCODE_REPEATS):
+          t0 = time.perf_counter()
+          raw = _codec.encode(field, comp["cname"], comp["clevel"],
+                              comp["shuffle"], 0, "encode_throughput")
+          walls.append(time.perf_counter() - t0)
+      finally:
+        _codec.ENCODE_THREADS = threads
+      back = np.empty_like(field)
+      _codec.decode_into(raw.tobytes(), back, "encode_throughput")
+      if back.tobytes() != field.tobytes():
+        raise AssertionError(f"{name}: the encoded chunk decodes otherwise")
+      row[f"threads_{n_threads}"] = {
+          "walls_s": walls,
+          "gb_per_s": field.nbytes / statistics.median(walls) / 1e9}
+    row["ratio"] = field.nbytes / raw.nbytes
+    if name == "zstd3":
+      raw = raw.tobytes()
+      walls = []
+      for _ in range(ENCODE_REPEATS):
+        t0 = time.perf_counter()
+        _codec.decode_into(raw, back, "decode_throughput")
+        walls.append(time.perf_counter() - t0)
+      row["decode_gb_per_s_1_thread"] = (field.nbytes
+                                         / statistics.median(walls) / 1e9)
+  return out
+
+
+def zstd_fixture_check():
+  """Every chunk of the committed tensorstore zstd fixtures decoded and
+  encoded again by the port with its store's metadata: the port's chunk
+  decodes to the same bytes, its header equals tensorstore's (but for the
+  memcpyed bit and cbytes), its file bytes summed per variable within
+  ZSTD_RATIO_BOUND of tensorstore's."""
+  from weatherbench2_torch.xds import _codec
+
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      BLOSC_FIXTURES)
+  out = {}
+  for shuffle in (0, 1, 2):
+    store = f"zstd_shuffle{shuffle}.zarr"
+    ratios = {}
+    for name in sorted(os.listdir(os.path.join(root, store))):
+      meta_path = os.path.join(root, store, name, ".zarray")
+      if not os.path.exists(meta_path):
+        continue
+      with open(meta_path) as f:
+        meta = json.load(f)
+      comp = meta["compressor"]
+      dtype = np.dtype(meta["dtype"])
+      theirs = ours = 0
+      for key in sorted(os.listdir(os.path.join(root, store, name))):
+        if key.startswith("."):
+          continue
+        with open(os.path.join(root, store, name, key), "rb") as f:
+          raw = f.read()
+        head = _codec.blosc_header(raw)
+        data = np.empty(head["nbytes"] // dtype.itemsize, dtype)
+        _codec.decode_into(raw, data, f"{store}/{name}/{key}")
+        mine = _codec.encode(data, comp["cname"], comp["clevel"],
+                             comp["shuffle"], comp.get("blocksize", 0),
+                             f"{store}/{name}/{key}").tobytes()
+        back = np.empty_like(data)
+        _codec.decode_into(mine, back, f"{store}/{name}/{key} (port)")
+        if back.tobytes() != data.tobytes():
+          raise AssertionError(f"{store}/{name}/{key}: the port's chunk "
+                               "decodes otherwise")
+        h_mine = _codec.blosc_header(mine)
+        for h in (head, h_mine):
+          h["flags"] &= ~0x02
+          del h["cbytes"]
+        if h_mine != head:
+          raise AssertionError(f"{store}/{name}/{key}: header {h_mine} "
+                               f"against tensorstore's {head}")
+        theirs += len(raw)
+        ours += len(mine)
+      ratios[name] = ours / theirs
+      if ours > ZSTD_RATIO_BOUND[comp["clevel"]] * theirs:
+        raise AssertionError(f"{store}/{name}: {ours} bytes against "
+                             f"tensorstore's {theirs}")
+    out[store] = {"clevel": 5, "ratios": ratios,
+                  "max_ratio": max(ratios.values())}
+  return out
+
+
+def e2e_zstd_phase():
+  """The JAX package's default layout written by the port: (a) the
+  official stores with WB2_ZARR_COMPRESSOR unset (bit-shuffled zstd3),
+  e2e_official's main run through the CLI on them, equal bit for bit to the
+  uncompressed run with its launches; (b) two twins under the default and
+  under "none"; (c) encode GB/s; (d) the committed zstd fixtures encoded
+  again against tensorstore's bytes."""
+  out = {}
+  with tempfile.TemporaryDirectory(prefix="wb2_chip_smoke_zstd_") as root:
+    runs, results = {}, {}
+    runs["none"], results["none"] = uncompressed_official_run()
+    with compressor_env(None):
+      runs["zstd3"], results["zstd3"] = blosc_official_run(
+          root, "zstd3", compressor="default")
+    if runs["zstd3"]["zarray_compressors"] != [json.dumps(ZSTD3)]:
+      raise AssertionError(f"the default wrote "
+                           f"{runs['zstd3']['zarray_compressors']}")
+    held_to_uncompressed(runs, results, "e2e_zstd")
+    out["official"] = runs
+    out["twins"] = zstd_twin_runs(root)
+    out["encode_throughput"] = encode_throughput(root)
+    t0 = time.perf_counter()
+    out["fixtures"] = zstd_fixture_check()
+    out["fixtures"]["seconds"] = time.perf_counter() - t0
+  emit("e2e_zstd", **out)
+  return out
+
+
 PHASES = {"kernels": kernels_phase, "e2e": e2e_phase, "e2e025": e2e025_phase,
           "e2e_official": e2e_official_phase,
           "e2e_ensemble": e2e_ensemble_phase,
           "e2e_derived": e2e_derived_phase, "e2e_prep": e2e_prep_phase,
           "e2e_prep2": e2e_prep2_phase, "e2e_multi": e2e_multi_phase,
-          "e2e_blosc": e2e_blosc_phase}
+          "e2e_blosc": e2e_blosc_phase, "e2e_zstd": e2e_zstd_phase}
 
 
 def main(argv):
@@ -4491,6 +4794,8 @@ def main(argv):
         "launches_e2e_prep2": prep2["launches"][name],
         # both ranks of the 2-rank world on the card
         "launches_e2e_multi": sum(r[name] for r in multi["world2"]["ranks"]),
+        "launches_e2e_zstd": results["e2e_zstd"]["official"]["zstd3"][
+            "launches"][name],
         "max_abs_err": max(v["max_abs_err"] for v in c["errors"].values()),
         "ms": c["kernel_ms"], "plain_ms": c["plain_ms"],
         "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],

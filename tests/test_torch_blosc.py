@@ -11,8 +11,10 @@ leftover; zstd at blosc clevel 1, 3, 5 and 9 (zstd levels 1, 5, 9 and 22,
 blosc's mapping).  The data is smooth fields plus rounded noise, and every
 chunk but the tiny one is shown to have reached its codec (flag 0x02 clear,
 fewer bytes than decoded).  The port's writer (blosc-lz4 at each shuffle,
-the JAX package's ``"lz4"``, zlib) opens in the JAX package bit for bit;
-corrupt, truncated and forged chunks raise naming store, array and chunk;
+the JAX package's "lz4", zstd, zlib) opens in the JAX package bit for bit,
+also in regions of a JAX-made zstd store; the codecs it has no encoder for
+are refused naming ROADMAP A.18; corrupt, truncated and forged chunks raise
+naming store, array and chunk;
 the port's evaluate CLI gives the same bits on the JAX package's default
 (zstd3) stores as on uncompressed ones; the committed fixtures of
 ``weatherbench2_torch/testdata/blosc/`` match their manifest.
@@ -340,17 +342,43 @@ def test_region_writes_into_a_blosc_template(tmp_path):
 
 
 @pytest.mark.parametrize("compressor", [
-    "zstd3", blosc("zstd", 2), blosc("blosclz", 1)])
-def test_port_writer_refuses_other_blosc_codecs(tmp_path, compressor):
-  with pytest.raises(ValueError, match="ROADMAP A.14"):
+    "zstd3", blosc("zstd", 2, clevel=2), blosc("zstd", 0, clevel=9)])
+def test_port_writer_writes_zstd(tmp_path, compressor):
+  """The compressors the writer refused before it had a zstd encoder."""
+  path = str(tmp_path / "port.zarr")
+  xds.to_zarr(port_dataset(), path, chunks=CHUNKS, compressor=compressor)
+  assert_codec_ran(path)
+  assert_bitwise(xds.open_zarr(path), jxds.open_zarr(path))
+  for name, values in fields().items():
+    assert np.asarray(jxds.open_zarr(path)[name].values).tobytes() == (
+        values.tobytes())
+
+
+@pytest.mark.parametrize("cname", ["blosclz", "lz4hc", "snappy", "zlib"])
+def test_port_writer_refuses_other_blosc_codecs(tmp_path, cname):
+  with pytest.raises(ValueError, match="ROADMAP A.18"):
     xds.to_zarr(port_dataset(), str(tmp_path / "x.zarr"),
-                compressor=compressor)
+                compressor=blosc(cname, 1))
 
 
-def test_region_write_into_a_zstd_store_refused(jax_stores, tmp_path):
+def test_region_write_into_a_zstd_store(jax_stores, tmp_path):
+  """A region of the JAX package's zstd store written by the port (the
+  chunks it crosses decoded, changed and encoded again) opens there."""
   path = str(tmp_path / "zstd.zarr")
   shutil.copytree(jax_stores["zstd_shuffle2"], path)
-  with pytest.raises(ValueError, match="ROADMAP A.14") as err:
+  want = fields()["wide"].copy()
+  want[2:6] += 0.25
+  xds.write_zarr_region(path, "wide", (slice(2, 6),), want[2:6])
+  assert np.asarray(jxds.open_zarr(path)["wide"].values).tobytes() == (
+      want.tobytes())
+  assert_codec_ran(path, ["wide"])
+
+
+def test_region_write_refuses_a_codec_without_an_encoder(jax_stores,
+                                                         tmp_path):
+  path = str(tmp_path / "snappy.zarr")
+  shutil.copytree(jax_stores["snappy_shuffle2"], path)
+  with pytest.raises(ValueError, match="ROADMAP A.18") as err:
     xds.write_zarr_region(path, "wide", (slice(0, 1),), fields()["wide"][:1])
   assert "'wide'" in str(err.value)
 
@@ -428,7 +456,7 @@ def test_missing_compiler_raises_naming_it_and_the_store(jax_stores,
   assert path in str(err.value)
   # an uncompressed store needs no codec
   plain = str(tmp_path / "plain.zarr")
-  xds.to_zarr(port_dataset(), plain)
+  xds.to_zarr(port_dataset(), plain, compressor=None)
   assert_bitwise(xds.open_zarr(plain), jxds.open_zarr(plain))
 
 

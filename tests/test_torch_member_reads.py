@@ -40,7 +40,8 @@ def truth_path(tmp_path_factory):
               "longitude": np.arange(N_LON) * 360 / N_LON,
               "latitude": np.linspace(-90, 90, N_LAT)})
   path = str(tmp / "truth.zarr")
-  xds.to_zarr(ds, path, chunks={"time": 8})
+  # uncompressed: the rows of a chunk are read on their own
+  xds.to_zarr(ds, path, chunks={"time": 8}, compressor=None)
   return path
 
 

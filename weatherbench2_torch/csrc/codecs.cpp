@@ -4,12 +4,15 @@
 // compress their chunks with blosc1: a 16-byte header, a table of block
 // starts, then each block as one stream or as `typesize` streams ("split"),
 // compressed by one of five codecs after an optional byte or bit shuffle.
-// This file decodes every such chunk and encodes blosc-lz4 for the writer:
+// This file decodes every such chunk, whole or a range of its blocks, and
+// encodes blosc-lz4 and blosc-zstd for the writer:
 //
 //   blosc1 frame   header, bstarts, memcpyed chunks, split blocks, the
 //                  leftover last block, byte and bit unshuffle (c-blosc's
 //                  rules, held bit for bit to tensorstore by
-//                  tests/test_torch_blosc.py)
+//                  tests/test_torch_blosc.py); the writer's header as
+//                  c-blosc1 writes it (its default blocksize by codec,
+//                  clevel and typesize; do-not-split for zstd)
 //   BloscLZ        decoder
 //   LZ4 / LZ4HC    block-format decoder; a greedy hash-table encoder (one
 //                  level: the metadata's clevel does not change it), a
@@ -22,17 +25,25 @@
 //                  blocks; raw, RLE, Huffman and treeless literals in 1 or 4
 //                  streams; FSE tables predefined, RLE, compressed and
 //                  repeated; repeat offsets); the content checksum is read,
-//                  not verified; no dictionaries
+//                  not verified; no dictionaries.  An encoder of the same
+//                  format: a hash-chain matcher (greedy, lazy, lazy2 by
+//                  level; a price-driven optimal parse at clevel 6-9),
+//                  Huffman literals, FSE-coded sequences (tests/
+//                  test_torch_zstd_writer.py holds its chunks to
+//                  tensorstore's: headers equal, bytes within 1.10x at
+//                  clevel 1-5 and 1.20x at 6-9)
 //
 // Plain C++17 with a C ABI, built with the host's C++ compiler and loaded
 // with ctypes (xds/_codec.py).  Every entry point returns an error code (0
 // on success); every read is bounded by its source's length and every write
 // by its destination's, so a truncated, forged or corrupt chunk is an error,
-// never garbage.  No state is shared between calls: threads decode chunks in
-// parallel.
+// never garbage.  No state is shared between calls: threads decode and
+// encode chunks in parallel.
 
 #include <algorithm>
+#include <array>
 #include <atomic>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <memory>
@@ -797,7 +808,23 @@ size_t huf_read(const uint8_t* src, size_t n, HufTable* h) {
 bool huf_stream(const uint8_t* src, size_t n, const HufTable& h, uint8_t* dst, size_t count) {
   BackBits b;
   if (!b.init(src, n)) return false;
-  for (size_t i = 0; i < count; ++i) {
+  size_t i = 0;
+  // four symbols a load while 57 bits lie below the position: a 64-bit
+  // window ending at it, read from its top (4 x kHufMaxBits <= 57)
+  const uint64_t mask = (uint64_t(1) << h.max_bits) - 1;
+  while (b.pos >= 64 && count - i >= 4) {
+    const int64_t byte = (b.pos - 57) >> 3;
+    uint64_t w;
+    std::memcpy(&w, src + byte, 8);
+    int avail = int(b.pos - 8 * byte);  // 57..64 valid bits of w
+    for (int k = 0; k < 4; ++k) {
+      const uint32_t v = uint32_t((w >> (avail - h.max_bits)) & mask);
+      dst[i++] = h.symbol[v];
+      avail -= h.nbits[v];
+    }
+    b.pos = 8 * byte + avail;
+  }
+  for (; i < count; ++i) {
     const uint32_t v = uint32_t(b.peek(h.max_bits));
     dst[i] = h.symbol[v];
     b.pos -= h.nbits[v];
@@ -1112,6 +1139,1052 @@ int zstd_decode(const uint8_t* src, size_t n, uint8_t* dst, size_t cap, size_t* 
   return kOk;
 }
 
+// -- zstd encoder (RFC 8878) --------------------------------------------------
+//
+// One frame a call: single segment, the content size in the header, no
+// dictionary, no checksum.  Blocks of at most 128 KiB: all-equal bytes as
+// an RLE block, a block that does not shrink raw, the others compressed:
+// literals Huffman-coded (1 stream up to 1023 bytes, else 4) or raw or RLE,
+// whichever is shortest; sequences from a hash-chain matcher (greedy, lazy
+// or lazy2 by level, zstd's gain rules, repeat offsets) coded with the
+// predefined, an RLE or a compressed FSE table per symbol type, whichever
+// costs fewest bits.  The decoder above reads every frame this writes.
+
+// A forward bitstream, least significant bit first: the decoder reads it
+// backward from the end mark that close() appends.
+struct BitOut {
+  uint8_t* p;
+  size_t cap, pos = 0;
+  uint64_t acc = 0;
+  int n = 0;
+  bool full = false;
+  BitOut(uint8_t* dst, size_t c) : p(dst), cap(c) {}
+  void add(uint64_t v, int nb) {  // nb <= 56
+    acc |= (v & ((uint64_t(1) << nb) - 1)) << n;
+    n += nb;
+    const int bytes = n >> 3;
+    if (cap - pos >= 8) {
+      std::memcpy(p + pos, &acc, 8);  // little-endian: the low bytes first
+    } else if (cap - pos >= size_t(bytes)) {
+      for (int i = 0; i < bytes; ++i) p[pos + i] = uint8_t(acc >> (8 * i));
+    } else {
+      full = true;
+      pos = cap;
+      acc = 0;
+      n = 0;
+      return;
+    }
+    pos += size_t(bytes);
+    acc >>= 8 * bytes;
+    n &= 7;
+  }
+  // the end mark, then the partial last byte; 0 when the stream did not fit
+  size_t close() {
+    add(1, 1);
+    for (; n > 0 && !full; n -= 8, acc >>= 8) {
+      if (pos >= cap) full = true;
+      else p[pos++] = uint8_t(acc);
+    }
+    return full ? 0 : pos;
+  }
+};
+
+// FSE encoding table (zstd's FSE_buildCTable): the states of each symbol in
+// the order of their positions, and per symbol the transform from a state
+// to its bit count and next state.  -1 counts ("less than one") are laid
+// out as the decoder's fse_build lays them out.
+struct FseCTable {
+  int log = 0;
+  uint16_t state[512];
+  uint32_t delta_nbits[256];
+  int32_t delta_state[256];
+};
+
+void fse_build_ctable(FseCTable* ct, const int16_t* norm, int nsym, int log) {
+  const int size = 1 << log, mask = size - 1;
+  int high = size - 1;
+  uint8_t spread[512];
+  int cumul[257];
+  cumul[0] = 0;
+  for (int s = 0; s < nsym; ++s) {
+    if (norm[s] == -1) {
+      spread[high--] = uint8_t(s);
+      cumul[s + 1] = cumul[s] + 1;
+    } else {
+      cumul[s + 1] = cumul[s] + norm[s];
+    }
+  }
+  const int step = (size >> 1) + (size >> 3) + 3;
+  int pos = 0;
+  for (int s = 0; s < nsym; ++s) {
+    for (int i = 0; i < norm[s]; ++i) {
+      spread[pos] = uint8_t(s);
+      do pos = (pos + step) & mask; while (pos > high);
+    }
+  }
+  int next[256];
+  for (int s = 0; s < nsym; ++s) next[s] = cumul[s];
+  for (int u = 0; u < size; ++u) ct->state[next[spread[u]]++] = uint16_t(size + u);
+  ct->log = log;
+  int total = 0;
+  for (int s = 0; s < nsym; ++s) {
+    const int c = norm[s];
+    if (c == 0) {
+      ct->delta_nbits[s] = uint32_t(((log + 1) << 16) - size);
+      ct->delta_state[s] = 0;
+    } else if (c == -1 || c == 1) {
+      ct->delta_nbits[s] = uint32_t((log << 16) - size);
+      ct->delta_state[s] = total - 1;
+      total += 1;
+    } else {
+      const int max_out = log - highbit(uint32_t(c - 1));
+      ct->delta_nbits[s] = uint32_t((max_out << 16) - (c << max_out));
+      ct->delta_state[s] = total - c;
+      total += c;
+    }
+  }
+}
+
+struct FseCState {
+  const FseCTable* t;
+  uint32_t value;
+  // the state of `symbol` that the decoder reads most bits from next
+  // (zstd's FSE_initCState2): a symbol of count < 2^log reads at least one
+  void init(int symbol) {
+    const uint32_t nb = (t->delta_nbits[symbol] + (1 << 15)) >> 16;
+    const uint32_t v = (nb << 16) - t->delta_nbits[symbol];
+    value = t->state[int32_t(v >> nb) + t->delta_state[symbol]];
+  }
+  void encode(BitOut* b, int symbol) {
+    const uint32_t nb = (value + t->delta_nbits[symbol]) >> 16;
+    b->add(value, int(nb));
+    value = t->state[int32_t(value >> nb) + t->delta_state[symbol]];
+  }
+  void flush(BitOut* b) { b->add(value, t->log); }
+};
+
+// zstd's FSE_optimalTableLog: fewer states for few symbols to code.
+int fse_table_log(int max_log, size_t total, int max_symbol) {
+  const int src_max = highbit(uint32_t(total - 1)) - 2;
+  const int min_bits = std::min(highbit(uint32_t(total)) + 1, highbit(uint32_t(max_symbol)) + 2);
+  int log = max_log;
+  if (src_max < log) log = src_max;
+  if (min_bits > log) log = min_bits;
+  return std::max(5, std::min(log, max_log));
+}
+
+// Counts scaled to sum 2^log, every present symbol at least 1 (no -1
+// counts): rounded down, then the missing states given one at a time where
+// they save most bits and surplus ones taken where they cost least.
+void fse_normalize(const uint32_t* count, int nsym, size_t total, int log, int16_t* norm) {
+  const int size = 1 << log;
+  int sum = 0;
+  for (int s = 0; s < nsym; ++s) {
+    norm[s] = count[s] ? int16_t(std::max<uint64_t>(1, uint64_t(count[s]) * size / total)) : 0;
+    sum += norm[s];
+  }
+  while (sum != size) {
+    int best = -1;
+    double best_v = 0;
+    for (int s = 0; s < nsym; ++s) {
+      if (!count[s] || (sum > size && norm[s] <= 1)) continue;
+      // bits saved by one more state, or lost by one fewer
+      const double v = sum < size ? count[s] * std::log2((norm[s] + 1.0) / norm[s])
+                                  : -count[s] * std::log2(norm[s] / (norm[s] - 1.0));
+      if (best < 0 || v > best_v) {
+        best = s;
+        best_v = v;
+      }
+    }
+    norm[best] += sum < size ? 1 : -1;
+    sum += sum < size ? 1 : -1;
+  }
+}
+
+// FSE_writeNCount: the table description that fse_read_counts reads;
+// returns the bytes written or 0 when they do not fit.
+size_t fse_write_counts(const int16_t* norm, int nsym, int log, uint8_t* dst, size_t cap) {
+  while (nsym > 0 && norm[nsym - 1] == 0) --nsym;
+  std::vector<uint8_t> bits;  // one a bit, then packed
+  auto put = [&](uint32_t v, int nb) {
+    for (int i = 0; i < nb; ++i) bits.push_back(uint8_t((v >> i) & 1));
+  };
+  put(uint32_t(log - 5), 4);
+  int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1;
+  bool previous_zero = false;
+  for (int s = 0; s < nsym && remaining > 1;) {
+    if (previous_zero) {
+      int zeros = 0;
+      while (s + zeros < nsym && norm[s + zeros] == 0) ++zeros;
+      s += zeros;
+      for (; zeros >= 3; zeros -= 3) put(3, 2);
+      put(uint32_t(zeros), 2);
+    }
+    int count = norm[s++];
+    const int max = (2 * threshold - 1) - remaining;
+    remaining -= count < 0 ? -count : count;
+    count += 1;
+    if (count >= threshold) count += max;
+    put(uint32_t(count), nbits - (count < max ? 1 : 0));
+    previous_zero = count == 1;
+    while (remaining < threshold) {
+      --nbits;
+      threshold >>= 1;
+    }
+  }
+  const size_t n = (bits.size() + 7) / 8;
+  if (n > cap) return 0;
+  std::memset(dst, 0, n);
+  for (size_t i = 0; i < bits.size(); ++i) dst[i >> 3] |= uint8_t(bits[i] << (i & 7));
+  return n;
+}
+
+// Bits that `norm` (of table size 2^log) spends on symbols of these counts;
+// infinite when a present symbol has no state.
+double fse_cost(const uint32_t* count, int nsym, const int16_t* norm, int nnorm, int log) {
+  double bits = 0;
+  for (int s = 0; s < nsym; ++s) {
+    if (!count[s]) continue;
+    if (s >= nnorm || norm[s] == 0) return 1e300;
+    bits += count[s] * (norm[s] == -1 ? double(log) : log - std::log2(double(norm[s])));
+  }
+  return bits;
+}
+
+// -- Huffman literals --
+
+struct HufCode {
+  int max_bits = 0;
+  int last = 0;  // the highest symbol present: its weight is implied
+  uint16_t code[256];
+  uint8_t len[256];  // 0: absent
+};
+
+// A Huffman code over `count` (at least two symbols present), complete and
+// at most kHufMaxBits long (lengths above it moved up as JPEG's Annex K.3
+// does), in the decoder's canonical order.
+void huf_build(const uint32_t* count, HufCode* h) {
+  int sym[256], n = 0;
+  for (int s = 0; s < 256; ++s)
+    if (count[s]) sym[n++] = s;
+  std::sort(sym, sym + n, [&](int a, int b) {
+    return count[a] != count[b] ? count[a] < count[b] : a < b;
+  });
+  // two queues: the leaves in sorted order, the inner nodes as made
+  uint64_t w[512];
+  int parent[512];
+  for (int i = 0; i < n; ++i) w[i] = count[sym[i]];
+  int leaf = 0, inner = n;
+  for (int k = n; k < 2 * n - 1; ++k) {
+    int pick[2];
+    for (int& p : pick) p = (leaf < n && (inner >= k || w[leaf] <= w[inner])) ? leaf++ : inner++;
+    w[k] = w[pick[0]] + w[pick[1]];
+    parent[pick[0]] = parent[pick[1]] = k;
+  }
+  int depth[512];
+  depth[2 * n - 2] = 0;
+  int bl[512] = {0};
+  for (int k = 2 * n - 3; k >= 0; --k) depth[k] = depth[parent[k]] + 1;
+  int max_len = 0;
+  for (int i = 0; i < n; ++i) {
+    bl[depth[i]]++;
+    max_len = std::max(max_len, depth[i]);
+  }
+  for (int i = max_len; i > kHufMaxBits; --i) {
+    while (bl[i] > 0) {
+      int j = i - 2;
+      while (bl[j] == 0) --j;
+      bl[i] -= 2;
+      bl[i - 1] += 1;
+      bl[j + 1] += 2;
+      bl[j] -= 1;
+    }
+  }
+  // the shortest lengths to the most frequent symbols
+  std::memset(h->len, 0, sizeof(h->len));
+  int len = 1, i = n - 1;
+  h->max_bits = 0;
+  for (; i >= 0; --i) {
+    while (bl[len] == 0) ++len;
+    bl[len]--;
+    h->len[sym[i]] = uint8_t(len);
+    h->max_bits = len;
+  }
+  // codes as huf_read lays out its table: weight 1 (the longest) first,
+  // symbols in order within a weight
+  uint32_t pos = 0;
+  for (int l = h->max_bits; l >= 1; --l) {
+    for (int s = 0; s < 256; ++s) {
+      if (h->len[s] != l) continue;
+      h->code[s] = uint16_t(pos >> (h->max_bits - l));
+      pos += uint32_t(1) << (h->max_bits - l);
+    }
+  }
+  h->last = 0;
+  for (int s = 0; s < 256; ++s)
+    if (h->len[s]) h->last = s;
+}
+
+// The weights of symbols 0..last-1 compressed with FSE (two interleaved
+// states, zstd's FSE_compress_usingCTable); 0 when that does not pay.
+size_t huf_fse_weights(const uint8_t* wts, int nw, uint8_t* dst, size_t cap) {
+  if (nw < 3) return 0;
+  uint32_t count[16] = {0};
+  int max_symbol = 0;
+  for (int i = 0; i < nw; ++i) {
+    count[wts[i]]++;
+    max_symbol = std::max(max_symbol, int(wts[i]));
+  }
+  for (int s = 0; s <= max_symbol; ++s)
+    if (count[s] == uint32_t(nw)) return 0;  // one symbol: FSE cannot
+  const int log = 6;
+  int16_t norm[16];
+  fse_normalize(count, max_symbol + 1, size_t(nw), log, norm);
+  const size_t hdr = fse_write_counts(norm, max_symbol + 1, log, dst, cap);
+  if (hdr == 0) return 0;
+  FseCTable ct;
+  fse_build_ctable(&ct, norm, max_symbol + 1, log);
+  BitOut b(dst + hdr, cap - hdr);
+  FseCState s1{&ct, 0}, s2{&ct, 0};
+  int i;
+  if (nw & 1) {
+    s1.init(wts[nw - 1]);
+    s2.init(wts[nw - 2]);
+    s1.encode(&b, wts[nw - 3]);
+    i = nw - 3;
+  } else {
+    s2.init(wts[nw - 1]);
+    s1.init(wts[nw - 2]);
+    i = nw - 2;
+  }
+  while (i > 0) {
+    s2.encode(&b, wts[--i]);
+    s1.encode(&b, wts[--i]);
+  }
+  s2.flush(&b);
+  s1.flush(&b);
+  const size_t body = b.close();
+  return body ? hdr + body : 0;
+}
+
+// The tree description huf_read reads: FSE-compressed weights or 4-bit
+// direct ones, whichever is shorter; 0 when neither can be written.
+size_t huf_write_tree(const HufCode& h, uint8_t* dst, size_t cap) {
+  uint8_t wts[256];
+  const int nw = h.last;
+  for (int s = 0; s < nw; ++s) wts[s] = h.len[s] ? uint8_t(h.max_bits + 1 - h.len[s]) : 0;
+  uint8_t fse[128];
+  const size_t fse_size = huf_fse_weights(wts, nw, fse, 127);
+  const size_t direct = nw <= 128 ? 1 + size_t(nw + 1) / 2 : 0;
+  if (fse_size && (!direct || fse_size + 1 < direct)) {
+    if (fse_size + 1 > cap) return 0;
+    dst[0] = uint8_t(fse_size);
+    std::memcpy(dst + 1, fse, fse_size);
+    return fse_size + 1;
+  }
+  if (!direct || direct > cap) return 0;
+  dst[0] = uint8_t(127 + nw);
+  for (int i = 0; i < nw; i += 2)
+    dst[1 + i / 2] = uint8_t((wts[i] << 4) | (i + 1 < nw ? wts[i + 1] : 0));
+  return direct;
+}
+
+// One Huffman stream, its last symbol written first.
+size_t huf_write_stream(const uint8_t* src, size_t n, const HufCode& h, uint8_t* dst,
+                        size_t cap) {
+  BitOut b(dst, cap);
+  for (size_t i = n; i-- > 0;) b.add(h.code[src[i]], h.len[src[i]]);
+  return b.close();
+}
+
+// A raw or RLE literals header of `size`; returns its length.
+size_t literals_header(int type, size_t size, uint8_t* dst) {
+  if (size < 32) {
+    dst[0] = uint8_t(type | (size << 3));
+    return 1;
+  }
+  if (size < 4096) {
+    dst[0] = uint8_t(type | (1 << 2) | ((size & 15) << 4));
+    dst[1] = uint8_t(size >> 4);
+    return 2;
+  }
+  dst[0] = uint8_t(type | (3 << 2) | ((size & 15) << 4));
+  dst[1] = uint8_t(size >> 4);
+  dst[2] = uint8_t(size >> 12);
+  return 3;
+}
+
+// zstd's ZSTD_minGain: a coded form must save this much on `n` raw bytes,
+// or the raw form is kept (it decodes as a copy).
+inline size_t min_gain(size_t n) { return (n >> 6) + 2; }
+
+// The literals section, the shortest of raw, RLE and Huffman (which must
+// save min_gain); 0 when it does not fit in `cap`.
+size_t zstd_write_literals(const uint8_t* lit, size_t n, uint8_t* dst, size_t cap) {
+  uint8_t hdr[5];
+  if (n > 0 && std::all_of(lit, lit + n, [&](uint8_t c) { return c == lit[0]; })) {
+    const size_t h = literals_header(1, n, hdr);
+    if (h + 1 > cap) return 0;
+    std::memcpy(dst, hdr, h);
+    dst[h] = lit[0];
+    return h + 1;
+  }
+  const size_t raw = literals_header(0, n, hdr) + n;
+  if (n >= 32) {
+    uint32_t count[256] = {0};
+    for (size_t i = 0; i < n; ++i) count[lit[i]]++;
+    HufCode h;
+    huf_build(count, &h);
+    uint8_t tree[129];
+    const size_t tsize = huf_write_tree(h, tree, sizeof(tree));
+    uint64_t bits = 0;
+    for (int s = 0; s < 256; ++s) bits += uint64_t(count[s]) * h.len[s];
+    const bool single = n <= 1023;
+    const size_t hsize = single ? 3 : n <= 16383 ? 4 : 5;
+    const size_t estimate = hsize + tsize + bits / 8 + (single ? 1 : 10);
+    if (tsize && estimate + min_gain(n) < raw && estimate <= cap) {
+      const size_t room = std::min(cap, raw) - hsize;
+      uint8_t* p = dst + hsize;
+      std::memcpy(p, tree, tsize);
+      size_t comp = tsize;
+      bool ok = true;
+      if (single) {
+        const size_t s = huf_write_stream(lit, n, h, p + comp, room - comp);
+        ok = s != 0;
+        comp += s;
+      } else {
+        const size_t seg = (n + 3) / 4;
+        ok = room - comp >= 6;
+        uint8_t* jump = p + comp;
+        comp += ok ? 6 : 0;
+        for (int i = 0; ok && i < 4; ++i) {
+          const size_t cnt = i < 3 ? seg : n - 3 * seg;
+          const size_t s = huf_write_stream(lit + i * seg, cnt, h, p + comp, room - comp);
+          ok = s != 0 && (i == 3 || s <= 0xFFFF);
+          if (ok && i < 3) {
+            jump[2 * i] = uint8_t(s);
+            jump[2 * i + 1] = uint8_t(s >> 8);
+          }
+          comp += s;
+        }
+      }
+      const size_t limit = hsize == 3 ? 1023 : hsize == 4 ? 16383 : 262143;
+      if (ok && comp <= limit && hsize + comp + min_gain(n) < raw) {
+        // type 2; size format 0 (one stream), 2 or 3 (four)
+        const uint64_t v = uint64_t(2) | (uint64_t(single ? 0 : hsize - 2) << 2) |
+                           (uint64_t(n) << 4) |
+                           (uint64_t(comp) << (hsize == 3 ? 14 : hsize == 4 ? 18 : 22));
+        for (size_t i = 0; i < hsize; ++i) dst[i] = uint8_t(v >> (8 * i));
+        return hsize + comp;
+      }
+    }
+  }
+  if (raw > cap) return 0;
+  const size_t h = literals_header(0, n, dst);
+  std::memcpy(dst + h, lit, n);
+  return raw;
+}
+
+// -- sequences --
+
+struct Sequence {
+  uint32_t lit;      // literal length
+  uint32_t off_base;  // offset + 3, or a repeat code 1-3
+  uint32_t match;    // match length (>= 3)
+};
+
+inline int ll_code(uint32_t ll) {
+  static const auto table = [] {
+    std::array<uint8_t, 64> t{};
+    for (uint32_t v = 0, c = 0; v < 64; ++v) {
+      while (c + 1 < 36 && kLLBase[c + 1] <= v) ++c;
+      t[v] = uint8_t(c);
+    }
+    return t;
+  }();
+  return ll < 64 ? table[ll] : highbit(ll) + 19;
+}
+
+inline int ml_code(uint32_t ml) {
+  static const auto table = [] {
+    std::array<uint8_t, 128> t{};
+    for (uint32_t v = 0, c = 0; v < 128; ++v) {
+      while (c + 1 < 53 && kMLBase[c + 1] - 3 <= v) ++c;
+      t[v] = uint8_t(c);
+    }
+    return t;
+  }();
+  const uint32_t base = ml - 3;
+  return base < 128 ? table[base] : highbit(base) + 36;
+}
+
+// The encoding of the repeat offsets, as zstd_block decodes them: the
+// cheapest code for `offset` after `lit` literals, and the state after it.
+uint32_t off_base_for(uint32_t offset, uint32_t lit, uint32_t* rep) {
+  uint32_t code;
+  if (lit != 0) {
+    code = offset == rep[0] ? 1 : offset == rep[1] ? 2 : offset == rep[2] ? 3 : offset + 3;
+  } else {
+    code = offset == rep[1] ? 1 : offset == rep[2] ? 2 : (rep[0] > 1 && offset == rep[0] - 1) ? 3
+                                                                                             : offset + 3;
+  }
+  if (code > 3) {
+    rep[2] = rep[1];
+    rep[1] = rep[0];
+    rep[0] = offset;
+  } else {
+    const uint32_t k = code - (lit != 0 ? 1 : 0);
+    if (k != 0) {
+      if (k != 1) rep[2] = rep[1];
+      rep[1] = rep[0];
+      rep[0] = offset;
+    }
+  }
+  return code;
+}
+
+// One symbol type's table: its mode (0 predefined, 1 RLE, 2 compressed)
+// and description, chosen by the bits each would spend.
+struct SeqTable {
+  int mode = 0;
+  FseCTable ct;
+  uint8_t desc[64];
+  size_t desc_size = 0;
+};
+
+void choose_table(const uint32_t* count, int max_symbol, size_t nseq, const FseCTable& predef,
+                  const int16_t* def_norm, int ndef, int def_log, int max_log, SeqTable* t) {
+  int present = 0, last = 0;
+  for (int s = 0; s <= max_symbol; ++s)
+    if (count[s]) {
+      present++;
+      last = s;
+    }
+  if (present == 1) {  // RLE: one byte, no bits
+    t->mode = 1;
+    t->desc[0] = uint8_t(last);
+    t->desc_size = 1;
+    t->ct.log = 0;
+    return;
+  }
+  const double predef_bits = fse_cost(count, last + 1, def_norm, ndef, def_log);
+  double comp_bits = 1e300;
+  int16_t norm[64];
+  int log = 0;
+  size_t desc = 0;
+  if (present > 1) {
+    log = fse_table_log(max_log, nseq, last);
+    while ((1 << log) < present) ++log;
+    fse_normalize(count, last + 1, nseq, log, norm);
+    desc = fse_write_counts(norm, last + 1, log, t->desc, sizeof(t->desc));
+    if (desc) comp_bits = fse_cost(count, last + 1, norm, last + 1, log) + 8.0 * desc;
+  }
+  if (predef_bits <= comp_bits) {
+    t->mode = 0;
+    t->desc_size = 0;
+    t->ct = predef;
+  } else {
+    t->mode = 2;
+    t->desc_size = desc;
+    fse_build_ctable(&t->ct, norm, last + 1, log);
+  }
+}
+
+// The sequences section; 0 when it does not fit in `cap`.
+size_t zstd_write_sequences(const Sequence* seqs, size_t nseq, uint8_t* dst, size_t cap,
+                            std::vector<uint8_t>* codes) {
+  static const auto predef = [] {
+    std::array<FseCTable, 3> t;
+    fse_build_ctable(&t[0], kLLDefault, 36, 6);
+    fse_build_ctable(&t[1], kOFDefault, 29, 5);
+    fse_build_ctable(&t[2], kMLDefault, 53, 6);
+    return t;
+  }();
+  if (cap < 4) return 0;
+  size_t op;
+  if (nseq < 128) {
+    dst[0] = uint8_t(nseq);
+    op = 1;
+  } else if (nseq < 0x7F00) {
+    dst[0] = uint8_t((nseq >> 8) + 0x80);
+    dst[1] = uint8_t(nseq);
+    op = 2;
+  } else {
+    dst[0] = 0xFF;
+    dst[1] = uint8_t(nseq - 0x7F00);
+    dst[2] = uint8_t((nseq - 0x7F00) >> 8);
+    op = 3;
+  }
+  if (nseq == 0) return op;
+  codes->resize(3 * nseq);
+  uint8_t* llc = codes->data();
+  uint8_t* ofc = llc + nseq;
+  uint8_t* mlc = ofc + nseq;
+  uint32_t cll[36] = {0}, cof[32] = {0}, cml[53] = {0};
+  for (size_t i = 0; i < nseq; ++i) {
+    llc[i] = uint8_t(ll_code(seqs[i].lit));
+    ofc[i] = uint8_t(highbit(seqs[i].off_base));
+    mlc[i] = uint8_t(ml_code(seqs[i].match));
+    cll[llc[i]]++;
+    cof[ofc[i]]++;
+    cml[mlc[i]]++;
+  }
+  std::unique_ptr<SeqTable[]> t(new SeqTable[3]);
+  choose_table(cll, 35, nseq, predef[0], kLLDefault, 36, 6, 9, &t[0]);
+  choose_table(cof, 31, nseq, predef[1], kOFDefault, 29, 5, 8, &t[1]);
+  choose_table(cml, 52, nseq, predef[2], kMLDefault, 53, 6, 9, &t[2]);
+  if (cap - op < 1 + t[0].desc_size + t[1].desc_size + t[2].desc_size) return 0;
+  dst[op++] = uint8_t((t[0].mode << 6) | (t[1].mode << 4) | (t[2].mode << 2));
+  for (int k = 0; k < 3; ++k) {
+    std::memcpy(dst + op, t[k].desc, t[k].desc_size);
+    op += t[k].desc_size;
+  }
+  // sequences last to first, so that the decoder reads them first to last
+  BitOut b(dst + op, cap - op);
+  FseCState ll{&t[0].ct, 0}, of{&t[1].ct, 0}, ml{&t[2].ct, 0};
+  const bool rle[3] = {t[0].mode == 1, t[1].mode == 1, t[2].mode == 1};
+  auto extras = [&](size_t i) {
+    b.add(seqs[i].lit - kLLBase[llc[i]], kLLBits[llc[i]]);
+    b.add(seqs[i].match - kMLBase[mlc[i]], kMLBits[mlc[i]]);
+    b.add(seqs[i].off_base - (uint32_t(1) << ofc[i]), ofc[i]);
+  };
+  size_t i = nseq - 1;
+  if (!rle[2]) ml.init(mlc[i]);
+  if (!rle[1]) of.init(ofc[i]);
+  if (!rle[0]) ll.init(llc[i]);
+  extras(i);
+  while (i-- > 0) {
+    if (!rle[1]) of.encode(&b, ofc[i]);
+    if (!rle[2]) ml.encode(&b, mlc[i]);
+    if (!rle[0]) ll.encode(&b, llc[i]);
+    extras(i);
+  }
+  if (!rle[2]) ml.flush(&b);
+  if (!rle[1]) of.flush(&b);
+  if (!rle[0]) ll.flush(&b);
+  const size_t body = b.close();
+  return body ? op + body : 0;
+}
+
+// -- the matcher --
+
+struct MatchLevel {
+  int depth;       // chain candidates tried a position
+  int lazy;        // 0 greedy, 1 lazy, 2 lazy2
+  int hash_log;    // at most; fewer for short inputs
+  int sufficient;  // > 0: the optimal parser, a match this long taken as is
+};
+
+// blosc clevel 1-9 (zstd levels 1, 3, 5, ... 15, 22 in c-blosc): the search
+// grows with the level
+// (zstd's btopt, btultra, btultra2 at c-blosc's clevels 6-9 on small inputs)
+constexpr MatchLevel kMatchLevels[10] = {
+    {1, 0, 12, 0},   {4, 0, 14, 0},   {6, 0, 15, 0},    {8, 1, 16, 0},   {16, 1, 16, 0},
+    {24, 2, 17, 0},  {16, 2, 17, 32}, {24, 2, 17, 64}, {48, 2, 17, 128}, {128, 2, 17, 256}};
+
+inline size_t match_length(const uint8_t* a, const uint8_t* b, const uint8_t* a_end) {
+  const uint8_t* start = a;
+  while (a_end - a >= 8) {
+    uint64_t x, y;
+    std::memcpy(&x, a, 8);
+    std::memcpy(&y, b, 8);
+    if (x != y) return size_t(a - start) + (__builtin_ctzll(x ^ y) >> 3);
+    a += 8;
+    b += 8;
+  }
+  while (a < a_end && *a == *b) {
+    ++a;
+    ++b;
+  }
+  return size_t(a - start);
+}
+
+struct OptNode {  // the cheapest parse found of the bytes before a position
+  float price;      // in bits, the pending literals' length code not in it
+  uint32_t lit;     // literals since the last match
+  uint32_t offset;  // of the match that ends here; 0: reached by a literal
+  uint32_t len;
+  uint32_t rep[3];  // the repeat offsets after it
+};
+
+struct ZstdScratch {
+  std::vector<int32_t> head, chain;
+  std::vector<Sequence> seqs;
+  std::vector<uint8_t> literals, codes, block;
+  std::vector<OptNode> opt;
+  std::vector<std::pair<uint32_t, uint32_t>> cands;
+};
+
+struct Matcher {
+  const uint8_t* src;
+  size_t n;
+  MatchLevel lv;
+  int hash_log;
+  int32_t* head;
+  int32_t* chain;
+  size_t next = 0;  // positions below are in the chains
+  std::vector<std::pair<uint32_t, uint32_t>> found;  // find's scratch
+
+  uint32_t hash(size_t p) const {
+    uint32_t v;
+    std::memcpy(&v, src + p, 4);
+    return (v * 2654435761u) >> (32 - hash_log);
+  }
+  void insert_until(size_t p) {
+    const size_t end = std::min(p, n - 3);
+    for (; next < end; ++next) {
+      const uint32_t h = hash(next);
+      chain[next] = head[h];
+      head[h] = int32_t(next);
+    }
+  }
+  // the chains as they were before position p was inserted
+  void rewind(size_t p) {
+    for (; next > p; --next) head[hash(next - 1)] = chain[next - 1];
+  }
+  // every match at ip longer than `best` (ending by `limit`), in the order
+  // found: each longer than the one before
+  void find_all(size_t ip, size_t limit, size_t best,
+                std::vector<std::pair<uint32_t, uint32_t>>* out) {
+    insert_until(ip);
+    const uint8_t* end = src + limit;
+    int32_t cand = head[hash(ip)];
+    for (int tries = lv.depth; cand >= 0 && tries > 0; --tries, cand = chain[cand]) {
+      const size_t c = size_t(cand);
+      if (src[c + best] != src[ip + best]) continue;  // ip + best < limit
+      const size_t len = match_length(src + ip, src + c, end);
+      if (len > best) {
+        best = len;
+        out->push_back({uint32_t(len), uint32_t(ip - c)});
+        if (ip + len == limit) break;
+      }
+    }
+  }
+  // the longest match of at least 4 bytes at ip ending by `limit` (0 when
+  // none), its offset in *off
+  size_t find(size_t ip, size_t limit, uint32_t* off) {
+    found.clear();
+    find_all(ip, limit, 3, &found);
+    if (found.empty()) return 0;
+    *off = found.back().second;
+    return found.back().first;
+  }
+  size_t rep_length(size_t ip, uint32_t offset, size_t limit) const {
+    if (offset == 0 || offset > ip) return 0;
+    uint32_t a, b;
+    std::memcpy(&a, src + ip, 4);
+    std::memcpy(&b, src + ip - offset, 4);
+    return a == b ? match_length(src + ip, src + ip - offset, src + limit) : 0;
+  }
+};
+
+// The sequences of the block src[start, end): zstd's lazy matcher (gain =
+// 4 bits a matched byte against the offset's bits; a repeat offset checked
+// first); the literals in s->literals.  `rep` is the encoder's copy of the
+// decoder's repeat offsets.
+void find_sequences(Matcher* m, size_t start, size_t end, uint32_t* rep, ZstdScratch* s) {
+  s->seqs.clear();
+  s->literals.clear();
+  const uint8_t* src = m->src;
+  size_t ip = start, anchor = start;
+  const size_t ilimit = end - start >= 8 ? end - 8 : start;
+  auto store = [&](size_t at, uint32_t offset, size_t len) {
+    const uint32_t lit = uint32_t(at - anchor);
+    s->literals.insert(s->literals.end(), src + anchor, src + at);
+    s->seqs.push_back({lit, off_base_for(offset, lit, rep), uint32_t(len)});
+    anchor = at + len;
+  };
+  auto code_of = [&](uint32_t offset) -> uint32_t {  // the code's cost proxy
+    return offset == rep[0] ? 1 : offset + 3;
+  };
+  while (ip < ilimit) {
+    size_t len = 0, at = ip;
+    uint32_t offset = 0;
+    // a repeat of the last offset one byte on (literals before it)
+    const size_t rl = m->rep_length(ip + 1, rep[0], end);
+    if (rl >= 4) {
+      len = rl;
+      at = ip + 1;
+      offset = rep[0];
+    }
+    if (!(len && m->lv.lazy == 0)) {
+      uint32_t off;
+      const size_t fl = m->find(ip, end, &off);
+      if (fl > len) {
+        len = fl;
+        at = ip;
+        offset = off;
+      }
+    }
+    if (len == 0) {
+      ip += 1 + ((ip - anchor) >> 8);
+      continue;
+    }
+    if (m->lv.lazy > 0) {
+      for (int d = 1; ip < ilimit;) {
+        ++ip;
+        const int bonus = d == 1 ? 0 : 3;
+        const size_t r = m->rep_length(ip, rep[0], end);
+        if (r >= 4 && int(r * 3) > int(len * 3) - highbit(code_of(offset)) + 1 + bonus) {
+          len = r;
+          at = ip;
+          offset = rep[0];
+        }
+        uint32_t off;
+        const size_t fl = m->find(ip, end, &off);
+        if (fl && int(fl * 4) - highbit(code_of(off)) >
+                           int(len * 4) - highbit(code_of(offset)) + 4 + bonus) {
+          len = fl;
+          at = ip;
+          offset = off;
+          d = 1;
+          continue;
+        }
+        if (d < m->lv.lazy) {
+          ++d;
+          continue;
+        }
+        break;
+      }
+    }
+    // extend backwards over equal bytes
+    while (at > anchor && at > offset && src[at - 1] == src[at - 1 - offset]) {
+      --at;
+      ++len;
+    }
+    store(at, offset, len);
+    ip = anchor;
+    // the second repeat offset right after a match (no literals)
+    while (ip < ilimit) {
+      const size_t r = m->rep_length(ip, rep[1], end);
+      if (r < 4) break;
+      store(ip, rep[1], r);
+      ip = anchor;
+    }
+  }
+  s->literals.insert(s->literals.end(), src + anchor, src + end);
+}
+
+// Bits a symbol costs, estimated from a parse's counts (one added to each):
+// the optimal parser's prices.
+struct Prices {
+  float lit[256], ll[36], ml[53], of[32];
+  explicit Prices(const ZstdScratch& s) {
+    uint32_t cl[256] = {0}, cll[36] = {0}, cml[53] = {0}, cof[32] = {0};
+    for (const uint8_t b : s.literals) cl[b]++;
+    for (const Sequence& q : s.seqs) {
+      cll[ll_code(q.lit)]++;
+      cml[ml_code(q.match)]++;
+      cof[highbit(q.off_base)]++;
+    }
+    auto fill = [](const uint32_t* count, int n, float* out) {
+      double total = n;
+      for (int i = 0; i < n; ++i) total += count[i];
+      for (int i = 0; i < n; ++i) out[i] = float(std::log2(total / (count[i] + 1.0)));
+    };
+    fill(cl, 256, lit);
+    fill(cll, 36, ll);
+    fill(cml, 53, ml);
+    fill(cof, 32, of);
+  }
+  float lit_length(uint32_t n) const {  // n up to a whole block: code 36
+    const int c = std::min(ll_code(n), 35);
+    return ll[c] + kLLBits[c];
+  }
+  float match(uint32_t off_base, uint32_t len) const {
+    const int oc = highbit(off_base), mc = ml_code(len);
+    return of[oc] + float(oc) + ml[mc] + kMLBits[mc];
+  }
+};
+
+// The sequences of src[start, end) by price (zstd's btopt): each position
+// reached at least cost by a literal or by a match of any length up to
+// each candidate's (the repeat offsets of the path first, then the hash
+// chain's), a match of `sufficient` bytes taken as is; then the cheapest
+// path back from the end.
+void optimal_sequences(Matcher* m, size_t start, size_t end, uint32_t* rep, const Prices& pr,
+                       ZstdScratch* s) {
+  const size_t n = end - start;
+  const uint8_t* src = m->src;
+  s->opt.resize(n + 1);
+  OptNode* opt = s->opt.data();
+  for (size_t k = 1; k <= n; ++k) opt[k].price = 1e30f;
+  opt[0] = {0, 0, 0, 0, {rep[0], rep[1], rep[2]}};
+  const size_t ilimit = n >= 8 ? n - 8 : 0;
+  const uint32_t min_len = 3;
+  for (size_t k = 0; k < n;) {
+    const OptNode at = opt[k];
+    const float lp = at.price + pr.lit[src[start + k]] + pr.lit_length(at.lit + 1) -
+                     pr.lit_length(at.lit);
+    if (lp < opt[k + 1].price) opt[k + 1] = {lp, at.lit + 1, 0, 0, {at.rep[0], at.rep[1], at.rep[2]}};
+    if (k >= ilimit) {
+      ++k;
+      continue;
+    }
+    const size_t ip = start + k;
+    s->cands.clear();
+    size_t best = min_len - 1;
+    const uint32_t reps[3] = {at.lit ? at.rep[0] : at.rep[1], at.lit ? at.rep[1] : at.rep[2],
+                              at.lit ? at.rep[2] : at.rep[0] - 1};
+    for (const uint32_t r : reps) {
+      if (r == 0 || r > ip) continue;
+      const size_t len = match_length(src + ip, src + ip - r, src + end);
+      if (len > best) {
+        best = len;
+        s->cands.push_back({uint32_t(len), r});
+      }
+    }
+    m->find_all(ip, end, best, &s->cands);
+    if (s->cands.empty()) {
+      ++k;
+      continue;
+    }
+    const float base = at.price + pr.lit_length(at.lit);
+    auto reach = [&](uint32_t len, uint32_t offset, float price) {
+      OptNode& to = opt[k + len];
+      to = {price, 0, offset, len, {at.rep[0], at.rep[1], at.rep[2]}};
+      off_base_for(offset, at.lit, to.rep);
+    };
+    const auto longest = s->cands.back();
+    if (longest.first >= uint32_t(m->lv.sufficient)) {
+      uint32_t r[3] = {at.rep[0], at.rep[1], at.rep[2]};
+      reach(longest.first, longest.second,
+            base + pr.match(off_base_for(longest.second, at.lit, r), longest.first));
+      k += longest.first;
+      continue;
+    }
+    uint32_t prev = min_len - 1;
+    for (const auto& c : s->cands) {
+      uint32_t r[3] = {at.rep[0], at.rep[1], at.rep[2]};
+      const uint32_t code = off_base_for(c.second, at.lit, r);
+      for (uint32_t len = prev + 1; len <= c.first; ++len) {
+        const float p = base + pr.match(code, len);
+        if (p < opt[k + len].price) reach(len, c.second, p);
+      }
+      prev = c.first;
+    }
+    ++k;
+  }
+  // the path back from the end, then its sequences in order
+  size_t count = 0;
+  for (size_t k = n; k > 0; k -= opt[k].len ? opt[k].len : 1) count += opt[k].len ? 1 : 0;
+  s->seqs.resize(count);
+  for (size_t k = n, i = count; k > 0; k -= opt[k].len ? opt[k].len : 1)
+    if (opt[k].len) s->seqs[--i] = {uint32_t(k - opt[k].len), opt[k].offset, opt[k].len};
+  s->literals.clear();
+  size_t anchor = 0;
+  for (Sequence& q : s->seqs) {  // {start, offset, length} into {lit, code, length}
+    const uint32_t lit = uint32_t(q.lit - anchor);
+    s->literals.insert(s->literals.end(), src + start + anchor, src + start + q.lit);
+    anchor = q.lit + q.match;
+    q = {lit, off_base_for(q.off_base, lit, rep), q.match};
+  }
+  s->literals.insert(s->literals.end(), src + start + anchor, src + end);
+}
+
+// The literals and sequences sections of one block into dst[0, cap); 0
+// when they do not fit.
+size_t write_block_body(ZstdScratch* s, uint8_t* dst, size_t cap) {
+  const size_t lsize = zstd_write_literals(s->literals.data(), s->literals.size(), dst, cap);
+  if (!lsize) return 0;
+  const size_t ssize =
+      zstd_write_sequences(s->seqs.data(), s->seqs.size(), dst + lsize, cap - lsize, &s->codes);
+  return ssize ? lsize + ssize : 0;
+}
+
+// One zstd frame of src[0, n) into dst[0, cap) at blosc clevel 1-9; the
+// frame's size, or 0 when it does not fit.
+size_t zstd_encode(const uint8_t* src, size_t n, int clevel, uint8_t* dst, size_t cap,
+                   ZstdScratch* s) {
+  if (cap < 18 || n > UINT32_MAX) return 0;
+  size_t op = 0;
+  store32(dst, 0xFD2FB528u);
+  const int fcs_flag = n < 256 ? 0 : n < 65536 + 256 ? 1 : 2;
+  dst[4] = uint8_t((fcs_flag << 6) | 0x20);  // single segment
+  op = 5;
+  if (fcs_flag == 0) {
+    dst[op++] = uint8_t(n);
+  } else if (fcs_flag == 1) {
+    dst[op++] = uint8_t(n - 256);
+    dst[op++] = uint8_t((n - 256) >> 8);
+  } else {
+    store32(dst + op, uint32_t(n));
+    op += 4;
+  }
+  if (n == 0) {  // one empty raw block
+    dst[op++] = 1;
+    dst[op++] = 0;
+    dst[op++] = 0;
+    return op;
+  }
+  Matcher m{src, n, kMatchLevels[std::max(1, std::min(clevel, 9))], 0, nullptr, nullptr, 0, {}};
+  m.hash_log = std::max(10, std::min(m.lv.hash_log, highbit(uint32_t(n)) + 1));
+  if (n >= 8) {
+    s->head.assign(size_t(1) << m.hash_log, -1);
+    s->chain.resize(n);
+    m.head = s->head.data();
+    m.chain = s->chain.data();
+  }
+  uint32_t rep[3] = {1, 4, 8};
+  for (size_t start = 0; start < n;) {
+    const size_t end = std::min(n, start + kZstdBlockMax);
+    const size_t size = end - start;
+    const uint32_t last = end == n ? 1 : 0;
+    if (cap - op < 4) return 0;
+    uint8_t* bh = dst + op;
+    op += 3;
+    const uint8_t* b = src + start;
+    if (std::all_of(b, b + size, [&](uint8_t c) { return c == b[0]; })) {
+      dst[op++] = b[0];
+      const uint32_t h = last | (1u << 1) | uint32_t(size << 3);
+      bh[0] = uint8_t(h);
+      bh[1] = uint8_t(h >> 8);
+      bh[2] = uint8_t(h >> 16);
+      start = end;
+      continue;
+    }
+    size_t csize = 0;
+    if (size >= 8) {
+      const uint32_t saved[3] = {rep[0], rep[1], rep[2]};
+      find_sequences(&m, start, end, rep, s);
+      // a compressed block only when it saves min_gain on the raw one
+      const size_t room = std::min(cap - op, size - min_gain(size));
+      csize = write_block_body(s, dst + op, room);
+      if (m.lv.sufficient > 0) {
+        // the optimal parse, priced by the lazy one's counts; the shorter
+        // block is kept
+        const Prices prices(*s);
+        uint32_t opt_rep[3] = {saved[0], saved[1], saved[2]};
+        m.rewind(start);
+        optimal_sequences(&m, start, end, opt_rep, prices, s);
+        s->block.resize(room);
+        const size_t osize = write_block_body(s, s->block.data(), csize ? csize - 1 : room);
+        if (osize) {
+          std::memcpy(dst + op, s->block.data(), osize);
+          std::memcpy(rep, opt_rep, sizeof(rep));
+          csize = osize;
+        }
+      }
+      if (!csize) std::memcpy(rep, saved, sizeof(rep));  // the decoder never sees them
+    }
+    uint32_t h;
+    if (csize) {
+      h = last | (2u << 1) | uint32_t(csize << 3);
+      op += csize;
+    } else {
+      if (cap - op < size) return 0;
+      std::memcpy(dst + op, b, size);
+      op += size;
+      h = last | uint32_t(size << 3);
+    }
+    bh[0] = uint8_t(h);
+    bh[1] = uint8_t(h >> 8);
+    bh[2] = uint8_t(h >> 16);
+    start = end;
+  }
+  return op;
+}
+
 // -- the blosc1 frame ---------------------------------------------------------
 
 inline uint64_t transpose8x8(uint64_t x) {  // bit (8i + j) <-> bit (8j + i)
@@ -1161,32 +2234,42 @@ void byte_shuffle(const uint8_t* src, uint8_t* dst, size_t ts, size_t size) {
 // Bit shuffle of one block (c-blosc1's rule): bit k of byte j of element
 // 8b + q at bit q of byte b of row 8j + k, rows of n / 8 bytes.  A block
 // whose element count is not a multiple of 8 is stored as it is; the bytes
-// past the last whole element stay where they are.
+// past the last whole element stay where they are.  In two passes through
+// `tmp` (the block's size): a byte shuffle, then eight elements' bytes of a
+// byte plane at a time through one 8x8 bit transpose, read or written as
+// one word on the plane's side.
 template <bool kForward>
-void bit_shuffle(const uint8_t* src, uint8_t* dst, size_t ts, size_t size) {
+void bit_shuffle(const uint8_t* src, uint8_t* dst, size_t ts, size_t size,
+                 std::vector<uint8_t>* tmp) {
   const size_t n = size / ts;
   if (n % 8 != 0) {
     std::memcpy(dst, src, size);
     return;
   }
   const size_t row = n / 8;
+  tmp->resize(size);
+  uint8_t* planes = tmp->data();  // byte j of element i at j * n + i
+  if (kForward) byte_shuffle<true>(src, planes, ts, size);
   for (size_t j = 0; j < ts; ++j) {
+    uint8_t* plane = planes + j * n;
+    const uint8_t* rows_in = src + 8 * j * row;
+    uint8_t* rows_out = dst + 8 * j * row;
     for (size_t b = 0; b < row; ++b) {
       uint64_t x = 0;
-      for (size_t k = 0; k < 8; ++k) {
-        const uint8_t v = kForward ? src[(8 * b + k) * ts + j] : src[(8 * j + k) * row + b];
-        x |= uint64_t(v) << (8 * k);
+      if (kForward) {
+        std::memcpy(&x, plane + 8 * b, 8);
+      } else {
+        for (size_t k = 0; k < 8; ++k) x |= uint64_t(rows_in[k * row + b]) << (8 * k);
       }
       x = transpose8x8(x);
-      for (size_t k = 0; k < 8; ++k) {
-        const uint8_t v = uint8_t(x >> (8 * k));
-        if (kForward)
-          dst[(8 * j + k) * row + b] = v;
-        else
-          dst[(8 * b + k) * ts + j] = v;
+      if (kForward) {
+        for (size_t k = 0; k < 8; ++k) rows_out[k * row + b] = uint8_t(x >> (8 * k));
+      } else {
+        std::memcpy(plane + 8 * b, &x, 8);
       }
     }
   }
+  if (!kForward) byte_shuffle<false>(planes, dst, ts, size);
   std::memcpy(dst + n * ts, src + n * ts, size - n * ts);
 }
 
@@ -1208,20 +2291,34 @@ inline bool splits(uint8_t flags, size_t ts, size_t bsize, bool leftover) {
          bsize / ts >= size_t(kMinBufferSize) && !leftover;
 }
 
+// The writer's codecs: blosc's codec number, its clevel (1-9) and the
+// stream's bytes; each returns the compressed size, or 0 when that would
+// not be below `cap` + 1.
+struct EncodeScratch {
+  std::vector<uint8_t> shuffled, planes;
+  ZstdScratch zstd;
+};
+
+size_t encode_stream(int codec, int clevel, const uint8_t* src, size_t n, uint8_t* dst,
+                     size_t cap, EncodeScratch* s) {
+  if (codec == kZstd) return zstd_encode(src, n, clevel, dst, cap, &s->zstd);
+  return lz4_encode(src, n, dst, cap);
+}
+
 // One block of the writer into out[0, bsize + 4 * typesize): shuffled, then
 // each of its streams after its int32 size, compressed when that makes it
 // shorter and raw otherwise.  Returns the bytes written.
 size_t encode_block(const uint8_t* src, size_t bsize, size_t ts, int shuffle, uint8_t flags,
-                    bool leftover, uint8_t* out, std::vector<uint8_t>* tmp) {
+                    bool leftover, int codec, int clevel, uint8_t* out, EncodeScratch* tmp) {
   const uint8_t* block = src;
   if (shuffle == 1 && ts > 1) {
-    tmp->resize(bsize);
-    byte_shuffle<true>(src, tmp->data(), ts, bsize);
-    block = tmp->data();
+    tmp->shuffled.resize(bsize);
+    byte_shuffle<true>(src, tmp->shuffled.data(), ts, bsize);
+    block = tmp->shuffled.data();
   } else if (shuffle == 2 && bsize >= ts) {
-    tmp->resize(bsize);
-    bit_shuffle<true>(src, tmp->data(), ts, bsize);
-    block = tmp->data();
+    tmp->shuffled.resize(bsize);
+    bit_shuffle<true>(src, tmp->shuffled.data(), ts, bsize, &tmp->planes);
+    block = tmp->shuffled.data();
   }
   const size_t nsplits = splits(flags, ts, bsize, leftover) ? ts : 1;
   const size_t neblock = bsize / nsplits;
@@ -1229,7 +2326,8 @@ size_t encode_block(const uint8_t* src, size_t bsize, size_t ts, int shuffle, ui
   for (size_t s = 0; s < nsplits; ++s) {
     // a stream of exactly its raw size reads as raw: compressed only when
     // shorter
-    size_t cs = neblock > 1 ? lz4_encode(block + s * neblock, neblock, out + p + 4, neblock - 1)
+    size_t cs = neblock > 1 ? encode_stream(codec, clevel, block + s * neblock, neblock,
+                                            out + p + 4, neblock - 1, tmp)
                             : 0;
     if (cs == 0) {
       std::memcpy(out + p + 4, block + s * neblock, neblock);
@@ -1239,6 +2337,120 @@ size_t encode_block(const uint8_t* src, size_t bsize, size_t ts, int shuffle, ui
     p += 4 + cs;
   }
   return p;
+}
+
+// The fields of a blosc1 header that the decoders need.
+struct BloscHeader {
+  uint8_t flags;
+  size_t ts;
+  int64_t nbytes, blocksize, nblocks, table_end;
+  int codec;
+};
+
+// Checks the header and the block table's extent of src[0, len), which must
+// decode to dst_len bytes.
+int read_header(const uint8_t* src, int64_t len, int64_t dst_len, BloscHeader* h) {
+  if (len < 0 || dst_len < 0) return kBadArgument;
+  if (len < kHeader) return kTruncated;
+  const uint8_t version = src[0];
+  h->flags = src[2];
+  h->ts = src[3];
+  h->nbytes = int32_t(load32(src + 4));
+  h->blocksize = int32_t(load32(src + 8));
+  const int64_t cbytes = int32_t(load32(src + 12));
+  if (version == 0 || version > 2) return kBadVersion;
+  if (h->nbytes < 0 || cbytes < kHeader) return kBadHeader;
+  if (cbytes > len) return kTruncated;
+  if (cbytes < len) return kBadHeader;
+  if (h->nbytes != dst_len) return kSizeMismatch;
+  h->codec = h->flags >> 5;
+  h->nblocks = h->table_end = 0;
+  if (h->flags & kMemcpyed) {
+    if (cbytes - kHeader < h->nbytes) return kTruncated;
+    if (cbytes - kHeader > h->nbytes) return kBadHeader;
+    return kOk;
+  }
+  if (h->nbytes == 0) return kOk;
+  if (h->ts == 0 || h->blocksize <= 0) return kBadHeader;
+  if (h->codec > kZstd) return kUnknownCodec;
+  h->nblocks = (h->nbytes + h->blocksize - 1) / h->blocksize;
+  h->table_end = kHeader + 4 * h->nblocks;
+  if (h->table_end > len) return kTruncated;
+  return kOk;
+}
+
+// Block j of a checked chunk into out[0, the block's size); tmp[0, 2) are
+// the caller's scratch.
+int decode_block(const uint8_t* src, int64_t len, const BloscHeader& h, int64_t j, uint8_t* out,
+                 std::vector<uint8_t>* tmp) {
+  const bool leftover = j == h.nblocks - 1 && h.nbytes % h.blocksize != 0;
+  const size_t bsize = size_t(leftover ? h.nbytes % h.blocksize : h.blocksize);
+  const bool unshuffle = (h.flags & kByteShuffle) && h.ts > 1;
+  const bool unbitshuffle = !unshuffle && (h.flags & kBitShuffle) && bsize >= h.ts;
+  uint8_t* block = out;
+  if (unshuffle || unbitshuffle) {
+    tmp->resize(bsize);
+    block = tmp->data();
+  }
+  const int64_t start = int32_t(load32(src + kHeader + 4 * j));
+  if (start < h.table_end || start > len) return kBadHeader;
+  const size_t nsplits = splits(h.flags, h.ts, bsize, leftover) ? h.ts : 1;
+  const size_t neblock = bsize / nsplits;
+  if (neblock * nsplits != bsize) return kBadHeader;
+  int64_t p = start;
+  for (size_t s = 0; s < nsplits; ++s) {
+    if (len - p < 4) return kTruncated;
+    const int64_t cs = int32_t(load32(src + p));
+    p += 4;
+    if (cs < 0) return kBadHeader;
+    if (cs > len - p) return kTruncated;
+    uint8_t* stream = block + s * neblock;
+    if (size_t(cs) == neblock) {
+      std::memcpy(stream, src + p, neblock);
+    } else {
+      const int err = decode_stream(h.codec, src + p, size_t(cs), stream, neblock);
+      if (err) return err;
+    }
+    p += cs;
+  }
+  if (unshuffle)
+    byte_shuffle<false>(tmp->data(), out, h.ts, bsize);
+  else if (unbitshuffle)
+    bit_shuffle<false>(tmp->data(), out, h.ts, bsize, tmp + 1);
+  return kOk;
+}
+
+// c-blosc1's compute_blocksize and split rule (blosc.c), held to
+// tensorstore's chunks by tests/test_torch_zstd_writer.py: the default
+// blocksize grows with the clevel, twice over for the codecs meant for
+// large blocks (zlib, zstd), and the splitting codecs (BloscLZ, LZ4,
+// Snappy) take `typesize` times that, within 64 KiB to 1 MiB.
+constexpr int64_t kL1 = 32 * 1024;
+constexpr int64_t kMaxBlocksize = (INT32_MAX - 255 * 4) / 3;  // BLOSC_MAX_BLOCKSIZE
+
+int64_t blosc_blocksize(int codec, int clevel, int64_t ts, int64_t nbytes, int64_t forced,
+                        bool* split) {
+  const bool hcr = codec == kZlib || codec == kZstd;
+  *split = false;
+  if (nbytes < ts) return 1;
+  int64_t bs = nbytes;
+  if (forced) {
+    bs = std::max(kMinBufferSize, std::min(forced, kMaxBlocksize));
+  } else if (nbytes >= kL1) {
+    bs = hcr ? 2 * kL1 : kL1;
+    static constexpr int kScale[10] = {-4, -2, 1, 2, 4, 4, 8, 8, 8, 8};  // -k: divide by k
+    bs = kScale[clevel] < 0 ? bs / -kScale[clevel] : bs * kScale[clevel];
+    if (clevel == 9 && hcr) bs *= 2;
+  }
+  *split = codec <= kSnappy && ts <= kMaxSplits && bs / ts >= kMinBufferSize;
+  if (clevel > 0 && *split) {
+    bs = std::min<int64_t>(bs, 1 << 18) * ts;
+    bs = std::max<int64_t>(bs, 1 << 16);
+    bs = std::min<int64_t>(bs, 1 << 20);
+  }
+  if (bs > nbytes) bs = nbytes;
+  if (bs > ts) bs -= bs % ts;
+  return bs;
 }
 
 }  // namespace
@@ -1252,96 +2464,77 @@ const char* wb2_codec_error_string(int err) {
 // Decodes the blosc1 chunk src[0, len) into dst[0, dst_len); the chunk must
 // decode to exactly dst_len bytes.
 int wb2_blosc_decode(const uint8_t* src, int64_t len, uint8_t* dst, int64_t dst_len) {
-  if (len < 0 || dst_len < 0) return kBadArgument;
-  if (len < kHeader) return kTruncated;
-  const uint8_t version = src[0], flags = src[2];
-  const size_t ts = src[3];
-  const int64_t nbytes = int32_t(load32(src + 4)), blocksize = int32_t(load32(src + 8));
-  const int64_t cbytes = int32_t(load32(src + 12));
-  if (version == 0 || version > 2) return kBadVersion;
-  if (nbytes < 0 || cbytes < kHeader) return kBadHeader;
-  if (cbytes > len) return kTruncated;
-  if (cbytes < len) return kBadHeader;
-  if (nbytes != dst_len) return kSizeMismatch;
-  if (flags & kMemcpyed) {
-    if (cbytes - kHeader < nbytes) return kTruncated;
-    if (cbytes - kHeader > nbytes) return kBadHeader;
-    std::memcpy(dst, src + kHeader, size_t(nbytes));
+  BloscHeader h;
+  int err = read_header(src, len, dst_len, &h);
+  if (err) return err;
+  if (h.flags & kMemcpyed) {
+    std::memcpy(dst, src + kHeader, size_t(h.nbytes));
     return kOk;
   }
-  if (nbytes == 0) return kOk;
-  if (ts == 0 || blocksize <= 0) return kBadHeader;
-  const int codec = flags >> 5;
-  if (codec > kZstd) return kUnknownCodec;
-  const int64_t nblocks = (nbytes + blocksize - 1) / blocksize;
-  const int64_t table_end = kHeader + 4 * nblocks;
-  if (table_end > len) return kTruncated;
   try {
-  std::vector<uint8_t> tmp;
-  for (int64_t j = 0; j < nblocks; ++j) {
-    const bool leftover = j == nblocks - 1 && nbytes % blocksize != 0;
-    const size_t bsize = size_t(leftover ? nbytes % blocksize : blocksize);
-    const bool unshuffle = (flags & kByteShuffle) && ts > 1;
-    const bool unbitshuffle = !unshuffle && (flags & kBitShuffle) && bsize >= ts;
-    uint8_t* block = dst + j * blocksize;
-    if (unshuffle || unbitshuffle) {
-      tmp.resize(bsize);
-      block = tmp.data();
-    }
-    const int64_t start = int32_t(load32(src + kHeader + 4 * j));
-    if (start < table_end || start > len) return kBadHeader;
-    const size_t nsplits = splits(flags, ts, bsize, leftover) ? ts : 1;
-    const size_t neblock = bsize / nsplits;
-    if (neblock * nsplits != bsize) return kBadHeader;
-    int64_t p = start;
-    for (size_t s = 0; s < nsplits; ++s) {
-      if (len - p < 4) return kTruncated;
-      const int64_t cs = int32_t(load32(src + p));
-      p += 4;
-      if (cs < 0) return kBadHeader;
-      if (cs > len - p) return kTruncated;
-      uint8_t* out = block + s * neblock;
-      if (size_t(cs) == neblock) {
-        std::memcpy(out, src + p, neblock);
-      } else {
-        const int err = decode_stream(codec, src + p, size_t(cs), out, neblock);
-        if (err) return err;
-      }
-      p += cs;
-    }
-    if (unshuffle)
-      byte_shuffle<false>(tmp.data(), dst + j * blocksize, ts, bsize);
-    else if (unbitshuffle)
-      bit_shuffle<false>(tmp.data(), dst + j * blocksize, ts, bsize);
-  }
+    std::vector<uint8_t> tmp[2];
+    for (int64_t j = 0; j < h.nblocks && !err; ++j)
+      err = decode_block(src, len, h, j, dst + j * h.blocksize, tmp);
   } catch (...) {  // memory
     return kResources;
   }
-  return kOk;
+  return err;
 }
 
-// Encodes src[0, n) as a blosc1 chunk with the LZ4 codec into dst[0, cap);
-// cap must be at least n + 16 (a chunk that does not compress is stored
-// raw, "memcpyed").  shuffle: 0 none, 1 byte, 2 bit.  blocksize 0 picks
-// 256 KiB.  Up to `threads` threads (the caller's among them) encode the
-// blocks.  Writes the chunk's length to *out_len.
-int wb2_blosc_encode_lz4(const uint8_t* src, int64_t n, int typesize, int shuffle,
-                         int64_t blocksize, int threads, uint8_t* dst, int64_t cap,
-                         int64_t* out_len) {
+// Decodes blocks first..last of the blosc1 chunk src[0, len) into dst[0,
+// dst_len): block j at (j - first) * blocksize, dst_len the bytes of those
+// blocks (the last block of the chunk may be short).  The rules are
+// wb2_blosc_decode's; a memcpyed chunk gives the same bytes of its copy.
+int wb2_blosc_decode_blocks(const uint8_t* src, int64_t len, uint8_t* dst, int64_t dst_len,
+                            int64_t first, int64_t last) {
+  if (len < kHeader) return len < 0 ? kBadArgument : kTruncated;
+  BloscHeader h;
+  int err = read_header(src, len, int32_t(load32(src + 4)), &h);
+  if (err) return err;
+  const int64_t bs = int32_t(load32(src + 8));
+  const int64_t nblocks = bs > 0 ? (h.nbytes + bs - 1) / bs : 0;
+  if (first < 0 || last < first || last >= nblocks ||
+      std::min(h.nbytes, (last + 1) * bs) - first * bs != dst_len)
+    return kBadArgument;
+  if (h.flags & kMemcpyed) {
+    std::memcpy(dst, src + kHeader + first * bs, size_t(dst_len));
+    return kOk;
+  }
+  try {
+    std::vector<uint8_t> tmp[2];
+    for (int64_t j = first; j <= last && !err; ++j)
+      err = decode_block(src, len, h, j, dst + (j - first) * bs, tmp);
+  } catch (...) {  // memory
+    return kResources;
+  }
+  return err;
+}
+
+// Encodes src[0, n) as a blosc1 chunk with `codec` (LZ4 or zstd) at
+// `clevel` (0: stored, "memcpyed"; LZ4 has one level) into dst[0, cap); cap
+// must be at least n + 16 (a chunk that does not compress is stored raw).
+// shuffle: 0 none, 1 byte, 2 bit.  blocksize 0 takes c-blosc's default for
+// the codec, clevel and typesize (blosc_blocksize), as c-blosc's header
+// does; the do-not-split flag follows c-blosc too.  Up to `threads` threads
+// (the caller's among them) encode the blocks.  Writes the chunk's length
+// to *out_len.
+int wb2_blosc_encode(int codec, int clevel, int typesize, int shuffle, int64_t blocksize,
+                     int threads, const uint8_t* src, int64_t n, uint8_t* dst, int64_t cap,
+                     int64_t* out_len) {
   if (n < 0 || n > INT32_MAX - kHeader || cap < n + kHeader || typesize < 1 || shuffle < 0 ||
-      shuffle > 2 || blocksize < 0 || threads < 1)
+      shuffle > 2 || blocksize < 0 || threads < 1 || clevel < 0 || clevel > 9 ||
+      (codec != kLZ4 && codec != kZstd))
     return kBadArgument;
   const size_t ts = typesize > 255 ? 1 : size_t(typesize);
-  uint8_t flags = uint8_t(kLZ4 << 5);
+  bool split;
+  const int64_t bs = blosc_blocksize(codec, clevel, int64_t(ts), n, blocksize, &split);
+  uint8_t flags = uint8_t(codec << 5);
   if (shuffle == 1) flags |= kByteShuffle;
   if (shuffle == 2) flags |= kBitShuffle;
-  int64_t bs = blocksize ? blocksize : 256 * 1024;
-  if (bs > n) bs = n;
-  bs -= bs % int64_t(ts);
-  if (bs <= 0) bs = n;
+  if (!split) flags |= kDontSplit;
   auto header = [&](uint8_t f, int64_t cbytes) {
     dst[0] = 2;  // blosc format version
-    dst[1] = 1;  // LZ4 format version
+    dst[1] = 1;  // the codec's format version (LZ4 and zstd: 1)
     dst[2] = f;
     dst[3] = uint8_t(ts);
     store32(dst + 4, uint32_t(n));
@@ -1356,7 +2549,7 @@ int wb2_blosc_encode_lz4(const uint8_t* src, int64_t n, int typesize, int shuffl
   };
   const int64_t nblocks = n > 0 ? (n + bs - 1) / bs : 0;
   const int64_t table_end = kHeader + 4 * nblocks;
-  if (n < kMinBufferSize || table_end >= n + kHeader) return memcpyed();
+  if (clevel == 0 || n < kMinBufferSize || table_end >= n + kHeader) return memcpyed();
   try {
     // each block into its slot of one scratch buffer, then packed into dst
     const size_t slot = size_t(bs) + 4 * ts;
@@ -1366,11 +2559,11 @@ int wb2_blosc_encode_lz4(const uint8_t* src, int64_t n, int typesize, int shuffl
     std::atomic<bool> failed{false};
     auto work = [&]() {
       try {
-        std::vector<uint8_t> tmp;
+        EncodeScratch tmp;
         for (int64_t j; (j = next++) < nblocks;) {
           const bool leftover = j == nblocks - 1 && n % bs != 0;
           sizes[size_t(j)] = encode_block(src + j * bs, size_t(leftover ? n % bs : bs), ts,
-                                          shuffle, flags, leftover,
+                                          shuffle, flags, leftover, codec, clevel,
                                           scratch.get() + size_t(j) * slot, &tmp);
         }
       } catch (...) {

@@ -1,7 +1,8 @@
 """Build and load the port's host codec library (C++ compiler + ctypes).
 
 ``csrc/codecs.cpp`` decodes every blosc1 chunk (BloscLZ, LZ4, LZ4HC,
-Snappy, zlib, zstd; byte and bit shuffle) and encodes blosc-lz4.  It is
+Snappy, zlib, zstd; byte and bit shuffle), whole or a range of its blocks,
+and encodes blosc-lz4 and blosc-zstd.  It is
 compiled with the host's C++ compiler (``$CXX``, else ``c++``, else ``g++``)
 at first use into ``build/weatherbench2_torch/libwb2codecs.so`` beside the
 package, and rebuilt when the source's hash changes.  There is no decoder in
@@ -14,6 +15,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 from pathlib import Path
@@ -35,11 +37,15 @@ _lib = None
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_INT = ctypes.c_int
 _SIGNATURES = {
     "wb2_blosc_decode": [ctypes.c_char_p, _I64, _P, _I64],
-    "wb2_blosc_encode_lz4": [_P, _I64, ctypes.c_int, ctypes.c_int, _I64,
-                             ctypes.c_int, _P, _I64, ctypes.POINTER(_I64)],
+    "wb2_blosc_decode_blocks": [ctypes.c_char_p, _I64, _P, _I64, _I64, _I64],
+    "wb2_blosc_encode": [_INT, _INT, _INT, _INT, _I64, _INT, _P, _I64, _P,
+                         _I64, ctypes.POINTER(_I64)],
 }
+# blosc's codec numbers of the codecs the writer encodes
+ENCODERS = {"lz4": 1, "zstd": 4}
 
 
 def compiler() -> str:
@@ -112,17 +118,42 @@ def decode_into(raw: bytes, out: np.ndarray, where: str) -> None:
                                    out.nbytes), where)
 
 
-def encode_lz4(data: np.ndarray, shuffle: int, blocksize: int,
-               where: str) -> np.ndarray:
-  """``data`` as one blosc1 chunk with the LZ4 codec, its typesize the
-  dtype's itemsize, as a uint8 array; ``ENCODE_THREADS`` threads encode
-  its blocks."""
+def decode_blocks_into(raw: bytes, first: int, last: int, out: np.ndarray,
+                       where: str) -> None:
+  """Decode blocks ``first``..``last`` of the blosc1 chunk ``raw`` into the
+  C-contiguous ``out``: block j at byte (j - first) * blocksize, ``out``
+  the bytes of those blocks (``blosc_header``)."""
+  if not out.flags.c_contiguous:
+    raise ValueError(f"{where}: decode target is not C-contiguous")
+  lib = library(where)
+  _check(lib, lib.wb2_blosc_decode_blocks(raw, len(raw), out.ctypes.data,
+                                          out.nbytes, first, last), where)
+
+
+def blosc_header(raw: bytes) -> dict:
+  """The fields of a blosc1 chunk's 16-byte header."""
+  if len(raw) < _HEADER_BYTES:
+    raise ValueError("a blosc chunk is at least 16 bytes")
+  version, versionlz, flags, typesize, nbytes, blocksize, cbytes = (
+      struct.unpack_from("<BBBBiii", raw))
+  return {"version": version, "versionlz": versionlz, "flags": flags,
+          "typesize": typesize, "nbytes": nbytes, "blocksize": blocksize,
+          "cbytes": cbytes}
+
+
+def encode(data: np.ndarray, cname: str, clevel: int, shuffle: int,
+           blocksize: int, where: str) -> np.ndarray:
+  """``data`` as one blosc1 chunk with codec ``cname`` ("lz4" or "zstd")
+  at ``clevel``, its typesize the dtype's itemsize, as a uint8 array;
+  ``ENCODE_THREADS`` threads encode its blocks.  A failure raises a
+  ValueError naming ``where``."""
   data = np.ascontiguousarray(data)
   lib = library(where)
   cap = data.nbytes + _HEADER_BYTES
   dst = np.empty(cap, np.uint8)
   n = _I64()
-  _check(lib, lib.wb2_blosc_encode_lz4(
-      data.ctypes.data, data.nbytes, data.dtype.itemsize, shuffle, blocksize,
-      ENCODE_THREADS, dst.ctypes.data, cap, ctypes.byref(n)), where)
+  _check(lib, lib.wb2_blosc_encode(
+      ENCODERS[cname], clevel, data.dtype.itemsize, shuffle, blocksize,
+      ENCODE_THREADS, data.ctypes.data, data.nbytes, dst.ctypes.data, cap,
+      ctypes.byref(n)), where)
   return dst[:n.value]

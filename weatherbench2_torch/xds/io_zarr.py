@@ -5,7 +5,9 @@ no tensorstore, so this module reads and writes the on-disk format itself:
 ``.zgroup``/``.zattrs``/``.zarray`` JSON, one file per chunk.  Chunks are
 read uncompressed, zlib or gzip (stdlib) or blosc with any of its codecs
 and shuffles (the port's own C++ codec, ``xds/_codec.py``); they are written
-uncompressed, zlib or blosc-lz4.  It follows the same xarray convention as
+uncompressed, zlib, blosc-lz4 or blosc-zstd, by default as the JAX package
+writes them: ``WB2_ZARR_COMPRESSOR`` (``"zstd3"``, ``"lz4"``, ``"none"``),
+else bit-shuffled zstd at clevel 3.  It follows the same xarray convention as
 ``weatherbench2_tpu/xds/io_zarr.py`` (an ``_ARRAY_DIMENSIONS`` attribute per
 array, CF-encoded datetimes as int64 with a ``units`` attribute, string
 arrays as JSON in the group attrs under ``_xds_string_arrays``), so stores
@@ -87,8 +89,18 @@ READS = ReadCounter()
 DECODES = DecodeCounter()
 
 BLOSC_CNAMES = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
-# the queue item of the encoder the port's writer lacks
-ZSTD_ENCODER_ITEM = "ROADMAP A.14 (a zstd encoder)"
+# the queue item of the blosc encoders the port's writer lacks
+ENCODER_ITEM = "ROADMAP A.18 (blosclz, lz4hc, snappy and zlib encoders)"
+MEMCPYED = 0x02  # blosc header flag: the chunk's bytes stored as they are
+
+# the JAX package's compressor names (weatherbench2_tpu/xds/io_zarr.py)
+_COMPRESSORS = {
+    # bit-shuffled zstd: best ratio for smooth geophysical fields
+    "zstd3": {"id": "blosc", "cname": "zstd", "clevel": 3, "shuffle": 2},
+    # fast path: high-entropy data gains nothing from zstd
+    "lz4": {"id": "blosc", "cname": "lz4", "clevel": 1, "shuffle": 0},
+    "none": None,
+}
 
 # Of an uncompressed chunk, the rows a selection needs are read on their
 # own when each is at least this long; shorter rows read the whole file.
@@ -164,22 +176,40 @@ def _write_json(path: str, obj) -> None:
     f.write(json.dumps(obj, indent=2, default=str))
 
 
+def default_compressor(compressor="default"):
+  """A compressor name resolved to zarr metadata as the JAX package
+  resolves it: "default" is ``WB2_ZARR_COMPRESSOR``, else "zstd3"; a dict
+  or None passes through."""
+  if compressor == "default":
+    compressor = os.environ.get("WB2_ZARR_COMPRESSOR", "zstd3")
+  if isinstance(compressor, str):
+    try:
+      return _COMPRESSORS[compressor]
+    except KeyError:
+      raise ValueError(
+          f"unknown compressor {compressor!r}; "
+          f"options: {sorted(_COMPRESSORS)}"
+      ) from None
+  return compressor
+
+
 def _compressor_meta(compressor):
-  """Zarr metadata of a writer's compressor: None/"none", "zlib", the JAX
-  package's "lz4" (its metadata) or a blosc dict with cname lz4."""
-  if compressor in (None, "none"):
-    return None
+  """Zarr metadata of a writer's compressor: a name of
+  ``default_compressor`` ("default", "zstd3", "lz4", "none"), None, the
+  port's "zlib", or a blosc dict with cname lz4 or zstd, clevel 0-9 and
+  shuffle 0-2."""
   if compressor == "zlib":
     return {"id": "zlib", "level": 1}
-  if compressor == "lz4":
-    compressor = {"id": "blosc", "cname": "lz4", "clevel": 1, "shuffle": 0}
-  if compressor == "zstd3" or (isinstance(compressor, Mapping) and (
-      compressor.get("id") == "blosc" and compressor.get("cname") != "lz4")):
-    raise ValueError(
-        f"compressor {compressor!r}: the port writes blosc only with lz4; "
-        f"other codecs wait for {ZSTD_ENCODER_ITEM}")
+  compressor = default_compressor(compressor)
+  if compressor is None:
+    return None
   if isinstance(compressor, Mapping) and compressor.get("id") == "blosc":
-    meta = {"id": "blosc", "cname": "lz4",
+    cname = compressor.get("cname", "lz4")
+    if cname not in _codec.ENCODERS:
+      raise ValueError(
+          f"compressor {compressor!r}: the port writes blosc with "
+          f"{' or '.join(_codec.ENCODERS)}; {cname} waits for {ENCODER_ITEM}")
+    meta = {"id": "blosc", "cname": cname,
             "clevel": int(compressor.get("clevel", 5)),
             "shuffle": int(compressor.get("shuffle", 1)),
             "blocksize": int(compressor.get("blocksize", 0))}
@@ -188,8 +218,10 @@ def _compressor_meta(compressor):
                        "2 and clevel 0-9")
     return meta
   raise ValueError(
-      f"unknown compressor {compressor!r}; options: None, 'zlib', 'lz4', "
-      "{'id': 'blosc', 'cname': 'lz4', 'clevel': ..., 'shuffle': 0|1|2}")
+      f"unknown compressor {compressor!r}; options: "
+      f"{sorted(_COMPRESSORS)}, 'default', None, 'zlib', "
+      "{'id': 'blosc', 'cname': 'lz4'|'zstd', 'clevel': 0-9, "
+      "'shuffle': 0|1|2}")
 
 
 class ZarrArray:
@@ -276,14 +308,14 @@ class ZarrArray:
     if comp is None:
       raw = data.tobytes()
     elif comp["id"] == "blosc":
-      try:  # the writer's own check: lz4 and shuffle 0-2 only
-        _compressor_meta(comp)
+      try:  # the writer's own check: lz4 or zstd, shuffle 0-2
+        meta = _compressor_meta(comp)
       except ValueError as err:
         raise ValueError(f"{self.where}: {err}") from None
-      # the metadata's clevel is kept as given: the greedy encoder has one
-      # level
-      raw = _codec.encode_lz4(
-          data, int(comp.get("shuffle", 1)), int(comp.get("blocksize", 0)),
+      # LZ4's greedy encoder has one level: its clevel sets the blocksize
+      raw = _codec.encode(
+          data, meta["cname"], meta["clevel"], meta["shuffle"],
+          meta["blocksize"],
           f"{self.where} chunk {os.path.basename(path)!r}")
     else:
       wbits = 31 if comp["id"] == "gzip" else 15
@@ -331,9 +363,11 @@ class ZarrArray:
 
   def _read_part(self, idx, local, target: np.ndarray) -> None:
     """``target[...] =`` the chunk ``idx`` at the per-axis positions
-    ``local``.  Of an uncompressed chunk, the trailing axes that are
-    selected whole make contiguous rows; when a row is at least
-    ``MIN_PARTIAL_READ_BYTES`` long, only the selected rows are read."""
+    ``local``.  The trailing axes that are selected whole make contiguous
+    rows.  Of an uncompressed chunk, or a blosc chunk stored raw, when a
+    row is at least ``MIN_PARTIAL_READ_BYTES`` long, only the selected rows
+    are read; of a compressed blosc chunk only the blocks that hold them
+    are decoded."""
     path = self._chunk_path(idx)
     if not os.path.exists(path):
       target[...] = self.fill_value
@@ -349,27 +383,20 @@ class ZarrArray:
       # the whole chunk, read (and decoded) straight into place
       self._read_into(path, target)
       return
-    if self.compressor is None and 0 < k and (
-        row_bytes >= MIN_PARTIAL_READ_BYTES):
+    if 0 < k and (self.compressor is None or self.compressor["id"] == "blosc"):
       # C order: each combination of positions on the leading axes is one
-      # row of the trailing ones; consecutive rows are read together
+      # row of the trailing ones
       rows = np.ravel_multi_index(np.ix_(*local[:k]),
                                   self.chunks[:k]).ravel()
-      buf = np.empty((len(rows), row), dtype=self.dtype)
-      cuts = np.flatnonzero(np.diff(rows) != 1) + 1
-      with open(path, "rb") as f:
-        for a, b in zip(np.concatenate([[0], cuts]),
-                        np.concatenate([cuts, [len(rows)]])):
-          f.seek(int(rows[a]) * row_bytes)
-          dst = memoryview(buf[a:b]).cast("B")
-          n = f.readinto(dst)
-          if n != dst.nbytes:
-            raise ValueError(f"zarr chunk {path!r} is shorter than its "
-                             "array's chunk shape")
-          READS.add(n)
-      # the trailing axes are selected whole: buf is the target's shape
-      target[...] = buf.reshape(target.shape)
-      return
+      if self.compressor is None:
+        buf = (self._read_rows(path, rows, row, 0)
+               if row_bytes >= MIN_PARTIAL_READ_BYTES else None)
+      else:
+        buf = self._read_blosc_rows(path, rows, row)
+      if buf is not None:
+        # the trailing axes are selected whole: buf is the target's shape
+        target[...] = buf.reshape(target.shape)
+        return
     chunk = self._read_chunk(idx)
     # runs of positions as slices (a basic copy); other positions gather
     key = tuple(slice(int(p[0]), int(p[-1]) + 1)
@@ -378,6 +405,69 @@ class ZarrArray:
     if len(arrays) > 1:
       key = np.ix_(*local)
     target[...] = chunk[key]
+
+  def _read_rows(self, path: str, rows: np.ndarray, row: int,
+                 offset: int) -> np.ndarray:
+    """Rows ``rows`` (sorted) of ``row`` items of the chunk whose bytes
+    start ``offset`` bytes into the file; consecutive rows read together."""
+    row_bytes = row * self.dtype.itemsize
+    buf = np.empty((len(rows), row), dtype=self.dtype)
+    cuts = np.flatnonzero(np.diff(rows) != 1) + 1
+    with open(path, "rb") as f:
+      for a, b in zip(np.concatenate([[0], cuts]),
+                      np.concatenate([cuts, [len(rows)]])):
+        f.seek(offset + int(rows[a]) * row_bytes)
+        dst = memoryview(buf[a:b]).cast("B")
+        n = f.readinto(dst)
+        if n != dst.nbytes:
+          raise ValueError(f"zarr chunk {path!r} is shorter than its "
+                           "array's chunk shape")
+        READS.add(n)
+    return buf
+
+  def _read_blosc_rows(self, path: str, rows: np.ndarray,
+                       row: int) -> Optional[np.ndarray]:
+    """Rows ``rows`` of a blosc chunk: of a chunk stored raw, the rows'
+    bytes after the 16-byte header (None when they are shorter than
+    ``MIN_PARTIAL_READ_BYTES``: the caller reads the file whole); else the
+    file whole (its block table is in it) and only the blocks that hold the
+    rows decoded, counted in ``DECODES``."""
+    where = f"{self.where} chunk {os.path.basename(path)!r}"
+    nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
+    row_bytes = row * self.dtype.itemsize
+    with open(path, "rb") as f:
+      head = _codec.blosc_header(f.read(16))
+      if head["nbytes"] != nbytes:
+        raise ValueError(f"{where} decodes to {head['nbytes']} bytes, "
+                         f"expected {nbytes}")
+      if head["flags"] & MEMCPYED:
+        if row_bytes < MIN_PARTIAL_READ_BYTES:
+          return None
+        READS.add(16)
+        return self._read_rows(path, rows, row, 16)
+      f.seek(0)
+      raw = f.read()
+    READS.add(len(raw))
+    t0 = time.perf_counter()
+    bs = head["blocksize"]
+    if bs <= 0:
+      raise ValueError(f"{where}: blosc blocksize {bs}")
+    # the blocks each row touches (+1 at its first, -1 after its last),
+    # then runs of consecutive blocks
+    start = rows.astype(np.int64) * row_bytes
+    touch = np.zeros(-(-nbytes // bs) + 1, np.int64)
+    np.add.at(touch, start // bs, 1)
+    np.add.at(touch, (start + row_bytes - 1) // bs + 1, -1)
+    need = np.cumsum(touch[:-1]) > 0
+    edges = np.flatnonzero(np.diff(np.concatenate([[0], need, [0]])))
+    chunk = np.empty(nbytes, np.uint8)
+    decoded = 0
+    for a, b in zip(edges[::2], edges[1::2]):
+      part = chunk[a * bs:min(nbytes, b * bs)]
+      _codec.decode_blocks_into(raw, int(a), int(b) - 1, part, where)
+      decoded += part.nbytes
+    DECODES.add(decoded, time.perf_counter() - t0)
+    return chunk.view(self.dtype).reshape(-1, row)[rows]
 
   def write_box(self, box, data: np.ndarray) -> None:
     """Write ``data`` into the [lo, hi) box; partial chunks read-modify-write."""
@@ -541,6 +631,7 @@ def _array_meta(shape, chunks, dtype, compressor, fill_value=None):
       "filters": None,
       "order": "C",
       "zarr_format": 2,
+      "dimension_separator": ".",
   }
 
 
@@ -597,9 +688,11 @@ def to_zarr(
     ds: core.Dataset,
     path: str,
     chunks: Optional[Mapping[str, int]] = None,
-    compressor=None,
+    compressor="default",
 ) -> None:
-  """Write a Dataset to a local zarr v2 store (uncompressed by default)."""
+  """Write a Dataset to a local zarr v2 store, its chunks compressed as
+  ``compressor`` says (``_compressor_meta``; by default the JAX package's:
+  ``WB2_ZARR_COMPRESSOR``, else bit-shuffled zstd)."""
   w = _StoreWriter(ds, path, chunks, compressor)
   all_vars = [(n, v, True) for n, v in ds.coords_dict().items()]
   all_vars += [(n, v, False) for n, v in ds.variables_dict().items()]
@@ -619,7 +712,7 @@ def create_zarr_template(
     ds: core.Dataset,
     path: str,
     chunks: Optional[Mapping[str, int]] = None,
-    compressor=None,
+    compressor="default",
 ) -> None:
   """Create a store with coords written and data variables unwritten.
 

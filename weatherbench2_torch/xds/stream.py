@@ -170,7 +170,7 @@ class RegionWriter:
       path: str,
       template: core.Dataset,
       chunks: Optional[Mapping[str, int]] = None,
-      compressor=None,
+      compressor="default",
   ):
     io_zarr.create_zarr_template(template, path, chunks=chunks,
                                  compressor=compressor)
