@@ -1,0 +1,7 @@
+"""peak_hbm_gib: the most device memory allocated at once in the window
+(``torch.cuda.max_memory_allocated()`` after
+``reset_peak_memory_stats()`` at its start), in GiB."""
+
+
+def read(ctx):
+  return ctx["peak_bytes"] / 2**30 if ctx["peak_bytes"] else None
