@@ -256,6 +256,25 @@ def test_decode_counter_adds_decoded_bytes(jax_stores):
   assert io_zarr.DECODES.bytes >= decoded and io_zarr.DECODES.seconds > 0
 
 
+@pytest.mark.parametrize("case", ["zstd_shuffle2", "lz4_shuffle1"])
+def test_read_counter_times_reads_apart_from_decodes(jax_stores, case):
+  """A store read whole: the file reads are timed in ``READS.seconds``, the
+  decoding in ``DECODES.seconds``, and this thread's own tallies are the
+  sums (no other thread read)."""
+  path = jax_stores[case]
+  io_zarr.READS.reset()
+  io_zarr.DECODES.reset()
+  xds.open_zarr(path)
+  assert io_zarr.READS.bytes > 0 and io_zarr.READS.seconds > 0
+  assert io_zarr.DECODES.bytes > 0 and io_zarr.DECODES.seconds > 0
+  assert io_zarr.READS.mine() == (io_zarr.READS.bytes, io_zarr.READS.seconds)
+  assert io_zarr.DECODES.mine() == (io_zarr.DECODES.bytes,
+                                    io_zarr.DECODES.seconds)
+  io_zarr.READS.reset()
+  assert (io_zarr.READS.bytes, io_zarr.READS.seconds) == (0, 0.0)
+  assert io_zarr.READS.mine() == (0, 0.0)
+
+
 def test_threads_decode_in_parallel_and_count_every_chunk(jax_stores):
   """Sixteen threads decode the same chunks at once (ctypes drops the
   GIL); every result is right and the counters lose no update."""

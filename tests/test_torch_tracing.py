@@ -1,0 +1,240 @@
+"""Spans and counters of the port's chunk pipeline, on the CPU.
+
+``evaluation.evaluate_with_mesh`` keeps spans only while ``torch.profiler``
+records its calling thread, and hands them over in ``stats["spans"]``; the
+counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``)
+are always there.  The stores are 30-degree, two 2-d variables, 8 daily
+inits of 3 leads, written by the port uncompressed or as blosc-lz4.
+"""
+import sys
+import threading
+
+import pytest
+from torch.profiler import ProfilerActivity, profile
+
+from weatherbench2_torch import config
+from weatherbench2_torch import evaluation
+from weatherbench2_torch import metrics
+from weatherbench2_torch import schema
+from weatherbench2_torch import tracing
+from weatherbench2_torch import utils
+from weatherbench2_torch import xds
+from weatherbench2_torch.parallel import streaming
+from weatherbench2_torch.regions import SliceRegion
+from weatherbench2_torch.xds import io_zarr
+
+VARIABLES = ["2m_temperature", "10m_u_component_of_wind"]
+LZ4 = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}
+COUNTERS = ("read_s", "decode_s", "pin_s", "prepare_s", "d2h_s")
+# every span of the pipeline; wb2.wait_device waits for a CUDA device's
+# queue, which a CPU run does not have
+SPANS = {"wb2.job", "wb2.open", "wb2.prepare", "wb2.wait_host",
+         "wb2.chunk_program", "wb2.d2h", "wb2.finalize", "wb2.write"}
+PER_CHUNK = ("wb2.prepare", "wb2.wait_host", "wb2.chunk_program")
+
+
+@pytest.fixture(scope="module")
+def stores(tmp_path_factory):
+  tmp = tmp_path_factory.mktemp("torch_tracing")
+  kwargs = dict(variables_3d=[], variables_2d=VARIABLES,
+                spatial_resolution_in_degrees=30.0, time_start="2020-01-01")
+  truth = utils.random_like(
+      schema.mock_truth_data(time_stop="2020-01-15", **kwargs), seed=0)
+  forecast = utils.random_like(
+      schema.mock_forecast_data(lead_stop="2 days", time_stop="2020-01-09",
+                                **kwargs), seed=1)
+  paths = {}
+  for name, comp in (("raw", None), ("lz4", LZ4)):
+    paths[name] = {"truth": str(tmp / f"{name}_t.zarr"),
+                   "forecast": str(tmp / f"{name}_f.zarr")}
+    xds.to_zarr(truth, paths[name]["truth"], compressor=comp)
+    xds.to_zarr(forecast, paths[name]["forecast"], compressor=comp)
+  return tmp, paths
+
+
+def _data_config(paths, out_dir):
+  return config.Data(
+      selection=config.Selection(variables=VARIABLES,
+                                 time_slice=slice("2020-01-01", "2020-01-08")),
+      paths=config.Paths(forecast=paths["forecast"], obs=paths["truth"],
+                         output_dir=str(out_dir)),
+      by_init=True)
+
+
+def _configs():
+  return {
+      "det": config.Eval(metrics={"mse": metrics.MSE(), "bias": metrics.Bias()},
+                         regions={"global": SliceRegion()}),
+      "det_temporal": config.Eval(metrics={"mae": metrics.MAE()},
+                                  regions={"global": SliceRegion()},
+                                  temporal_mean=False),
+  }
+
+
+def _run(stores, store="raw", chunk=4, profiled=False):
+  tmp, paths = stores
+  out = tmp / f"out_{store}_{chunk}_{profiled}"
+  args = (_data_config(paths[store], out), _configs())
+  kwargs = dict(device="cpu", input_chunks={"init_time": chunk})
+  if not profiled:
+    return evaluation.evaluate_with_mesh(*args, **kwargs), None
+  with profile(activities=[ProfilerActivity.CPU]) as prof:
+    stats = evaluation.evaluate_with_mesh(*args, **kwargs)
+  return stats, prof
+
+
+def _duration_s(span):
+  return (span["end_ns"] - span["start_ns"]) / 1e9
+
+
+def test_a_profiled_run_keeps_every_span_of_its_two_chunks(stores):
+  stats, _ = _run(stores, profiled=True)
+  spans = stats["spans"]
+  assert {s["name"] for s in spans} == SPANS
+  assert stats["chunks"] == 2
+  for name in PER_CHUNK:
+    assert sorted(s["chunk"] for s in spans if s["name"] == name) == [0, 1]
+  waits = {s["chunk"]: s for s in spans if s["name"] == "wb2.wait_host"}
+  assert (waits[0]["ordinal"], waits[1]["ordinal"]) == (0, 1)
+  by_id = {s["id"]: s for s in spans}
+  assert len(by_id) == len(spans)
+  (root,) = [s for s in spans if s["parent"] is None]
+  assert root["name"] == "wb2.job"
+  assert root["configs"] == ["det", "det_temporal"]
+  for s in spans:
+    assert s["job"] == root["id"]
+    assert s["parent"] is None or s["parent"] in by_id
+    assert root["start_ns"] <= s["start_ns"] <= s["end_ns"] <= root["end_ns"]
+  assert {s["thread"] for s in spans if s["name"] == "wb2.prepare"}.isdisjoint(
+      {root["thread"]})
+  writes = sorted((s["config"], s["format"]) for s in spans
+                  if s["name"] == "wb2.write")
+  assert writes == [("det", "netcdf"), ("det_temporal", "netcdf")]
+  (d2h,) = [s for s in spans if s["name"] == "wb2.d2h"]
+  assert d2h["bytes"] > 0
+
+
+def test_main_thread_spans_land_in_the_profiler_on_its_clock(stores):
+  stats, prof = _run(stores, profiled=True)
+  events = [e for e in prof.profiler.kineto_results.events()
+            if e.name().startswith("wb2.")]
+  (job,) = [s for s in stats["spans"] if s["name"] == "wb2.job"]
+  (job_event,) = [e for e in events if e.name() == "wb2.job"]
+  assert abs(job_event.start_ns() - job["start_ns"]) < 2e6
+  main = {s["name"] for s in stats["spans"] if s["thread"] == job["thread"]}
+  # the prefetch threads are not the profiled thread
+  assert {e.name() for e in events} == main == SPANS - {"wb2.prepare"}
+
+
+def test_an_unprofiled_run_keeps_no_spans_and_every_counter(stores):
+  stats, _ = _run(stores)
+  assert "spans" not in stats
+  for key in COUNTERS:
+    assert stats[key] >= 0, key
+  assert stats["prepare_s"] > 0 and stats["read_s"] > 0
+  assert stats["d2h_s"] <= stats["wait_device_s"]
+  assert stats["read_s"] + stats["decode_s"] + stats["pin_s"] <= (
+      stats["prepare_s"])
+
+
+@pytest.mark.parametrize("store", ["raw", "lz4"])
+def test_read_seconds_on_every_store_decode_seconds_on_compressed(stores,
+                                                                  store):
+  stats, _ = _run(stores, store)
+  assert stats["read_s"] > 0
+  assert (stats["decode_s"] > 0) == (store == "lz4")
+
+
+def test_each_prepare_span_carries_its_own_chunk(stores):
+  """Four chunks prepared at once on four threads: each span's reads,
+  decodes and pinning fit inside it, and the spans' tallies add up to the
+  run's counts."""
+  stats, _ = _run(stores, "lz4", chunk=2, profiled=True)
+  prepares = [s for s in stats["spans"] if s["name"] == "wb2.prepare"]
+  assert sorted(s["chunk"] for s in prepares) == [0, 1, 2, 3]
+  assert len({s["thread"] for s in prepares}) > 1
+  for s in prepares:
+    assert s["read_s"] + s["decode_s"] + s["pin_s"] <= _duration_s(s), s
+    assert s["read_bytes"] > 0 and s["decode_bytes"] > 0
+  assert sum(s["read_bytes"] for s in prepares) == stats["read_bytes"]
+  assert sum(s["h2d_bytes"] for s in prepares) == stats["h2d_bytes"]
+  assert sum(s["read_s"] for s in prepares) == pytest.approx(stats["read_s"])
+  assert sum(s["decode_s"] for s in prepares) == pytest.approx(
+      stats["decode_s"])
+  assert sum(_duration_s(s) for s in prepares) <= stats["prepare_s"]
+
+
+@pytest.mark.parametrize("case", ["unprofiled", "profiled", "spans_off"])
+def test_a_direct_streaming_call_reads_the_flag_itself(stores, case):
+  """Called directly, the engine keeps spans while the profiler records its
+  thread (none of the entry's, and no root), unless told not to."""
+  tmp, paths = stores
+  data_config = _data_config(paths["raw"], tmp / "direct")
+  cfgs = {"det": _configs()["det"]}
+  forecast, truth, climatology = evaluation.open_forecast_and_truth_datasets(
+      data_config, cfgs["det"], lazy=True)
+  stats = {}
+  with (profile(activities=[ProfilerActivity.CPU]) if case != "unprofiled"
+        else tracing.NO_SPAN):
+    results = streaming.evaluate_streaming_multi(
+        forecast, truth, climatology, cfgs, data_config, {"init_time": 4},
+        device="cpu", stats=stats,
+        **({"spans": False} if case == "spans_off" else {}))
+  assert set(results) == {"det"}
+  if case != "profiled":
+    assert "spans" not in stats
+    return
+  assert {s["name"] for s in stats["spans"]} == SPANS - {
+      "wb2.job", "wb2.open", "wb2.write"}
+  assert all(s["parent"] is None and s["job"] is None
+             for s in stats["spans"])
+
+
+def test_spans_of_a_call_nest_under_its_root():
+  spans = tracing.Spans()
+  with spans.span("wb2.job", root=True, configs=["a"]):
+    with spans.span("wb2.wait_host", chunk=3, ordinal=0) as rec:
+      rec["extra"] = 1
+  inner, root = spans.records
+  assert root["parent"] is None and root["job"] == root["id"]
+  assert inner["parent"] == root["id"] and inner["job"] == root["id"]
+  assert (inner["chunk"], inner["ordinal"], inner["extra"]) == (3, 0, 1)
+  assert root["start_ns"] <= inner["start_ns"] <= inner["end_ns"] <= (
+      root["end_ns"])
+  assert not tracing.profiling()
+
+
+def test_counters_lose_no_update_and_keep_each_threads_tally():
+  """More threads than cores add to one counter at once, with the
+  interpreter switching threads often: the sums lose no update and each
+  thread's own tally is what it added."""
+  counter = io_zarr.ReadCounter()
+  n_threads, n_adds = 32, 2000
+  tallies, errors = {}, []
+
+  def work(i):
+    try:
+      for _ in range(n_adds):
+        counter.add(i + 1, 0.5)
+      tallies[i] = counter.mine()
+    except Exception as err:  # reported below
+      errors.append(err)
+
+  old = sys.getswitchinterval()
+  sys.setswitchinterval(1e-6)
+  try:
+    threads = [threading.Thread(target=work, args=(i,))
+               for i in range(n_threads)]
+    for t in threads:
+      t.start()
+    for t in threads:
+      t.join(timeout=60)
+  finally:
+    sys.setswitchinterval(old)
+  assert not any(t.is_alive() for t in threads)
+  assert not errors, errors[:3]
+  assert counter.bytes == n_adds * sum(range(1, n_threads + 1))
+  assert counter.seconds == n_threads * n_adds * 0.5
+  assert tallies == {i: ((i + 1) * n_adds, n_adds * 0.5)
+                     for i in range(n_threads)}
+  assert counter.mine() == (0, 0.0)

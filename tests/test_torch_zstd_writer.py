@@ -422,6 +422,23 @@ def test_partial_read_of_a_raw_chunk_reads_only_its_rows(block_stores):
     assert io_zarr.DECODES.bytes == 0
 
 
+@pytest.mark.parametrize("store", ["raw", ("zstd", 2)])
+def test_partial_reads_time_reads_and_decodes_apart(block_stores, store):
+  """Of a chunk stored raw only the rows' reads are timed and nothing is
+  decoded; of a compressed one the file's read and its blocks' decoding
+  are each timed."""
+  lazy = xds.open_zarr(block_stores[store], lazy=True)["wide"].data
+  io_zarr.READS.reset()
+  io_zarr.DECODES.reset()
+  np.asarray(lazy[np.array([5, 6, 7])])
+  assert io_zarr.READS.bytes > 0 and io_zarr.READS.seconds > 0
+  assert io_zarr.READS.mine() == (io_zarr.READS.bytes, io_zarr.READS.seconds)
+  if store == "raw":
+    assert (io_zarr.DECODES.bytes, io_zarr.DECODES.seconds) == (0, 0.0)
+  else:
+    assert io_zarr.DECODES.bytes > 0 and io_zarr.DECODES.seconds > 0
+
+
 def test_whole_chunk_reads_decode_whole(block_stores):
   path = block_stores[("zstd", 2)]
   want = arrays(jxds.open_zarr(path))

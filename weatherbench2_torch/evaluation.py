@@ -28,6 +28,7 @@ from weatherbench2_torch import derived_variables
 from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import schema
+from weatherbench2_torch import tracing
 from weatherbench2_torch import utils
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds.core import LazyArrayBase, LazyStack
@@ -584,7 +585,11 @@ def evaluate_with_mesh(
   h2d bytes, bytes read, seconds spent waiting on the host and on the
   device and finalizing the results (see
   ``streaming.evaluate_streaming_multi``), seconds spent writing the
-  results files, and the wall time.  ``device=None`` is the CUDA card;
+  results files, and the wall time.  While ``torch.profiler`` records
+  the calling thread, ``stats["spans"]`` holds the call's spans
+  (``tracing``): ``wb2.job`` over the whole call, ``wb2.open`` and each
+  results file's ``wb2.write`` here, and the chunk pipeline's from
+  ``streaming.evaluate_streaming_multi``.  ``device=None`` is the CUDA card;
   pass ``device="cpu"`` to run on the host.  With ``checkpoint_path`` each
   group of configs snapshots its accumulators every ``checkpoint_every``
   chunks into ``<checkpoint_path>.<cfg[+cfg...]>``, and an existing file
@@ -597,6 +602,8 @@ def evaluate_with_mesh(
   from weatherbench2_torch.parallel import mesh as mesh_lib
   from weatherbench2_torch.parallel import streaming
 
+  # decided once, here: the prefetch threads are not the profiled thread
+  spans = tracing.profiling() and tracing.Spans()
   if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
     raise TypeError(f"mesh must be a weatherbench2_torch.parallel.mesh.Mesh "
                     f"(make_mesh), not {type(mesh).__name__}")
@@ -615,49 +622,57 @@ def evaluate_with_mesh(
   input_chunks = dict(input_chunks or {})
   stats: dict = {}
   t0 = time.perf_counter()
-  groups: dict = {}
-  for name, cfg in eval_configs.items():
-    groups.setdefault(streaming.input_key(cfg), {})[name] = cfg
-  for group in groups.values():
-    logging.info("Eval config group: %s", sorted(group))
-    forecast, truth, climatology = open_forecast_and_truth_datasets(
-        data_config, next(iter(group.values())), lazy=True)
-    cpath = state = None
-    if checkpoint_path:
-      # one state file per group: grouped configs share the chunk stream,
-      # so their accumulators are snapshotted together
-      group_tag = "+".join(sorted(group))
-      cpath = f"{checkpoint_path}.{group_tag}"
-      if os.path.exists(cpath):
-        state = streaming.StreamingState.load(cpath)
-        logging.info("Resuming %s from %s (lead_index=%s, chunk_index=%s)",
-                     group_tag, cpath, state.lead_index, state.chunk_index)
-    results_by_config = streaming.evaluate_streaming_multi(
-        forecast=forecast,
-        truth=truth,
-        climatology=climatology,
-        eval_configs=group,
-        data_config=data_config,
-        input_chunks=input_chunks,
-        skipna=skipna,
-        device=dev,
-        stats=stats,
-        state=state,
-        checkpoint_path=cpath,
-        checkpoint_every=checkpoint_every,
-        mesh=mesh,
-    )
-    t_write = time.perf_counter()
-    for eval_name, results in (results_by_config or {}).items():
-      output_format = group[eval_name].output_format
-      output_path = _get_output_path(data_config, eval_name, output_format)
-      if output_format == "netcdf":
-        _to_netcdf(results, output_path)
-      else:
-        os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
-        xds.to_zarr(results, output_path)
-      logging.info("Saved results to %s", output_path)
-    stats["write_s"] = stats.get("write_s", 0.0) + (
-        time.perf_counter() - t_write)
+  with (spans.span("wb2.job", root=True, configs=sorted(eval_configs))
+        if spans else tracing.NO_SPAN):
+    groups: dict = {}
+    for name, cfg in eval_configs.items():
+      groups.setdefault(streaming.input_key(cfg), {})[name] = cfg
+    for group in groups.values():
+      logging.info("Eval config group: %s", sorted(group))
+      with spans.span("wb2.open") if spans else tracing.NO_SPAN:
+        forecast, truth, climatology = open_forecast_and_truth_datasets(
+            data_config, next(iter(group.values())), lazy=True)
+      cpath = state = None
+      if checkpoint_path:
+        # one state file per group: grouped configs share the chunk stream,
+        # so their accumulators are snapshotted together
+        group_tag = "+".join(sorted(group))
+        cpath = f"{checkpoint_path}.{group_tag}"
+        if os.path.exists(cpath):
+          state = streaming.StreamingState.load(cpath)
+          logging.info("Resuming %s from %s (lead_index=%s, chunk_index=%s)",
+                       group_tag, cpath, state.lead_index, state.chunk_index)
+      results_by_config = streaming.evaluate_streaming_multi(
+          forecast=forecast,
+          truth=truth,
+          climatology=climatology,
+          eval_configs=group,
+          data_config=data_config,
+          input_chunks=input_chunks,
+          skipna=skipna,
+          device=dev,
+          stats=stats,
+          state=state,
+          checkpoint_path=cpath,
+          checkpoint_every=checkpoint_every,
+          mesh=mesh,
+          spans=spans,
+      )
+      t_write = time.perf_counter()
+      for eval_name, results in (results_by_config or {}).items():
+        output_format = group[eval_name].output_format
+        output_path = _get_output_path(data_config, eval_name, output_format)
+        with (spans.span("wb2.write", config=eval_name, format=output_format)
+              if spans else tracing.NO_SPAN):
+          if output_format == "netcdf":
+            _to_netcdf(results, output_path)
+          else:
+            os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+            xds.to_zarr(results, output_path)
+        logging.info("Saved results to %s", output_path)
+      stats["write_s"] = stats.get("write_s", 0.0) + (
+          time.perf_counter() - t_write)
   stats["wall_s"] = time.perf_counter() - t0
+  if spans:
+    stats["spans"] = spans.records
   return stats

@@ -59,6 +59,7 @@ from weatherbench2_torch import device as device_lib
 from weatherbench2_torch import evaluation
 from weatherbench2_torch import metrics as metrics_lib
 from weatherbench2_torch import ops
+from weatherbench2_torch import tracing
 from weatherbench2_torch import utils
 from weatherbench2_torch import xds
 from weatherbench2_torch.parallel.mesh import BATCH, SPATIAL
@@ -1182,16 +1183,24 @@ def evaluate_streaming_multi(
     checkpoint_path: Optional[str] = None,
     checkpoint_every: int = 0,
     mesh=None,
+    spans=None,
 ) -> Optional[dict]:
   """Stream chunks ONCE through the metric programs of several configs.
 
   All configs must build their inputs identically (``evaluate_with_mesh``
   groups them).  Returns {config_name: results dataset}.  ``stats``, when
   given, receives the run's counts: chunks, h2d bytes, bytes read, and
-  seconds the main thread waited for host preparation and for the device
-  (the final copy of the accumulators to the host included), and seconds
-  spent on the host turning the accumulators into results
-  (``finalize_s``).  ``state`` resumes a run; with ``checkpoint_path`` and
+  seconds the main thread waited for host preparation (``wait_host_s``)
+  and for the device (``wait_device_s``; its part ``d2h_s`` is the final
+  copy of the accumulators to the host), and seconds spent on the host
+  turning the accumulators into results (``finalize_s``).  The prefetch
+  threads' seconds, summed over them: ``prepare_s`` in preparing chunks,
+  and of it ``read_s`` opening and reading chunk files, ``decode_s``
+  decoding them and ``pin_s`` staging the copies in pinned memory.
+  ``spans`` (a ``tracing.Spans``) records the chunk pipeline's spans, and
+  False records none; None, the default, records them while
+  ``torch.profiler`` records the calling thread, into ``stats["spans"]``.
+  ``state`` resumes a run; with ``checkpoint_path`` and
   ``checkpoint_every`` the accumulators of every config are snapshotted
   together every so many chunks, completed lead slices' results riding in
   the state.
@@ -1205,10 +1214,11 @@ def evaluate_streaming_multi(
   the accumulators of every rank that holds them (they are alike on every
   rank of the batch axis).
   ``stats`` then also holds ``ranks``, every rank's ``h2d_bytes``,
-  ``read_bytes``, ``wait_host_s``, ``gathered_bytes`` and the region
-  kernels' launches (``fused_deterministic_sums_launches``,
-  ``fused_region_sums_launches``); its ``h2d_bytes`` and ``read_bytes``
-  are their sums, ``wait_host_s`` the largest.
+  ``read_bytes``, ``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``,
+  ``wait_host_s``, ``gathered_bytes`` and the region kernels' launches
+  (``fused_deterministic_sums_launches``, ``fused_region_sums_launches``);
+  its bytes and prefetch seconds are their sums, ``wait_host_s`` the
+  largest.
   """
   dev = mesh.device if mesh is not None else device_lib.resolve(device)
   cfg0 = next(iter(eval_configs.values()))
@@ -1233,8 +1243,12 @@ def evaluate_streaming_multi(
             "checkpoint/resume requires temporal_mean=True (config "
             f"{cname!r} emits per-time results, which the accumulator "
             "state does not capture)")
+  own_spans = spans is None
+  if own_spans:
+    spans = tracing.profiling() and tracing.Spans()
   transfer_dtype = _transfer_dtype()
   reads0, launches0 = io_zarr.READS.bytes, _launch_counts()
+  read_s0, decode_s0 = io_zarr.READS.seconds, io_zarr.DECODES.seconds
   share = _RankShare(mesh, forecast.coords_dict().get("latitude"))
 
   by_init = data_config.by_init
@@ -1364,6 +1378,27 @@ def evaluate_streaming_multi(
   copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
   def prepare_one(ci, sl, lead_sl):
+    """``prepare_chunk`` on a prefetch thread, with its counts: bytes moved
+    (``h2d_bytes``), seconds pinning (``pin_s``) and seconds in all
+    (``prepare_s``), appended to what it returns; a ``wb2.prepare`` span
+    when spans are kept, with this thread's own tallies of the chunk's
+    reads and decodes."""
+    t0 = time.perf_counter()
+    counter = {"h2d_bytes": 0, "pin_s": 0.0}
+    if not spans:
+      out = prepare_chunk(ci, sl, lead_sl, counter)
+    else:
+      r0, d0 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
+      with spans.span("wb2.prepare", chunk=ci) as rec:
+        out = prepare_chunk(ci, sl, lead_sl, counter)
+        r1, d1 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
+        rec.update(read_bytes=r1[0] - r0[0], read_s=r1[1] - r0[1],
+                   decode_bytes=d1[0] - d0[0], decode_s=d1[1] - d0[1],
+                   **counter)
+    counter["prepare_s"] = time.perf_counter() - t0
+    return (*out, counter)
+
+  def prepare_chunk(ci, sl, lead_sl, counter):
     """Host work for this rank's share of one chunk (slice, align, prepare,
     pad) and its transfer; the share is read and moved once for all
     configs.  Derived variables and the probabilistic climatology's members
@@ -1391,7 +1426,6 @@ def evaluate_streaming_multi(
       uniq = np.concatenate([uniq, np.repeat(uniq[-1:], n_pad - len(uniq))])
       uinv = xds.DataArray(inv.reshape(vt.shape).astype(np.int64),
                            dims=f_chunk["valid_time"].dims)
-    counter = {"h2d_bytes": 0}
     ctx = (torch.cuda.stream(copy_stream) if copy_stream is not None
            else contextlib.nullcontext())
     with ctx:
@@ -1437,8 +1471,7 @@ def evaluate_streaming_multi(
       if copy_stream is not None:
         event = torch.cuda.Event()
         event.record(copy_stream)
-    return (ci, n_real, sl, rows, moved, mask_dev, event,
-            counter["h2d_bytes"], host_chunks)
+    return ci, n_real, sl, rows, moved, mask_dev, event, host_chunks
 
   if state is None:
     state = StreamingState()
@@ -1449,7 +1482,7 @@ def evaluate_streaming_multi(
   share.agree((resume_lead, resume_chunk, resume_configs is not None),
               "a state at (lead slice, chunk, accumulators)")
   lead_results = []
-  wait_host = wait_device = finalize = 0.0
+  wait_host = wait_device = finalize = d2h = pin_s = prepare_s = 0.0
   h2d_bytes = n_chunks_run = 0
   from weatherbench2_torch.evaluation import merge_metric_results
 
@@ -1484,66 +1517,76 @@ def evaluate_streaming_multi(
                  for ci, sl in chunk_list[:PREFETCH_DEPTH]]
       for idx in range(len(chunk_list)):
         t0 = time.perf_counter()
-        (ci, n_real, sl, rows, moved, mask_dev, event, nbytes,
-         host_chunks) = pending.pop(0).result()
+        # idx 0 fills the pipeline: nothing was prepared ahead of it
+        with (spans.span("wb2.wait_host", chunk=chunk_list[idx][0],
+                         ordinal=idx) if spans else tracing.NO_SPAN):
+          (ci, n_real, sl, rows, moved, mask_dev, event, host_chunks,
+           tally) = pending.pop(0).result()
         wait_host += time.perf_counter() - t0
-        h2d_bytes += nbytes
+        h2d_bytes += tally["h2d_bytes"]
+        pin_s += tally["pin_s"]
+        prepare_s += tally["prepare_s"]
         if idx + PREFETCH_DEPTH < len(chunk_list):
           pending.append(pool.submit(
               prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl))
-        if event is not None:
-          compute_stream = torch.cuda.current_stream(dev)
-          compute_stream.wait_event(event)
-          # the copies were allocated on the side stream: keep their memory
-          # from being reused while this stream still reads it
-          for t in _leaves((moved, mask_dev), []):
-            t.record_stream(compute_stream)
-        f_dev, t_dev, p_dev, u_dev = moved
-        if any_host and share.band is not None:
-          host_chunks = tuple(_host_dataset(ds) for ds in
-                              share.gather_bands((f_dev, t_dev)))
-        # this rank's real rows, for per-time results
-        real = np.arange(max(0, min(rows.stop, n_real) - rows.start))
-        chunk_sums = {}
-        for cname, cfg in eval_configs.items():
-          sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
-                                       mask_dev, u_dev)
-          if not share.owner:
-            continue  # the owner of this band's results adds them
-          for name, metric in host_metrics_by[cname].items():
-            sums[name], counts[name] = _eval_host_metric(
-                metric, *host_chunks, regions_by[cname], skipna, len(real),
-                chunk_dim, cfg.temporal_mean)
-          if cfg.temporal_mean:
-            chunk_sums[cname] = (sums, counts)
-            continue
-          coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
-          if len(real):
-            for name, res in sums.items():
-              res = res.isel({chunk_dim: real})
-              per_time[cname].append((name, ci, share.b, res.assign_coords(
-                  {chunk_dim: coord[rows.start:rows.start + len(real)]})))
-        for cname, (sums, counts) in share.sum_over_batch(
-            chunk_sums, dev).items():
-          if sums_acc[cname] is None:
-            sums_acc[cname], counts_acc[cname] = sums, counts
-          else:
-            if needs_align[cname]:
-              sums_acc[cname] = _reorder_like(sums, sums_acc[cname])
-              counts_acc[cname] = _reorder_like(counts, counts_acc[cname])
-              needs_align[cname] = False
-            sums_acc[cname] = _tree_add(sums_acc[cname], sums)
-            counts_acc[cname] = _tree_add(counts_acc[cname], counts)
-        if dev.type == "cuda":
-          # bound the queue: before moving past chunk n, wait for chunk
-          # n-DEVICE_INFLIGHT to finish so its buffers free
-          done = torch.cuda.Event()
-          done.record(torch.cuda.current_stream(dev))
-          inflight.append(done)
-          if len(inflight) > DEVICE_INFLIGHT:
-            t0 = time.perf_counter()
-            inflight.pop(0).synchronize()
-            wait_device += time.perf_counter() - t0
+        with (spans.span("wb2.chunk_program", chunk=ci) if spans
+              else tracing.NO_SPAN):
+          if event is not None:
+            compute_stream = torch.cuda.current_stream(dev)
+            compute_stream.wait_event(event)
+            # the copies were allocated on the side stream: keep their
+            # memory from being reused while this stream still reads it
+            for t in _leaves((moved, mask_dev), []):
+              t.record_stream(compute_stream)
+          f_dev, t_dev, p_dev, u_dev = moved
+          if any_host and share.band is not None:
+            host_chunks = tuple(_host_dataset(ds) for ds in
+                                share.gather_bands((f_dev, t_dev)))
+          # this rank's real rows, for per-time results
+          real = np.arange(max(0, min(rows.stop, n_real) - rows.start))
+          chunk_sums = {}
+          for cname, cfg in eval_configs.items():
+            sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
+                                         mask_dev, u_dev)
+            if not share.owner:
+              continue  # the owner of this band's results adds them
+            for name, metric in host_metrics_by[cname].items():
+              sums[name], counts[name] = _eval_host_metric(
+                  metric, *host_chunks, regions_by[cname], skipna, len(real),
+                  chunk_dim, cfg.temporal_mean)
+            if cfg.temporal_mean:
+              chunk_sums[cname] = (sums, counts)
+              continue
+            coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
+            if len(real):
+              for name, res in sums.items():
+                res = res.isel({chunk_dim: real})
+                per_time[cname].append((name, ci, share.b, res.assign_coords(
+                    {chunk_dim: coord[rows.start:rows.start + len(real)]})))
+          for cname, (sums, counts) in share.sum_over_batch(
+              chunk_sums, dev).items():
+            if sums_acc[cname] is None:
+              sums_acc[cname], counts_acc[cname] = sums, counts
+            else:
+              if needs_align[cname]:
+                sums_acc[cname] = _reorder_like(sums, sums_acc[cname])
+                counts_acc[cname] = _reorder_like(counts, counts_acc[cname])
+                needs_align[cname] = False
+              sums_acc[cname] = _tree_add(sums_acc[cname], sums)
+              counts_acc[cname] = _tree_add(counts_acc[cname], counts)
+          if dev.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(dev))
+            inflight.append((ci, done))
+        # bound the queue: before moving past chunk n, wait for chunk
+        # n-DEVICE_INFLIGHT to finish so its buffers free
+        if len(inflight) > DEVICE_INFLIGHT:
+          waited, done = inflight.pop(0)
+          t0 = time.perf_counter()
+          with (spans.span("wb2.wait_device", chunk=waited) if spans
+                else tracing.NO_SPAN):
+            done.synchronize()
+          wait_device += time.perf_counter() - t0
         if snapshots is not None and (ci + 1) % checkpoint_every == 0:
           only = next(iter(eval_configs))
           single = len(eval_configs) == 1
@@ -1564,46 +1607,56 @@ def evaluate_streaming_multi(
       lead_results.append(None)
       continue
     t0 = time.perf_counter()
-    sums_acc, counts_acc, per_time = batched_device_get(
-        (sums_acc, counts_acc, per_time))
-    per_time = {c: share.gather_rows(per_time[c]) for c in eval_configs}
+    accumulators = (sums_acc, counts_acc, per_time)
+    with (spans.span("wb2.d2h", bytes=sum(
+        t.numel() * t.element_size() for t in _leaves(accumulators, [])))
+          if spans else tracing.NO_SPAN):
+      sums_acc, counts_acc, per_time = batched_device_get(accumulators)
+      per_time = {c: share.gather_rows(per_time[c]) for c in eval_configs}
     t1 = time.perf_counter()
+    d2h += t1 - t0
     wait_device += t1 - t0
     if not share.lead:
       lead_results.append(None)
       continue
     per_config = {}
-    for cname, cfg in eval_configs.items():
-      per_metric = []
-      if cfg.temporal_mean:
-        for name in cfg.metrics:
-          mean_ds = _finalize_mean(sums_acc[cname][name],
-                                   counts_acc[cname][name])
-          per_metric.append(mean_ds.expand_dims(
-              metric=np.asarray([name], dtype=object)))
-      else:
-        by_metric: dict = {}
-        for name, ci, b, res in per_time[cname]:
-          by_metric.setdefault(name, []).append(((ci, b), res))
-        for name in cfg.metrics:
-          items = sorted(by_metric[name], key=lambda item: item[0])
-          cat = xds.concat([r for _, r in items], chunk_dim)
-          per_metric.append(cat.expand_dims(
-              metric=np.asarray([name], dtype=object)))
-      per_config[cname] = merge_metric_results(per_metric)
+    with spans.span("wb2.finalize") if spans else tracing.NO_SPAN:
+      for cname, cfg in eval_configs.items():
+        per_metric = []
+        if cfg.temporal_mean:
+          for name in cfg.metrics:
+            mean_ds = _finalize_mean(sums_acc[cname][name],
+                                     counts_acc[cname][name])
+            per_metric.append(mean_ds.expand_dims(
+                metric=np.asarray([name], dtype=object)))
+        else:
+          by_metric: dict = {}
+          for name, ci, b, res in per_time[cname]:
+            by_metric.setdefault(name, []).append(((ci, b), res))
+          for name in cfg.metrics:
+            items = sorted(by_metric[name], key=lambda item: item[0])
+            cat = xds.concat([r for _, r in items], chunk_dim)
+            per_metric.append(cat.expand_dims(
+                metric=np.asarray([name], dtype=object)))
+        per_config[cname] = merge_metric_results(per_metric)
     lead_results.append(per_config)
     finalize += time.perf_counter() - t1
 
   if stats is not None:
     mine = {"h2d_bytes": h2d_bytes,
             "read_bytes": io_zarr.READS.bytes - reads0,
+            "read_s": io_zarr.READS.seconds - read_s0,
+            "decode_s": io_zarr.DECODES.seconds - decode_s0,
+            "pin_s": pin_s, "prepare_s": prepare_s,
             "wait_host_s": wait_host, "gathered_bytes": share.gathered_bytes,
             **{k: v - launches0[k] for k, v in _launch_counts().items()}}
     ranks = share.all_stats(mine)
     stats["chunks"] = stats.get("chunks", 0) + n_chunks_run
     stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
+    stats["d2h_s"] = stats.get("d2h_s", 0.0) + d2h
     stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
-    for key in ("h2d_bytes", "read_bytes"):
+    for key in ("h2d_bytes", "read_bytes", "read_s", "decode_s", "pin_s",
+                "prepare_s"):
       stats[key] = stats.get(key, 0) + sum(r[key] for r in ranks)
     stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + max(
         r["wait_host_s"] for r in ranks)
@@ -1611,6 +1664,8 @@ def evaluate_streaming_multi(
       before = stats.get("ranks") or [dict.fromkeys(mine, 0)] * len(ranks)
       stats["ranks"] = [{k: a[k] + r[k] for k in mine}
                         for a, r in zip(before, ranks)]
+    if own_spans and spans:
+      stats.setdefault("spans", []).extend(spans.records)
   if not share.lead:
     return None
   if len(lead_results) == 1:

@@ -47,40 +47,46 @@ KNOWN_COORD_NAMES = {
 }
 
 
-class ReadCounter:
-  """Bytes read from chunk files, summed over every thread that reads."""
+class _Counter:
+  """Bytes and seconds summed over every thread that counts; ``mine()`` is
+  the calling thread's own tally of both."""
 
   def __init__(self):
     self._lock = threading.Lock()
-    self.bytes = 0
-
-  def add(self, n: int) -> None:
-    with self._lock:
-      self.bytes += int(n)
-
-  def reset(self) -> None:
-    with self._lock:
-      self.bytes = 0
-
-
-class DecodeCounter:
-  """Bytes decoded from compressed chunks and the seconds the decoding took,
-  summed over every thread that decodes (reading the file is not in it)."""
-
-  def __init__(self):
-    self._lock = threading.Lock()
+    self._local = threading.local()
     self.bytes = 0
     self.seconds = 0.0
 
-  def add(self, n: int, seconds: float) -> None:
+  def add(self, n: int, seconds: float = 0.0) -> None:
     with self._lock:
       self.bytes += int(n)
       self.seconds += seconds
+    local = self._local
+    local.bytes = getattr(local, "bytes", 0) + int(n)
+    local.seconds = getattr(local, "seconds", 0.0) + seconds
+
+  def mine(self) -> tuple:
+    """(bytes, seconds) counted on the calling thread since its first
+    count or the last ``reset()``."""
+    return (getattr(self._local, "bytes", 0),
+            getattr(self._local, "seconds", 0.0))
 
   def reset(self) -> None:
+    """Zero the sums and every thread's tally."""
     with self._lock:
       self.bytes = 0
       self.seconds = 0.0
+      self._local = threading.local()
+
+
+class ReadCounter(_Counter):
+  """Bytes read from chunk files and the seconds their opens and reads
+  took (decoding is not in it), summed over every thread that reads."""
+
+
+class DecodeCounter(_Counter):
+  """Bytes decoded from compressed chunks and the seconds the decoding took,
+  summed over every thread that decodes (reading the file is not in it)."""
 
 
 # every chunk-file read of this module counts here (the file's bytes, as
@@ -279,17 +285,19 @@ class ZarrArray:
     is C-contiguous and of the chunk's shape."""
     flat = out.reshape(-1).view(np.uint8)
     where = f"{self.where} chunk {os.path.basename(path)!r}"
+    t0 = time.perf_counter()
     if self.compressor is None:
       with open(path, "rb") as f:
         n = f.readinto(flat)
-      READS.add(n)
+      READS.add(n, time.perf_counter() - t0)
       if n != out.nbytes:
         raise ValueError(f"{where} holds {n} bytes, expected {out.nbytes}")
       return
     with open(path, "rb") as f:
       raw = f.read()
-    READS.add(len(raw))
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    READS.add(len(raw), t1 - t0)
+    t0 = t1
     if self.compressor["id"] == "blosc":
       _codec.decode_into(raw, out, where)
     else:
@@ -413,6 +421,7 @@ class ZarrArray:
     row_bytes = row * self.dtype.itemsize
     buf = np.empty((len(rows), row), dtype=self.dtype)
     cuts = np.flatnonzero(np.diff(rows) != 1) + 1
+    t0 = time.perf_counter()
     with open(path, "rb") as f:
       for a, b in zip(np.concatenate([[0], cuts]),
                       np.concatenate([cuts, [len(rows)]])):
@@ -422,7 +431,9 @@ class ZarrArray:
         if n != dst.nbytes:
           raise ValueError(f"zarr chunk {path!r} is shorter than its "
                            "array's chunk shape")
-        READS.add(n)
+        t1 = time.perf_counter()
+        READS.add(n, t1 - t0)
+        t0 = t1
     return buf
 
   def _read_blosc_rows(self, path: str, rows: np.ndarray,
@@ -435,6 +446,7 @@ class ZarrArray:
     where = f"{self.where} chunk {os.path.basename(path)!r}"
     nbytes = int(np.prod(self.chunks)) * self.dtype.itemsize
     row_bytes = row * self.dtype.itemsize
+    t0 = time.perf_counter()
     with open(path, "rb") as f:
       head = _codec.blosc_header(f.read(16))
       if head["nbytes"] != nbytes:
@@ -443,12 +455,13 @@ class ZarrArray:
       if head["flags"] & MEMCPYED:
         if row_bytes < MIN_PARTIAL_READ_BYTES:
           return None
-        READS.add(16)
+        READS.add(16, time.perf_counter() - t0)
         return self._read_rows(path, rows, row, 16)
       f.seek(0)
       raw = f.read()
-    READS.add(len(raw))
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
+    READS.add(len(raw), t1 - t0)
+    t0 = t1
     bs = head["blocksize"]
     if bs <= 0:
       raise ValueError(f"{where}: blosc blocksize {bs}")

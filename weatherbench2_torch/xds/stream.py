@@ -10,6 +10,7 @@ Dataset's payloads to the card through pinned memory on a side stream.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
 import numpy as np
@@ -263,7 +264,8 @@ def to_device(obj, device: torch.device, stream=None, counter=None,
   stream wait for ``stream`` before reading the tensors.  A payload that
   appears more than once in ``obj`` (the thresholds that several metrics
   prepared) crosses once.  ``counter``, a dict, receives the bytes moved
-  under ``"h2d_bytes"``.  With ``transfer_dtype=torch.bfloat16`` a float32
+  under ``"h2d_bytes"`` and the seconds spent staging them in pinned
+  memory under ``"pin_s"``.  With ``transfer_dtype=torch.bfloat16`` a float32
   or float64 payload of more than ``BFLOAT16_MIN_ENTRIES`` entries crosses
   as bfloat16 (``bfloat16_bits``) and becomes float32 on the device: half
   the bytes of float32 at about three significant digits; the Dataset
@@ -290,7 +292,12 @@ def to_device(obj, device: torch.device, stream=None, counter=None,
       out = host
     else:
       with torch.cuda.stream(stream):
-        out = host.pin_memory().to(device, non_blocking=True)
+        t0 = time.perf_counter()
+        pinned = host.pin_memory()
+        if counter is not None:
+          counter["pin_s"] = (counter.get("pin_s", 0.0)
+                              + time.perf_counter() - t0)
+        out = pinned.to(device, non_blocking=True)
     if narrow:
       with (torch.cuda.stream(stream) if device.type == "cuda"
             else contextlib.nullcontext()):
