@@ -2,8 +2,8 @@
 
 ``evaluation.evaluate_with_mesh`` keeps spans only while ``torch.profiler``
 records its calling thread, and hands them over in ``stats["spans"]``; the
-counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``)
-are always there.  The stores are 30-degree, two 2-d variables, 8 daily
+counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``,
+``stage_tasks``, ``offload_s``) are always there.  The stores are 30-degree, two 2-d variables, 8 daily
 inits of 3 leads, written by the port uncompressed or as blosc-lz4.
 """
 import sys
@@ -25,7 +25,8 @@ from weatherbench2_torch.xds import io_zarr
 
 VARIABLES = ["2m_temperature", "10m_u_component_of_wind"]
 LZ4 = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}
-COUNTERS = ("read_s", "decode_s", "pin_s", "prepare_s", "d2h_s")
+COUNTERS = ("read_s", "decode_s", "pin_s", "prepare_s", "d2h_s",
+            "stage_tasks", "offload_s")
 # every span of the pipeline; wb2.wait_device waits for a CUDA device's
 # queue, which a CPU run does not have
 SPANS = {"wb2.job", "wb2.open", "wb2.prepare", "wb2.wait_host",
@@ -147,14 +148,16 @@ def test_read_seconds_on_every_store_decode_seconds_on_compressed(stores,
 
 def test_each_prepare_span_carries_its_own_chunk(stores):
   """Four chunks prepared at once on four threads: each span's reads,
-  decodes and pinning fit inside it, and the spans' tallies add up to the
-  run's counts."""
+  decodes and pinning fit inside its thread-seconds (``busy_s``: its tasks
+  may run on other threads at once), which cover its wall less the time it
+  waited on them, and the spans' tallies add up to the run's counts."""
   stats, _ = _run(stores, "lz4", chunk=2, profiled=True)
   prepares = [s for s in stats["spans"] if s["name"] == "wb2.prepare"]
   assert sorted(s["chunk"] for s in prepares) == [0, 1, 2, 3]
   assert len({s["thread"] for s in prepares}) > 1
   for s in prepares:
-    assert s["read_s"] + s["decode_s"] + s["pin_s"] <= _duration_s(s), s
+    assert s["read_s"] + s["decode_s"] + s["pin_s"] <= s["busy_s"], s
+    assert s["busy_s"] >= _duration_s(s) - s["blocked_s"], s
     assert s["read_bytes"] > 0 and s["decode_bytes"] > 0
   assert sum(s["read_bytes"] for s in prepares) == stats["read_bytes"]
   assert sum(s["h2d_bytes"] for s in prepares) == stats["h2d_bytes"]

@@ -66,11 +66,12 @@ from weatherbench2_torch.parallel.mesh import BATCH, SPATIAL
 from weatherbench2_torch.xds import _xp
 from weatherbench2_torch.xds import io_zarr
 
-# Chunks prepared ahead of the one computing (each read, aligned and
-# copied to the device by its own host thread; the engine is host-bound,
-# and 4 threads beat 2 on the 8-core host of an H100 machine), and chunks
-# whose device work may be queued before the host waits.  Device memory
-# holds about PREFETCH_DEPTH + DEVICE_INFLIGHT chunks.
+# Chunks prepared ahead of the one computing (each aligned by its own host
+# thread, its large payloads read, pinned and copied by whichever threads
+# of the pool are free; the engine is host-bound, and 4 threads beat 2 on
+# the 8-core host of an H100 machine), and chunks whose device work may be
+# queued before the host waits.  Device memory holds about PREFETCH_DEPTH +
+# DEVICE_INFLIGHT chunks.
 PREFETCH_DEPTH = 4
 DEVICE_INFLIGHT = 2
 # Unique valid times per chunk are padded up to a multiple of this.
@@ -1196,7 +1197,10 @@ def evaluate_streaming_multi(
   turning the accumulators into results (``finalize_s``).  The prefetch
   threads' seconds, summed over them: ``prepare_s`` in preparing chunks,
   and of it ``read_s`` opening and reading chunk files, ``decode_s``
-  decoding them and ``pin_s`` staging the copies in pinned memory.
+  decoding them and ``pin_s`` staging the copies in pinned memory; a
+  chunk's large payloads are staged as tasks that any idle prefetch thread
+  may take (``stage_tasks`` of them, ``offload_s`` seconds of them on a
+  thread other than their chunk's).
   ``spans`` (a ``tracing.Spans``) records the chunk pipeline's spans, and
   False records none; None, the default, records them while
   ``torch.profiler`` records the calling thread, into ``stats["spans"]``.
@@ -1215,8 +1219,9 @@ def evaluate_streaming_multi(
   rank of the batch axis).
   ``stats`` then also holds ``ranks``, every rank's ``h2d_bytes``,
   ``read_bytes``, ``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``,
-  ``wait_host_s``, ``gathered_bytes`` and the region kernels' launches
-  (``fused_deterministic_sums_launches``, ``fused_region_sums_launches``);
+  ``stage_tasks``, ``offload_s``, ``wait_host_s``, ``gathered_bytes`` and
+  the region kernels' launches (``fused_deterministic_sums_launches``,
+  ``fused_region_sums_launches``);
   its bytes and prefetch seconds are their sums, ``wait_host_s`` the
   largest.
   """
@@ -1377,28 +1382,43 @@ def evaluate_streaming_multi(
 
   copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
 
-  def prepare_one(ci, sl, lead_sl):
-    """``prepare_chunk`` on a prefetch thread, with its counts: bytes moved
-    (``h2d_bytes``), seconds pinning (``pin_s``) and seconds in all
-    (``prepare_s``), appended to what it returns; a ``wb2.prepare`` span
-    when spans are kept, with this thread's own tallies of the chunk's
-    reads and decodes."""
+  def prepare_one(ci, sl, lead_sl, queue):
+    """``prepare_chunk`` on a prefetch thread, its large payloads staged as
+    tasks of ``queue`` at the chunk's rank, with its counts appended to
+    what it returns: bytes moved (``h2d_bytes``), seconds pinning
+    (``pin_s``), payload tasks (``stage_tasks``), seconds of them on other
+    threads (``offload_s``) and the chunk's thread-seconds (``prepare_s``:
+    this thread's wall less the seconds it waited on its tasks, plus
+    ``offload_s``).  A ``wb2.prepare`` span when spans are kept, with the
+    chunk's tallies of reads and decodes wherever its tasks ran, its
+    ``stage_tasks``, ``offload_s``, ``blocked_s`` (the waits) and
+    ``busy_s`` (``prepare_s``)."""
     t0 = time.perf_counter()
     counter = {"h2d_bytes": 0, "pin_s": 0.0}
+    staging = xds.Staging(queue, ci)
     if not spans:
-      out = prepare_chunk(ci, sl, lead_sl, counter)
+      out = prepare_chunk(ci, sl, lead_sl, counter, staging)
     else:
       r0, d0 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
       with spans.span("wb2.prepare", chunk=ci) as rec:
-        out = prepare_chunk(ci, sl, lead_sl, counter)
+        out = prepare_chunk(ci, sl, lead_sl, counter, staging)
         r1, d1 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
-        rec.update(read_bytes=r1[0] - r0[0], read_s=r1[1] - r0[1],
-                   decode_bytes=d1[0] - d0[0], decode_s=d1[1] - d0[1],
-                   **counter)
-    counter["prepare_s"] = time.perf_counter() - t0
+        rec.update(read_bytes=r1[0] - r0[0] + staging.read[0],
+                   read_s=r1[1] - r0[1] + staging.read[1],
+                   decode_bytes=d1[0] - d0[0] + staging.decode[0],
+                   decode_s=d1[1] - d0[1] + staging.decode[1],
+                   stage_tasks=staging.tasks, offload_s=staging.offload_s,
+                   blocked_s=staging.blocked_s, **counter)
+    counter.update(
+        prepare_s=(time.perf_counter() - t0 - staging.blocked_s
+                   + staging.offload_s),
+        stage_tasks=staging.tasks, offload_s=staging.offload_s)
+    if spans:
+      # after the span closed: the thread-seconds of its whole wall
+      rec["busy_s"] = counter["prepare_s"]
     return (*out, counter)
 
-  def prepare_chunk(ci, sl, lead_sl, counter):
+  def prepare_chunk(ci, sl, lead_sl, counter, staging):
     """Host work for this rank's share of one chunk (slice, align, prepare,
     pad) and its transfer; the share is read and moved once for all
     configs.  Derived variables and the probabilistic climatology's members
@@ -1440,7 +1460,7 @@ def evaluate_streaming_multi(
         f_chunk, t_chunk = xds.to_device(
             (f_chunk, t_chunk), dev, copy_stream, counter,
             None if any_host else transfer_dtype,
-            full_precision=derived_bases)
+            full_precision=derived_bases, staging=staging)
         if members is not None:
           f_chunk = f_chunk.isel({utils.MEMBER_PAIR: members})
         f_chunk, t_chunk = evaluation.add_derived_variables(f_chunk, t_chunk,
@@ -1465,7 +1485,7 @@ def evaluate_streaming_multi(
         prepared = _rename_utime(prepared)
       moved = xds.to_device(
           _normalize_any((f_chunk, t_chunk, prepared, uinv), chunk_dim),
-          dev, copy_stream, counter, transfer_dtype)
+          dev, copy_stream, counter, transfer_dtype, staging=staging)
       mask_dev = torch.as_tensor(time_mask).to(dev, non_blocking=True)
       event = None
       if copy_stream is not None:
@@ -1483,7 +1503,8 @@ def evaluate_streaming_multi(
               "a state at (lead slice, chunk, accumulators)")
   lead_results = []
   wait_host = wait_device = finalize = d2h = pin_s = prepare_s = 0.0
-  h2d_bytes = n_chunks_run = 0
+  offload_s = 0.0
+  h2d_bytes = n_chunks_run = stage_tasks = 0
   from weatherbench2_torch.evaluation import merge_metric_results
 
   for lead_i, lead_sl in enumerate(lead_slices):
@@ -1509,11 +1530,12 @@ def evaluate_streaming_multi(
     n_chunks_run += len(chunk_list)
     inflight: list = []
     pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
+    queue = xds.StageQueue(pool)
     snapshots = (_Snapshots(checkpoint_path, dev)
                  if checkpoint_path and checkpoint_every and share.lead
                  else None)
     try:
-      pending = [pool.submit(prepare_one, ci, sl, lead_sl)
+      pending = [pool.submit(prepare_one, ci, sl, lead_sl, queue)
                  for ci, sl in chunk_list[:PREFETCH_DEPTH]]
       for idx in range(len(chunk_list)):
         t0 = time.perf_counter()
@@ -1526,9 +1548,11 @@ def evaluate_streaming_multi(
         h2d_bytes += tally["h2d_bytes"]
         pin_s += tally["pin_s"]
         prepare_s += tally["prepare_s"]
+        stage_tasks += tally["stage_tasks"]
+        offload_s += tally["offload_s"]
         if idx + PREFETCH_DEPTH < len(chunk_list):
           pending.append(pool.submit(
-              prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl))
+              prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl, queue))
         with (spans.span("wb2.chunk_program", chunk=ci) if spans
               else tracing.NO_SPAN):
           if event is not None:
@@ -1648,6 +1672,7 @@ def evaluate_streaming_multi(
             "read_s": io_zarr.READS.seconds - read_s0,
             "decode_s": io_zarr.DECODES.seconds - decode_s0,
             "pin_s": pin_s, "prepare_s": prepare_s,
+            "stage_tasks": stage_tasks, "offload_s": offload_s,
             "wait_host_s": wait_host, "gathered_bytes": share.gathered_bytes,
             **{k: v - launches0[k] for k, v in _launch_counts().items()}}
     ranks = share.all_stats(mine)
@@ -1656,7 +1681,7 @@ def evaluate_streaming_multi(
     stats["d2h_s"] = stats.get("d2h_s", 0.0) + d2h
     stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
     for key in ("h2d_bytes", "read_bytes", "read_s", "decode_s", "pin_s",
-                "prepare_s"):
+                "prepare_s", "stage_tasks", "offload_s"):
       stats[key] = stats.get(key, 0) + sum(r[key] for r in ranks)
     stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + max(
         r["wait_host_s"] for r in ranks)

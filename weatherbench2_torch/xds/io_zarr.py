@@ -159,6 +159,14 @@ def decode_cf(data: np.ndarray, attrs: Mapping[str, Any]) -> np.ndarray:
   return data
 
 
+def _cf_encoded(attrs: Mapping[str, Any]) -> bool:
+  """Whether ``decode_cf`` may give a payload with ``attrs`` other values
+  than it holds (a time ``units``)."""
+  units = attrs.get("units")
+  return isinstance(units, str) and (
+      units.split(" since ")[0].strip() in _CF_UNITS)
+
+
 def merged_cf_attrs(var_attrs, cf_attrs) -> dict:
   """A variable's attrs with fresh CF attrs that evict stale units."""
   out = dict(var_attrs)
@@ -344,11 +352,13 @@ class ZarrArray:
     """The [lo, hi) box (one pair per axis), reading only its chunks."""
     return self.read_index([np.arange(lo, hi) for lo, hi in box])
 
-  def read_index(self, index) -> np.ndarray:
+  def read_index(self, index, out=None) -> np.ndarray:
     """The product of per-axis positions (sorted, unique int arrays): only
     the chunk files that hold them are read, and of an uncompressed chunk
-    only the bytes of the rows selected (see ``_read_part``)."""
-    out = np.empty(tuple(len(ix) for ix in index), dtype=self.dtype)
+    only the bytes of the rows selected (see ``_read_part``); into ``out``
+    when given (of that shape and the array's type)."""
+    if out is None:
+      out = np.empty(tuple(len(ix) for ix in index), dtype=self.dtype)
     if not self.shape:
       return self._read_chunk(()).copy()
     if out.size == 0:
@@ -538,9 +548,9 @@ class LazyArray(core.LazyArrayBase):
   def size(self):
     return int(np.prod(self.shape)) if self.shape else 1
 
-  def _materialize(self) -> np.ndarray:
-    # read each axis's distinct positions in ascending order, then put
-    # them in the view's order (and repeats) and drop the int axes
+  def _plan(self):
+    """Each axis's distinct positions in ascending order (what is read),
+    where the view wants them (None: as read) and the int axes it drops."""
     index, order, drop = [], [], []
     for ax, v in enumerate(self._view):
       pos = np.atleast_1d(np.asarray(v, np.int64))
@@ -550,6 +560,32 @@ class LazyArray(core.LazyArrayBase):
       order.append(None if same else inv.ravel())
       if isinstance(v, int):
         drop.append(ax)
+    return index, order, drop
+
+  @property
+  def plain(self) -> bool:
+    """Whether the view's values are its stored bytes as read: positions
+    ascending and distinct on every axis, the stored type, no CF decode
+    (``read_into`` takes it)."""
+    return (bool(self._arr.shape) and self.dtype == self._arr.dtype
+            and not _cf_encoded(self._attrs)
+            and all(o is None for o in self._plan()[1]))
+
+  def read_into(self, out: np.ndarray) -> None:
+    """Read a ``plain`` view into ``out`` (C-contiguous, of its shape and
+    type), with no array of its own in between."""
+    if not (self.plain and out.flags.c_contiguous
+            and out.shape == self.shape and out.dtype == self.dtype):
+      raise ValueError(
+          f"read_into takes a plain view and a C-contiguous {self.dtype} "
+          f"array of shape {self.shape}, got {out.dtype} {out.shape}")
+    index = self._plan()[0]
+    self._arr.read_index(index, out.reshape([len(ix) for ix in index]))
+
+  def _materialize(self) -> np.ndarray:
+    # read each axis's distinct positions in ascending order, then put
+    # them in the view's order (and repeats) and drop the int axes
+    index, order, drop = self._plan()
     data = self._arr.read_index(index)
     for ax, inv in enumerate(order):
       if inv is not None:

@@ -9,7 +9,13 @@ Dataset's payloads to the card through pinned memory on a side stream.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
+import functools
+import heapq
+import itertools
+import threading
 import time
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
@@ -253,8 +259,200 @@ def round_to_bfloat16(obj):
                         for k, v in obj.variables_dict().items()})
 
 
+# Payloads of at least this many bytes are staged as tasks of a
+# ``StageQueue`` when the caller gives one; the smaller ones (the time mask,
+# the truth's valid-time inverse) cost less to stage than to hand over, and
+# stay with the caller.
+STAGE_TASK_BYTES = 1 << 20
+
+_QUEUED, _RUNNING, _DONE, _CANCELLED = range(4)
+
+
+class _Task:
+  """One payload's host work, run once by the thread that claims it."""
+
+  __slots__ = ("fn", "state", "result", "error", "thread", "start", "end",
+               "read", "decode")
+
+  def __init__(self, fn):
+    self.fn = fn
+    self.state = _QUEUED
+    self.result = self.error = None
+
+  def run(self, cond: threading.Condition) -> None:
+    """Run ``fn`` on this thread, which claimed the task: its result or its
+    exception, its seconds and this thread's reads and decodes in it are
+    kept, and the waiters on ``cond`` told."""
+    r0, d0 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
+    start = time.perf_counter()
+    result = error = None
+    try:
+      result = self.fn()
+    except BaseException as err:  # the task's owner raises it again
+      error = err
+      raise
+    finally:
+      end = time.perf_counter()
+      r1, d1 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
+      with cond:
+        self.result, self.error = result, error
+        self.thread = threading.get_ident()
+        self.start, self.end = start, end
+        self.read = (r1[0] - r0[0], r1[1] - r0[1])
+        self.decode = (d1[0] - d0[0], d1[1] - d0[1])
+        self.state = _DONE
+        cond.notify_all()
+
+
+class StageQueue:
+  """Payload tasks of ``to_device`` shared over the threads of ``pool``.
+
+  A caller of ``to_device`` on one of the pool's threads hands its large
+  payloads in as tasks, and puts one helper call a task in the pool: a
+  helper runs the queued task of the lowest rank, if one is left, on a
+  thread that has nothing else to do.  The caller runs its own tasks while
+  any are still queued and waits only on those another thread runs, so no
+  thread waits on a task that nobody runs, and no more threads work than
+  the pool has.
+  """
+
+  def __init__(self, pool: concurrent.futures.Executor):
+    self.pool = pool
+    self.cond = threading.Condition()
+    self._heap: list = []
+    self._order = itertools.count()
+
+  def put(self, rank: int, tasks: list) -> None:
+    with self.cond:
+      for task in tasks:
+        heapq.heappush(self._heap, (rank, next(self._order), task))
+    for _ in tasks:
+      try:
+        self.pool.submit(self._help)
+      except RuntimeError:  # the pool is shutting down: the callers run them
+        break
+
+  def _help(self) -> None:
+    with self.cond:
+      while self._heap:
+        task = heapq.heappop(self._heap)[2]
+        if task.state == _QUEUED:
+          task.state = _RUNNING
+          break
+      else:
+        return
+    task.run(self.cond)
+
+
+@dataclasses.dataclass
+class Staging:
+  """One caller's share of a ``StageQueue``: its tasks queue at ``rank``
+  (the lowest first), and it counts them: ``tasks`` handed in,
+  ``offload_s`` the seconds of those that ran on other threads, with those
+  threads' ``read`` and ``decode`` tallies in them (bytes, seconds), and
+  ``blocked_s`` the seconds the caller waited while another thread ran one
+  of them."""
+  queue: StageQueue
+  rank: int
+  tasks: int = 0
+  offload_s: float = 0.0
+  blocked_s: float = 0.0
+  read: tuple = (0, 0.0)
+  decode: tuple = (0, 0.0)
+
+
+def _nbytes(payload) -> int:
+  """The bytes a host payload crosses in its own type, from its shape and
+  type alone (a lazy one is not read); 0 for one that stays on the host."""
+  dtype = getattr(payload, "dtype", None)
+  if not isinstance(dtype, np.dtype) or dtype.kind in "MmO":
+    return 0
+  return int(getattr(payload, "size", 0)) * dtype.itemsize
+
+
+def _narrows(narrowing, dtype, size) -> bool:
+  return (narrowing == torch.bfloat16 and dtype in (np.float32, np.float64)
+          and size > BFLOAT16_MIN_ENTRIES)
+
+
+def _stage(x, narrowing, device: torch.device, stream):
+  """A payload's host work: read it (with its decodes and CF decode), make
+  it contiguous, round it to bfloat16 where ``narrowing`` asks, and pin it
+  for a CUDA device.  (host array or CPU tensor, narrowed, seconds
+  pinning); an array of times or objects stays a host array.  A lazy Zarr
+  view whose values are its stored bytes is read straight into pinned
+  memory for a CUDA device: no host array of its own is made, filled and
+  copied again."""
+  if (device.type == "cuda" and isinstance(x, io_zarr.LazyArray) and x.plain
+      and not _narrows(narrowing, x.dtype, x.size)):
+    with torch.cuda.stream(stream):
+      t0 = time.perf_counter()
+      pinned = torch.empty(x.shape, pin_memory=True,
+                           dtype=torch.from_numpy(np.empty(0, x.dtype)).dtype)
+      pin_s = time.perf_counter() - t0
+    x.read_into(pinned.numpy())
+    return pinned, False, pin_s
+  arr = np.ascontiguousarray(np.asarray(x))
+  if arr.dtype.kind in "Mm" or arr.dtype == object:
+    return arr, False, 0.0
+  narrow = _narrows(narrowing, arr.dtype, arr.size)
+  host = bfloat16_bits(arr) if narrow else torch.from_numpy(arr)
+  if device.type != "cuda":
+    return host, narrow, 0.0
+  with torch.cuda.stream(stream):
+    t0 = time.perf_counter()
+    pinned = host.pin_memory()
+    return pinned, narrow, time.perf_counter() - t0
+
+
+def _collect(tasks: list, cond: threading.Condition, staging, deliver):
+  """``deliver(i, result)`` for each of ``tasks`` as it finishes; this
+  thread runs every one of them still queued, the first first, and waits
+  only while another thread runs one.  A task's exception is raised here;
+  the tasks not yet claimed then are dropped."""
+  me = threading.get_ident()
+  left = list(range(len(tasks)))
+  try:
+    while left:
+      with cond:
+        ready = [i for i in left if tasks[i].state == _DONE]
+        own = None
+        if not ready:
+          own = next((i for i in left if tasks[i].state == _QUEUED), None)
+          if own is None:
+            w0 = time.perf_counter()
+            while not any(tasks[i].state == _DONE for i in left):
+              cond.wait()
+            w1 = time.perf_counter()
+            # the wait while the first task to end ran: its seconds bound it
+            first = min((tasks[i] for i in left if tasks[i].state == _DONE),
+                        key=lambda task: task.end)
+            staging.blocked_s += max(
+                0.0, min(w1, first.end) - max(w0, first.start))
+            continue
+          tasks[own].state = _RUNNING
+      if own is not None:
+        tasks[own].run(cond)
+        continue
+      for i in ready:
+        left.remove(i)
+        task = tasks[i]
+        if task.error is not None:
+          raise task.error
+        if task.thread != me:
+          staging.offload_s += task.end - task.start
+          staging.read = tuple(map(sum, zip(staging.read, task.read)))
+          staging.decode = tuple(map(sum, zip(staging.decode, task.decode)))
+        deliver(i, task.result)
+  finally:
+    with cond:
+      for i in left:
+        if tasks[i].state == _QUEUED:
+          tasks[i].state = _CANCELLED
+
+
 def to_device(obj, device: torch.device, stream=None, counter=None,
-              transfer_dtype=None, full_precision=()):
+              transfer_dtype=None, full_precision=(), staging=None):
   """Move the numpy payloads of a Dataset/DataArray (or a dict or tuple
   of them) to ``device``; coordinates stay on the host.
 
@@ -270,52 +468,68 @@ def to_device(obj, device: torch.device, stream=None, counter=None,
   as bfloat16 (``bfloat16_bits``) and becomes float32 on the device: half
   the bytes of float32 at about three significant digits; the Dataset
   variables named in ``full_precision`` cross in their own type.
-  """
-  moved = {}  # id of a host payload -> (payload, its tensor)
 
-  def put(x, narrowing=transfer_dtype):
-    if core.is_tensor(x):
-      return x
-    if id(x) in moved:
-      return moved[id(x)][1]
-    arr = np.ascontiguousarray(np.asarray(x))
-    if arr.dtype.kind in "Mm" or arr.dtype == object:
-      return arr
-    narrow = (narrowing == torch.bfloat16
-              and arr.dtype in (np.float32, np.float64)
-              and arr.size > BFLOAT16_MIN_ENTRIES)
-    host = bfloat16_bits(arr) if narrow else torch.from_numpy(arr)
-    if counter is not None:
-      counter["h2d_bytes"] = (counter.get("h2d_bytes", 0)
-                              + host.numel() * host.element_size())
-    if device.type != "cuda":
-      out = host
-    else:
-      with torch.cuda.stream(stream):
-        t0 = time.perf_counter()
-        pinned = host.pin_memory()
-        if counter is not None:
-          counter["pin_s"] = (counter.get("pin_s", 0.0)
-                              + time.perf_counter() - t0)
-        out = pinned.to(device, non_blocking=True)
-    if narrow:
+  Each payload is read, narrowed and pinned, then copied, one after the
+  other; a lazy Zarr view of stored values is read straight into pinned
+  memory.  With ``staging`` (a ``Staging``), the payloads of at least
+  ``STAGE_TASK_BYTES`` are handed to its queue as tasks that idle threads
+  may take, the caller stages the rest and its tasks still queued, and
+  copies each payload as it is ready; ``staging`` counts the tasks.
+  """
+  payloads = {}  # id of a host payload -> (payload, its narrowing)
+
+  def register(x, narrowing):
+    if not core.is_tensor(x):
+      payloads.setdefault(id(x), (x, narrowing))
+    return x
+
+  _walk(obj, register, transfer_dtype, full_precision)
+  keys = list(payloads)
+  tasks = [_Task(functools.partial(_stage, x, narrowing, device, stream))
+           for x, narrowing in payloads.values()]
+  cond = threading.Condition()
+  if staging is not None:
+    cond = staging.queue.cond
+    handed = [task for key, task in zip(keys, tasks)
+              if _nbytes(payloads[key][0]) >= STAGE_TASK_BYTES]
+    staging.tasks += len(handed)
+    staging.queue.put(staging.rank, handed)
+  moved = {}
+
+  def cross(i, staged):
+    host, narrow, pin_s = staged
+    if core.is_tensor(host):
+      if counter is not None:
+        counter["h2d_bytes"] = (counter.get("h2d_bytes", 0)
+                                + host.numel() * host.element_size())
+        if device.type == "cuda":
+          counter["pin_s"] = counter.get("pin_s", 0.0) + pin_s
       with (torch.cuda.stream(stream) if device.type == "cuda"
             else contextlib.nullcontext()):
-        out = out.to(torch.float32)
-    moved[id(x)] = (x, out)
-    return out
+        if device.type == "cuda":
+          host = host.to(device, non_blocking=True)
+        if narrow:
+          host = host.to(torch.float32)
+    moved[keys[i]] = host
 
-  def walk(obj):
-    if isinstance(obj, core.Dataset):
-      return obj.copy(data={
-          k: put(v.data, None if k in full_precision else transfer_dtype)
-          for k, v in obj.variables_dict().items()})
-    if isinstance(obj, core.DataArray):
-      return obj.copy(data=put(obj.data))
-    if isinstance(obj, dict):
-      return {k: walk(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-      return type(obj)(walk(v) for v in obj)
-    return obj
+  _collect(tasks, cond, staging, cross)
+  return _walk(obj, lambda x, _: x if core.is_tensor(x) else moved[id(x)],
+               transfer_dtype, full_precision)
 
-  return walk(obj)
+
+def _walk(obj, leaf, transfer_dtype, full_precision):
+  """``obj`` with each payload ``x`` of its Datasets and DataArrays
+  replaced by ``leaf(x, its transfer type)``, in one fixed order."""
+  if isinstance(obj, core.Dataset):
+    return obj.copy(data={
+        k: leaf(v.data, None if k in full_precision else transfer_dtype)
+        for k, v in obj.variables_dict().items()})
+  if isinstance(obj, core.DataArray):
+    return obj.copy(data=leaf(obj.data, transfer_dtype))
+  if isinstance(obj, dict):
+    return {k: _walk(v, leaf, transfer_dtype, full_precision)
+            for k, v in obj.items()}
+  if isinstance(obj, (list, tuple)):
+    return type(obj)(_walk(v, leaf, transfer_dtype, full_precision)
+                     for v in obj)
+  return obj
