@@ -29,7 +29,8 @@ STAMP = BUILD_DIR / "libportbench_codecs.sha256"
 CXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC", "-pthread",
              "-Wl,-Bsymbolic"]
 HEADER_BYTES = 16
-CODECS = {"lz4": 1}
+# the frozen library's codec ids (``enum Codec`` in ``codecs.cpp``)
+CODECS = {"lz4": 1, "zstd": 4}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64

@@ -4,7 +4,10 @@ The harness marks its own spans with ``record_function``: the window
 (``portbench.window``) and each job (``portbench.job``).  Device events
 (kernels, memory copies and sets) are kept as intervals in the window;
 host (CPU) operations only to say what the host was doing in the device's
-longest idle gaps.  Spans inside the program are not marked yet.
+longest idle gaps.  The profiler records the main thread only: the
+program's own ``wb2.*`` spans, the prefetch threads' among them, reach the
+metrics through each job's ``stats["spans"]``, and those of the main thread
+also appear here as host operations.
 """
 from __future__ import annotations
 

@@ -66,6 +66,9 @@ FAULTS = {
     ("det15-raw", "state_unchanged"),
     ("det15-raw", "half_inits"),
     ("det15-raw", "answer_altered"),
+    ("det15-zstd3", "state_unchanged"),
+    ("det15-zstd3", "half_inits"),
+    ("det15-zstd3", "answer_altered"),
     ("ens15-raw", "state_unchanged"),
     ("ens15-raw", "half_inits"),
     ("ens15-raw", "half_members"),
@@ -79,7 +82,8 @@ def test_fault_is_not_correct(monkeypatch, tmp_path, workload, fault):
   assert line["correct"] is False, (line["checks"], notes)
 
 
-@pytest.mark.parametrize("workload", ["det15-raw", "ens15-raw"])
+@pytest.mark.parametrize("workload", ["det15-raw", "ens15-raw",
+                                      "det15-zstd3"])
 def test_control_is_not_correct(tmp_path, workload):
   cell = tiny_cell(workload)
   out = control.readings(cell, 2**31 + 31, "cpu", ["program", "control"],

@@ -64,7 +64,8 @@ def test_benchmark_json_contract(bench):
   assert len(json.dumps(bench)) < 64 * 1024
 
 
-@pytest.mark.parametrize("workload", ["det15-lz4", "det15-raw"])
+@pytest.mark.parametrize("workload", ["det15-lz4", "det15-raw",
+                                      "det15-zstd3"])
 def test_last_line_of_an_untraced_run(tmp_path, workload):
   cell = tiny_cell(workload)
   line, notes = run.run_cell(cell, 2**31 + 11, 0.0, False, device="cpu",

@@ -101,9 +101,12 @@ def test_every_new_entry_has_its_reader_and_cells():
     if base in NEW:
       forms.setdefault(base, set()).add((form, tuple(m["workloads"])))
   want = {"det": ("det15-raw",), "ens": ("ens15-raw",), "lz4": ("det15-lz4",)}
-  assert forms["read_ms_per_init"] == set(want.items())
+  # the zstd cell reads two of them: its reads and its fill
+  zstd3 = {("zstd3", ("det15-zstd3",))}
+  assert forms["read_ms_per_init"] == set(want.items()) | zstd3
   for base in NEW[1:]:
-    assert forms[base] == {("det", want["det"]), ("ens", want["ens"])}
+    assert forms[base] == {("det", want["det"]), ("ens", want["ens"])} | (
+        zstd3 if base == "fill_wait_share" else set())
 
 
 @pytest.mark.card

@@ -31,6 +31,7 @@ def _compiler():
 @pytest.mark.parametrize("config,traffic", [
     ("wb2-det-1.5deg", "raw-32inits"),
     ("wb2-det-1.5deg", "lz4-32inits"),
+    ("wb2-det-1.5deg", "zstd3-32inits"),
     ("wb2-ens50-1.5deg", "raw-2inits"),
 ])
 def test_stores_read_back_by_the_port(tmp_path, config, traffic):
@@ -106,6 +107,21 @@ def test_frozen_lz4_chunks_read_by_the_port(shuffle):
   back = np.empty_like(data)
   codec.decode_into(port, back)
   np.testing.assert_array_equal(back, data)
+
+
+@pytest.mark.parametrize("shuffle", [0, 1, 2])
+def test_frozen_zstd_chunks_read_by_the_port(shuffle):
+  if not _compiler():
+    pytest.skip("no C++ compiler for the codecs")
+  from weatherbench2_torch.xds import _codec
+
+  rng = np.random.default_rng(10 + shuffle)
+  data = np.cumsum(rng.standard_normal(300_000)).astype(np.float32)
+  raw = codec.encode(data, "zstd", 3, shuffle, 2)
+  assert len(raw) < data.nbytes
+  out = np.empty_like(data)
+  _codec.decode_into(raw, out, "test")
+  np.testing.assert_array_equal(out, data)
 
 
 def test_codec_copy_is_frozen():
