@@ -3,12 +3,17 @@
 ``evaluation.evaluate_with_mesh`` keeps spans only while ``torch.profiler``
 records its calling thread, and hands them over in ``stats["spans"]``; the
 counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``,
-``stage_tasks``, ``offload_s``) are always there.  The stores are 30-degree, two 2-d variables, 8 daily
-inits of 3 leads, written by the port uncompressed or as blosc-lz4.
+``stage_tasks``, ``offload_s``, ``metric_prep_s``, ``generic_s``,
+``write_bytes``, ``encode_bytes``, ``encode_s``) are always there.  The
+stores are 30-degree, two 2-d variables, 8 daily inits of 3 leads, written
+by the port uncompressed or as blosc-lz4.
 """
+import hashlib
+import os
 import sys
 import threading
 
+import numpy as np
 import pytest
 from torch.profiler import ProfilerActivity, profile
 
@@ -26,7 +31,8 @@ from weatherbench2_torch.xds import io_zarr
 VARIABLES = ["2m_temperature", "10m_u_component_of_wind"]
 LZ4 = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}
 COUNTERS = ("read_s", "decode_s", "pin_s", "prepare_s", "d2h_s",
-            "stage_tasks", "offload_s")
+            "stage_tasks", "offload_s", "metric_prep_s", "generic_s",
+            "write_bytes", "encode_bytes", "encode_s")
 # every span of the pipeline; wb2.wait_device waits for a CUDA device's
 # queue, which a CPU run does not have
 SPANS = {"wb2.job", "wb2.open", "wb2.prepare", "wb2.wait_host",
@@ -72,10 +78,21 @@ def _configs():
   }
 
 
-def _run(stores, store="raw", chunk=4, profiled=False):
+def _spatial_configs():
+  """Per-cell maps written to Zarr: metrics no fused tier takes, so they
+  run in the engine's per-metric loop."""
+  return {
+      "spatial": config.Eval(
+          metrics={"mse": metrics.SpatialMSE(), "bias": metrics.SpatialBias()},
+          output_format="zarr"),
+      "det": _configs()["det"],
+  }
+
+
+def _run(stores, store="raw", chunk=4, profiled=False, configs=_configs):
   tmp, paths = stores
-  out = tmp / f"out_{store}_{chunk}_{profiled}"
-  args = (_data_config(paths[store], out), _configs())
+  out = tmp / f"out_{store}_{chunk}_{profiled}_{configs.__name__}"
+  args = (_data_config(paths[store], out), configs())
   kwargs = dict(device="cpu", input_chunks={"init_time": chunk})
   if not profiled:
     return evaluation.evaluate_with_mesh(*args, **kwargs), None
@@ -241,3 +258,86 @@ def test_counters_lose_no_update_and_keep_each_threads_tally():
   assert tallies == {i: ((i + 1) * n_adds, n_adds * 0.5)
                      for i in range(n_threads)}
   assert counter.mine() == (0, 0.0)
+
+
+def _stored_bytes(path):
+  return sum(os.path.getsize(os.path.join(d, f))
+             for d, _, files in os.walk(path) for f in files)
+
+
+def test_every_run_counts_its_metric_preparation_loop_and_writes(stores):
+  """Without spans the counters are in ``stats``: the per-metric loop's
+  seconds where a config has metrics no fused tier takes, none where
+  every metric is fused, and the results' bytes as stored."""
+  fused, _ = _run(stores)
+  spatial, _ = _run(stores, configs=_spatial_configs)
+  for stats in (fused, spatial):
+    assert stats["metric_prep_s"] > 0
+    assert stats["write_bytes"] > 0
+  assert fused["generic_s"] == 0.0
+  assert spatial["generic_s"] > 0
+  # netCDF files have no chunks to encode; the Zarr maps have
+  assert fused["encode_bytes"] == 0 and fused["encode_s"] == 0.0
+  assert spatial["encode_bytes"] > 0 and spatial["encode_s"] > 0
+
+
+def test_write_spans_carry_the_files_stored_bytes(stores):
+  """Each ``wb2.write`` span's ``bytes`` are its results file's bytes on
+  disk (every file of a Zarr store), and they add up to
+  ``write_bytes``; the encode seconds of the spans to ``encode_s``."""
+  stats, _ = _run(stores, profiled=True, configs=_spatial_configs)
+  tmp, _ = stores
+  out = tmp / "out_raw_4_True__spatial_configs"
+  writes = {s["config"]: s for s in stats["spans"] if s["name"] == "wb2.write"}
+  assert sorted(writes) == ["det", "spatial"]
+  assert writes["spatial"]["bytes"] == _stored_bytes(out / "spatial.zarr")
+  assert writes["det"]["bytes"] == os.path.getsize(out / "det.nc")
+  assert writes["det"]["encode_s"] == 0.0
+  assert sum(w["bytes"] for w in writes.values()) == stats["write_bytes"]
+  assert sum(w["encode_s"] for w in writes.values()) == pytest.approx(
+      stats["encode_s"])
+  programs = [s for s in stats["spans"] if s["name"] == "wb2.chunk_program"]
+  assert sum(s["generic_s"] for s in programs) == pytest.approx(
+      stats["generic_s"])
+  prepares = [s for s in stats["spans"] if s["name"] == "wb2.prepare"]
+  assert sum(s["metric_prep_s"] for s in prepares) == pytest.approx(
+      stats["metric_prep_s"])
+
+
+# sha256 of the files (relative path, then bytes) of the fixed store below
+# as the writer wrote it before it counted its writes: counting changes no
+# byte written
+WRITTEN = {
+    "zstd3": "ca90653ca300c207fee83922b9e5f4c0de9e9a7af546ad3857dc3eacafdc9fd0",
+    "lz4": "25447b43dd243f852d408ae4d381e20f5c847692dd25c8956f37b8f2a363df5c",
+    "none": "e7f01c8c993683334677e17b9ec3450bbd41ff1c715b1fc2c5fdecb2e195ba1f",
+}
+
+
+@pytest.mark.parametrize("compressor", sorted(WRITTEN))
+def test_counted_writes_are_the_bytes_written_before(tmp_path, compressor):
+  rng = np.random.default_rng(7)
+  shape = (2, 12, 7, 4)
+  dims = ("metric", "longitude", "latitude", "bins")
+  ds = xds.Dataset(
+      {"2m_temperature": xds.Variable(dims, rng.standard_normal(shape)),
+       "hist": xds.Variable(dims,
+                            np.round(rng.uniform(size=shape) * 2) / 2)},
+      coords={"metric": np.array(["crps", "mse"], object),
+              "longitude": np.arange(12) * 30.0,
+              "latitude": np.linspace(-90, 90, 7), "bins": np.arange(4)})
+  path = str(tmp_path / "r.zarr")
+  before = (io_zarr.WRITES.bytes, io_zarr.WRITES.decoded)
+  xds.to_zarr(ds, path, compressor=compressor)
+  digest = hashlib.sha256()
+  for root, dirs, files in sorted(os.walk(path)):
+    dirs.sort()
+    for f in sorted(files):
+      full = os.path.join(root, f)
+      digest.update(os.path.relpath(full, path).encode())
+      with open(full, "rb") as fh:
+        digest.update(fh.read())
+  assert digest.hexdigest() == WRITTEN[compressor]
+  assert io_zarr.WRITES.bytes - before[0] == _stored_bytes(path)
+  assert io_zarr.WRITES.decoded - before[1] == 2 * 8 * np.prod(shape) + (
+      8 * (12 + 7 + 4))  # the two variables and the numeric coordinates

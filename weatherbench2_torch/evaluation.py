@@ -14,6 +14,7 @@ written as NetCDF3 (``scipy.io``), which
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import logging
 import os
@@ -31,6 +32,7 @@ from weatherbench2_torch import schema
 from weatherbench2_torch import tracing
 from weatherbench2_torch import utils
 from weatherbench2_torch import xds
+from weatherbench2_torch.xds import io_zarr
 from weatherbench2_torch.xds.core import LazyArrayBase, LazyStack
 
 
@@ -585,12 +587,16 @@ def evaluate_with_mesh(
   h2d bytes, bytes read, seconds spent waiting on the host and on the
   device and finalizing the results (see
   ``streaming.evaluate_streaming_multi``), seconds spent writing the
-  results files, and the wall time.  While ``torch.profiler`` records
-  the calling thread, ``stats["spans"]`` holds the call's spans
-  (``tracing``): ``wb2.job`` over the whole call, ``wb2.open`` and each
-  results file's ``wb2.write`` here, and the chunk pipeline's from
-  ``streaming.evaluate_streaming_multi``.  ``device=None`` is the CUDA card;
-  pass ``device="cpu"`` to run on the host.  With ``checkpoint_path`` each
+  results files (``write_s``), their bytes as stored (``write_bytes``),
+  and of their Zarr chunks the decoded bytes (``encode_bytes``) and the
+  seconds their encoding took (``encode_s``; ``xds.io_zarr.WRITES``), and
+  the wall time.  While ``torch.profiler`` records the calling thread,
+  ``stats["spans"]`` holds the call's spans (``tracing``): ``wb2.job``
+  over the whole call, ``wb2.open`` and each results file's ``wb2.write``
+  (with its ``bytes``, ``encode_bytes`` and ``encode_s``) here, and the
+  chunk pipeline's from ``streaming.evaluate_streaming_multi``.
+  ``device=None`` is the CUDA card; pass ``device="cpu"`` to run on the
+  host.  With ``checkpoint_path`` each
   group of configs snapshots its accumulators every ``checkpoint_every``
   chunks into ``<checkpoint_path>.<cfg[+cfg...]>``, and an existing file
   resumes the run, grouped and lead_time-chunked streams included.
@@ -663,13 +669,25 @@ def evaluate_with_mesh(
         output_format = group[eval_name].output_format
         output_path = _get_output_path(data_config, eval_name, output_format)
         with (spans.span("wb2.write", config=eval_name, format=output_format)
-              if spans else tracing.NO_SPAN):
+              if spans else contextlib.nullcontext({})) as rec:
+          # the file's bytes as stored; of its Zarr chunks, the bytes
+          # encoded and the seconds that took (a netCDF file has none)
+          writes = io_zarr.WRITES
+          before = (writes.bytes, writes.decoded, writes.encode_s)
           if output_format == "netcdf":
             _to_netcdf(results, output_path)
+            written = os.path.getsize(output_path)
           else:
             os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
             xds.to_zarr(results, output_path)
+            written = writes.bytes - before[0]
+          rec.update(bytes=written, encode_bytes=writes.decoded - before[1],
+                     encode_s=writes.encode_s - before[2])
         logging.info("Saved results to %s", output_path)
+        stats["write_bytes"] = stats.get("write_bytes", 0) + rec["bytes"]
+        stats["encode_bytes"] = (stats.get("encode_bytes", 0)
+                                 + rec["encode_bytes"])
+        stats["encode_s"] = stats.get("encode_s", 0.0) + rec["encode_s"]
       stats["write_s"] = stats.get("write_s", 0.0) + (
           time.perf_counter() - t_write)
   stats["wall_s"] = time.perf_counter() - t0

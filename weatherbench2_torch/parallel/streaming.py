@@ -645,6 +645,43 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
   return results, leftover
 
 
+class _LoopTimer:
+  """Seconds of the timed blocks (the per-metric loop of each chunk and
+  config): on a CUDA device the compute stream's time between two events
+  recorded around the block's launches, read once the stream has run them;
+  on the host the block's wall."""
+
+  def __init__(self, dev):
+    self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+                    else None)
+    self.marks: list = []  # per block: (start, end) events, or seconds
+
+  @contextlib.contextmanager
+  def time(self):
+    if self._stream is None:
+      t0 = time.perf_counter()
+      yield
+      self.marks.append(time.perf_counter() - t0)
+      return
+    start = torch.cuda.Event(enable_timing=True)
+    start.record(self._stream)
+    yield
+    end = torch.cuda.Event(enable_timing=True)
+    end.record(self._stream)
+    self.marks.append((start, end))
+
+  def seconds(self) -> list:
+    """Each block's seconds, waiting for the device where it has not run
+    them yet."""
+    out = []
+    for mark in self.marks:
+      if isinstance(mark, tuple):
+        mark[1].synchronize()
+        mark = mark[0].elapsed_time(mark[1]) / 1e3
+      out.append(mark)
+    return out
+
+
 def _loop_over_regions(compute, regions):
   """One result per region, concatenated along ``region``; with
   ``{None: None}`` (a config without regions) the one result as it is."""
@@ -1200,7 +1237,13 @@ def evaluate_streaming_multi(
   decoding them and ``pin_s`` staging the copies in pinned memory; a
   chunk's large payloads are staged as tasks that any idle prefetch thread
   may take (``stage_tasks`` of them, ``offload_s`` seconds of them on a
-  thread other than their chunk's).
+  thread other than their chunk's); ``metric_prep_s`` in the metrics'
+  ``prepare_chunk`` (rank draws, climatology gathers).  ``generic_s``: the
+  seconds of the per-metric loop (the metrics no fused tier takes), on a
+  CUDA device the compute stream's time around its launches, read once
+  the stream has run them, on the host its wall; each chunk's is an
+  attribute of its ``wb2.chunk_program`` span, as ``metric_prep_s`` is of
+  its ``wb2.prepare``.
   ``spans`` (a ``tracing.Spans``) records the chunk pipeline's spans, and
   False records none; None, the default, records them while
   ``torch.profiler`` records the calling thread, into ``stats["spans"]``.
@@ -1219,9 +1262,9 @@ def evaluate_streaming_multi(
   rank of the batch axis).
   ``stats`` then also holds ``ranks``, every rank's ``h2d_bytes``,
   ``read_bytes``, ``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``,
-  ``stage_tasks``, ``offload_s``, ``wait_host_s``, ``gathered_bytes`` and
-  the region kernels' launches (``fused_deterministic_sums_launches``,
-  ``fused_region_sums_launches``);
+  ``stage_tasks``, ``offload_s``, ``metric_prep_s``, ``generic_s``,
+  ``wait_host_s``, ``gathered_bytes`` and the region kernels' launches
+  (``fused_deterministic_sums_launches``, ``fused_region_sums_launches``);
   its bytes and prefetch seconds are their sums, ``wait_host_s`` the
   largest.
   """
@@ -1366,11 +1409,13 @@ def evaluate_streaming_multi(
       f_c, t_c, prepared = share.gather_bands((f_c, t_c, prepared))
       if not share.owner:
         generic_names = []
-    for name in generic_names:
-      results[name] = _loop_over_regions(
-          lambda region, name=name: metrics[name].compute_chunk_prepared(
-              f_c, t_c, prepared[name], region=region, skipna=skipna),
-          regions_by[cname])
+    if generic_names:
+      with generic_timer.time():
+        for name in generic_names:
+          results[name] = _loop_over_regions(
+              lambda region, name=name: metrics[name].compute_chunk_prepared(
+                  f_c, t_c, prepared[name], region=region, skipna=skipna),
+              regions_by[cname])
     metrics_lib.clear_caches()  # the CRPS spread of this chunk
     if not eval_configs[cname].temporal_mean:
       return results, dict.fromkeys(results)
@@ -1381,6 +1426,10 @@ def evaluate_streaming_multi(
     return sums, counts
 
   copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+  # the per-metric loop's seconds, and the chunk_program span of each chunk
+  # with the blocks it timed: (record, first block, end)
+  generic_timer = _LoopTimer(dev)
+  program_spans = []
 
   def prepare_one(ci, sl, lead_sl, queue):
     """``prepare_chunk`` on a prefetch thread, its large payloads staged as
@@ -1394,7 +1443,7 @@ def evaluate_streaming_multi(
     ``stage_tasks``, ``offload_s``, ``blocked_s`` (the waits) and
     ``busy_s`` (``prepare_s``)."""
     t0 = time.perf_counter()
-    counter = {"h2d_bytes": 0, "pin_s": 0.0}
+    counter = {"h2d_bytes": 0, "pin_s": 0.0, "metric_prep_s": 0.0}
     staging = xds.Staging(queue, ci)
     if not spans:
       out = prepare_chunk(ci, sl, lead_sl, counter, staging)
@@ -1473,11 +1522,13 @@ def evaluate_streaming_multi(
       if any_host:
         f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)
         host_chunks = (f_chunk, t_chunk)
+      t0 = time.perf_counter()
       prepared = {
           c: {name: m.prepare_chunk(f_chunk, t_chunk, device=dev)
               for name, m in device_metrics_by[c].items()}
           for c in eval_configs
       }
+      counter["metric_prep_s"] = time.perf_counter() - t0
       # climatology gathers span the whole grid: cut them to the band
       prepared = share.to_band(prepared)
       if truth_dedup:
@@ -1503,7 +1554,7 @@ def evaluate_streaming_multi(
               "a state at (lead slice, chunk, accumulators)")
   lead_results = []
   wait_host = wait_device = finalize = d2h = pin_s = prepare_s = 0.0
-  offload_s = 0.0
+  offload_s = metric_prep_s = 0.0
   h2d_bytes = n_chunks_run = stage_tasks = 0
   from weatherbench2_torch.evaluation import merge_metric_results
 
@@ -1550,11 +1601,13 @@ def evaluate_streaming_multi(
         prepare_s += tally["prepare_s"]
         stage_tasks += tally["stage_tasks"]
         offload_s += tally["offload_s"]
+        metric_prep_s += tally["metric_prep_s"]
         if idx + PREFETCH_DEPTH < len(chunk_list):
           pending.append(pool.submit(
               prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl, queue))
         with (spans.span("wb2.chunk_program", chunk=ci) if spans
-              else tracing.NO_SPAN):
+              else tracing.NO_SPAN) as program_rec:
+          first_block = len(generic_timer.marks)
           if event is not None:
             compute_stream = torch.cuda.current_stream(dev)
             compute_stream.wait_event(event)
@@ -1598,6 +1651,9 @@ def evaluate_streaming_multi(
                 needs_align[cname] = False
               sums_acc[cname] = _tree_add(sums_acc[cname], sums)
               counts_acc[cname] = _tree_add(counts_acc[cname], counts)
+          if program_rec is not None:
+            program_spans.append(
+                (program_rec, first_block, len(generic_timer.marks)))
           if dev.type == "cuda":
             done = torch.cuda.Event()
             done.record(torch.cuda.current_stream(dev))
@@ -1666,6 +1722,9 @@ def evaluate_streaming_multi(
     lead_results.append(per_config)
     finalize += time.perf_counter() - t1
 
+  generic_s = generic_timer.seconds()
+  for rec, first, end in program_spans:
+    rec["generic_s"] = sum(generic_s[first:end])
   if stats is not None:
     mine = {"h2d_bytes": h2d_bytes,
             "read_bytes": io_zarr.READS.bytes - reads0,
@@ -1673,6 +1732,7 @@ def evaluate_streaming_multi(
             "decode_s": io_zarr.DECODES.seconds - decode_s0,
             "pin_s": pin_s, "prepare_s": prepare_s,
             "stage_tasks": stage_tasks, "offload_s": offload_s,
+            "metric_prep_s": metric_prep_s, "generic_s": sum(generic_s),
             "wait_host_s": wait_host, "gathered_bytes": share.gathered_bytes,
             **{k: v - launches0[k] for k, v in _launch_counts().items()}}
     ranks = share.all_stats(mine)
@@ -1681,7 +1741,8 @@ def evaluate_streaming_multi(
     stats["d2h_s"] = stats.get("d2h_s", 0.0) + d2h
     stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
     for key in ("h2d_bytes", "read_bytes", "read_s", "decode_s", "pin_s",
-                "prepare_s", "stage_tasks", "offload_s"):
+                "prepare_s", "stage_tasks", "offload_s", "metric_prep_s",
+                "generic_s"):
       stats[key] = stats.get(key, 0) + sum(r[key] for r in ranks)
     stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + max(
         r["wait_host_s"] for r in ranks)

@@ -89,10 +89,34 @@ class DecodeCounter(_Counter):
   summed over every thread that decodes (reading the file is not in it)."""
 
 
+class WriteCounter(_Counter):
+  """Files this module writes (chunks and metadata): ``bytes`` as stored
+  and ``seconds`` of their opens, writes and renames, summed over every
+  thread that writes; of the chunks, the decoded bytes (``decoded``) and
+  the seconds their encoding took (``encode_s``)."""
+
+  def __init__(self):
+    super().__init__()
+    self.decoded = 0
+    self.encode_s = 0.0
+
+  def add_encoded(self, decoded: int, seconds: float) -> None:
+    with self._lock:
+      self.decoded += int(decoded)
+      self.encode_s += seconds
+
+  def reset(self) -> None:
+    super().reset()
+    with self._lock:
+      self.decoded = 0
+      self.encode_s = 0.0
+
+
 # every chunk-file read of this module counts here (the file's bytes, as
-# stored), and every decoded chunk in DECODES
+# stored), every decoded chunk in DECODES, and every file written in WRITES
 READS = ReadCounter()
 DECODES = DecodeCounter()
+WRITES = WriteCounter()
 
 BLOSC_CNAMES = ("blosclz", "lz4", "lz4hc", "snappy", "zlib", "zstd")
 # the queue item of the blosc encoders the port's writer lacks
@@ -185,9 +209,12 @@ def _read_json(path: str):
 
 
 def _write_json(path: str, obj) -> None:
+  text = json.dumps(obj, indent=2, default=str)
+  t0 = time.perf_counter()
   os.makedirs(os.path.dirname(path), exist_ok=True)
   with open(path, "w") as f:
-    f.write(json.dumps(obj, indent=2, default=str))
+    f.write(text)
+  WRITES.add(len(text.encode()), time.perf_counter() - t0)
 
 
 def default_compressor(compressor="default"):
@@ -321,6 +348,7 @@ class ZarrArray:
     data = np.ascontiguousarray(arr, dtype=self.dtype)
     comp = self.compressor
     path = self._chunk_path(idx)
+    t0 = time.perf_counter()
     if comp is None:
       raw = data.tobytes()
     elif comp["id"] == "blosc":
@@ -337,11 +365,14 @@ class ZarrArray:
       wbits = 31 if comp["id"] == "gzip" else 15
       enc = zlib.compressobj(comp.get("level", 1), zlib.DEFLATED, wbits)
       raw = enc.compress(data.tobytes()) + enc.flush()
+    t1 = time.perf_counter()
+    WRITES.add_encoded(data.nbytes, t1 - t0)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
       f.write(raw)
     os.replace(tmp, path)
+    WRITES.add(len(raw), time.perf_counter() - t1)
 
   def _chunk_ranges(self, box):
     """Per-axis chunk indices overlapping the [lo, hi) box."""
