@@ -4,7 +4,8 @@
 records its calling thread, and hands them over in ``stats["spans"]``; the
 counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``,
 ``stage_tasks``, ``offload_s``, ``metric_prep_s``, ``generic_s``,
-``write_bytes``, ``encode_bytes``, ``encode_s``) are always there.  The
+``write_bytes``, ``encode_bytes``, ``encode_s``, ``finalize_device_bytes``,
+``finalize_host_merges``) are always there.  The
 stores are 30-degree, two 2-d variables, 8 daily inits of 3 leads, written
 by the port uncompressed or as blosc-lz4.
 """
@@ -32,7 +33,8 @@ VARIABLES = ["2m_temperature", "10m_u_component_of_wind"]
 LZ4 = {"id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1}
 COUNTERS = ("read_s", "decode_s", "pin_s", "prepare_s", "d2h_s",
             "stage_tasks", "offload_s", "metric_prep_s", "generic_s",
-            "write_bytes", "encode_bytes", "encode_s")
+            "write_bytes", "encode_bytes", "encode_s", "finalize_device_bytes",
+            "finalize_host_merges")
 # every span of the pipeline; wb2.wait_device waits for a CUDA device's
 # queue, which a CPU run does not have
 SPANS = {"wb2.job", "wb2.open", "wb2.prepare", "wb2.wait_host",
@@ -302,6 +304,61 @@ def test_write_spans_carry_the_files_stored_bytes(stores):
   prepares = [s for s in stats["spans"] if s["name"] == "wb2.prepare"]
   assert sum(s["metric_prep_s"] for s in prepares) == pytest.approx(
       stats["metric_prep_s"])
+
+
+def _mixed_configs():
+  """A config whose metrics differ in dims (a global mean beside per-cell
+  maps), so its means are joined on the host, beside one stacked on the
+  device."""
+  return {
+      "mixed": config.Eval(
+          metrics={"mse": metrics.MSE(), "smse": metrics.SpatialMSE()},
+          output_format="zarr"),
+      "spatial": _spatial_configs()["spatial"],
+  }
+
+
+def _means_bytes(path, global_metrics=()):
+  """The bytes of a results file's float64 means, less the cells the
+  merge filled in for ``global_metrics``, which have no latitude or
+  longitude of their own."""
+  total = 0
+  for v in xds.open_zarr(str(path)).variables_dict().values():
+    assert v.dtype == np.float64
+    per_metric = v.size // v.sizes["metric"]
+    cells = v.sizes["latitude"] * v.sizes["longitude"]
+    total += 8 * sum(per_metric // cells if m in global_metrics else per_metric
+                     for m in ("mse", "smse")[-v.sizes["metric"]:])
+  return total
+
+
+@pytest.mark.parametrize("configs", [_spatial_configs, _mixed_configs])
+def test_the_finalize_counts_the_means_it_stacked_on_the_device(stores,
+                                                                configs):
+  """Only the temporal means cross: ``wb2.d2h``'s ``bytes`` are the
+  results' float64 values, not the sums and counts.  The means of a
+  config whose metrics share variables and coordinates are stacked on the
+  device (``finalize_device_bytes``); a config whose metrics differ is
+  joined on the host (``finalize_host_merges``); both are in ``stats`` and
+  on the ``wb2.finalize`` span."""
+  stats, _ = _run(stores, profiled=True, configs=configs)
+  tmp, _ = stores
+  out = tmp / f"out_raw_4_True_{configs.__name__}"
+  (d2h,) = [s for s in stats["spans"] if s["name"] == "wb2.d2h"]
+  (fin,) = [s for s in stats["spans"] if s["name"] == "wb2.finalize"]
+  spatial = _means_bytes(out / "spatial.zarr")
+  if configs is _spatial_configs:
+    # the det config's regional means are stacked too
+    det_means = sum(np.asarray(v.data).nbytes for v in xds.open_netcdf(
+        str(out / "det.nc")).variables_dict().values())
+    assert d2h["bytes"] == spatial + det_means
+    want = (spatial + det_means, 0)
+  else:
+    mixed = _means_bytes(out / "mixed.zarr", global_metrics=("mse",))
+    assert d2h["bytes"] == spatial + mixed
+    want = (spatial, 1)
+  assert (stats["finalize_device_bytes"], stats["finalize_host_merges"]) == want
+  assert (fin["finalize_device_bytes"], fin["finalize_host_merges"]) == want
 
 
 # sha256 of the files (relative path, then bytes) of the fixed store below

@@ -387,6 +387,8 @@ def merge_metric_results(results: list, dim: str = "metric") -> xds.Dataset:
 
   Variables missing for some metrics are NaN-filled; dims differing across
   metrics are broadcast to the union, with coordinate values outer-joined.
+  A single dataset's float64 (metric, ...) payloads are taken as they are,
+  not copied.
   """
   metric_names = []
   for ds in results:
@@ -482,7 +484,8 @@ def merge_metric_results(results: list, dim: str = "metric") -> xds.Dataset:
       v = xds.Variable((dim,) + da_dims, vals).broadcast_to_dims(
           (dim,) + tuple(union_dims), {dim: n_metric, **sizes})
       pieces.append(np.asarray(v.data))
-    data = np.concatenate(pieces, axis=0)
+    data = (np.ascontiguousarray(pieces[0]) if len(pieces) == 1
+            else np.concatenate(pieces, axis=0))
     coords = {dim: np.asarray(metric_names, dtype=object)}
     for d in union_dims:
       if d in union_coord_vals:

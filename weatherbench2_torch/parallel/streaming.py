@@ -18,8 +18,10 @@ Counterpart of ``weatherbench2_tpu/parallel/streaming.py``:
     configs without regions, a metric that declines) through the
     per-metric × region loop; metrics with ``supports_jit = False`` run on
     the host on numpy chunks;
-  * running (sum, count) accumulators stay on the device, and the temporal
-    mean is ``sum / count`` at the end;
+  * running (sum, count) accumulators stay on the device; at the end the
+    temporal means are divided there and, where a config's metrics share
+    their variables and coordinates, stacked by metric, so only the means
+    cross to the host;
   * by-init truth is deduplicated to the chunk's unique valid times on the
     host and expanded on the device with one gather;
   * ``lead_time`` input chunks stream the lead axis slice by slice, each
@@ -82,6 +84,9 @@ DEFAULT_CHUNK_BYTES = 1.5e9
 # dtype; larger ones (the per-cell accumulators of Spatial* metrics) are
 # copied one by one, so that no second copy of them is made on the device.
 PACKED_LEAF_BYTES = 1 << 20
+# A large leaf on a CUDA device crosses in blocks of this size through two
+# pinned buffers (``_to_host``).
+D2H_BLOCK_BYTES = 64 << 20
 
 _UTIME = "__utime"
 
@@ -173,15 +178,50 @@ def _replace_leaves(tree, fn):
   return tree
 
 
+def _to_host(t: torch.Tensor) -> np.ndarray:
+  """A tensor as a new host array.  From a CUDA device it crosses in
+  blocks through two pinned buffers: while a block crosses, the CPU's
+  threads copy the one before into the array, faulting its fresh pages in
+  together (a pageable ``.cpu()`` faults them on one thread, at about half
+  the rate on an H100's host)."""
+  if t.device.type != "cuda":
+    return t.cpu().numpy()
+  src = t.contiguous().view(-1)
+  # numpy allocates the array (with huge pages where the host offers them)
+  host = np.empty(tuple(t.shape), torch.empty(0, dtype=t.dtype).numpy().dtype)
+  out = torch.from_numpy(host).view(-1)
+  step = max(1, D2H_BLOCK_BYTES // t.element_size())
+  starts = range(0, src.numel(), step)
+  with torch.cuda.device(t.device):
+    bufs = [torch.empty(min(step, src.numel()), dtype=t.dtype,
+                        pin_memory=True) for _ in range(2)]
+    crossed = [torch.cuda.Event(), torch.cuda.Event()]
+
+    def cross(i):
+      lo = starts[i]
+      n = min(step, src.numel() - lo)
+      bufs[i % 2][:n].copy_(src[lo:lo + n], non_blocking=True)
+      crossed[i % 2].record()
+
+    cross(0)
+    for i, lo in enumerate(starts):
+      if i + 1 < len(starts):
+        cross(i + 1)  # its buffer's last block was copied out before
+      crossed[i % 2].synchronize()
+      n = min(step, src.numel() - lo)
+      out[lo:lo + n].copy_(bufs[i % 2][:n])
+  return host
+
+
 def batched_device_get(tree):
   """The tree with every tensor payload as numpy: the small leaves in ONE
   device-to-host copy per dtype (the accumulators hold hundreds of tiny
-  leaves), the large ones each in a copy of its own."""
+  leaves), the large ones each in a copy of its own (``_to_host``)."""
   host = {}
   by_dtype: dict = {}
   for t in _leaves(tree, []):
     if t.numel() * t.element_size() > PACKED_LEAF_BYTES:
-      host[id(t)] = t.cpu().numpy()
+      host[id(t)] = _to_host(t)
     else:
       by_dtype.setdefault(t.dtype, []).append(t)
   for group in by_dtype.values():
@@ -729,14 +769,70 @@ def _masked_sum_count(result, dim, mask, skipna):
 
 
 def _finalize_mean(sum_ds: xds.Dataset, count_ds: xds.Dataset) -> xds.Dataset:
+  """A metric's temporal means, ``where(count > 0, sum / max(count, 1),
+  NaN)`` in float64, as tensors where the sums are (host sums on the CPU):
+  IEEE division is correctly rounded on the card as on the host."""
   out = xds.Dataset({}, coords=dict(sum_ds.coords_dict()))
-  for k in sum_ds.keys():
-    s = np.asarray(sum_ds[k].values, dtype=np.float64)
-    c = np.asarray(count_ds[k].values, dtype=np.float64)
-    with np.errstate(invalid="ignore", divide="ignore"):
-      out[k] = xds.Variable(sum_ds[k].dims,
-                            np.where(c > 0, s / np.maximum(c, 1), np.nan))
+  counts = count_ds.variables_dict()
+  for k, v in sum_ds.variables_dict().items():
+    s = torch.as_tensor(v.data, dtype=torch.float64)
+    c = torch.as_tensor(counts[k].data, dtype=torch.float64, device=s.device)
+    out[k] = xds.Variable(v.dims,
+                          torch.where(c > 0, s / c.clamp(min=1), torch.nan))
   return out
+
+
+def _same_layout(a: xds.Dataset, b: xds.Dataset) -> bool:
+  """Whether ``a`` and ``b`` hold the same variables (dims and shapes)
+  and the same coordinates (dims, dtype and values)."""
+  av, bv = a.variables_dict(), b.variables_dict()
+  ac, bc = a.coords_dict(), b.coords_dict()
+  if av.keys() != bv.keys() or ac.keys() != bc.keys():
+    return False
+  if any(v.dims != bv[k].dims or v.shape != bv[k].shape
+         for k, v in av.items()):
+    return False
+  for k, v in ac.items():
+    x, y = _xp.to_numpy(v.data), _xp.to_numpy(bc[k].data)
+    if v.dims != bc[k].dims or x.dtype != y.dtype or not np.array_equal(x, y):
+      return False
+  return True
+
+
+def _device_means(names, sums: dict, counts: dict, dev):
+  """A temporal-mean config's means on ``dev``.  Each metric's sums and
+  counts are divided (``_finalize_mean``) and dropped from ``sums`` and
+  ``counts`` at once.  Where every metric has the same variables, dims and
+  coordinates, the means are stacked into one Dataset of (metric, ...)
+  tensors, which ``merge_metric_results`` takes as it is;
+  otherwise the per-metric means ({name: Dataset}) are returned, for its
+  outer join on the host."""
+  means = {name: _finalize_mean(sums.pop(name), counts.pop(name))
+           for name in names}
+  first, *rest = means.values()
+  if not all(_same_layout(first, m) for m in rest):
+    return means
+  dims = {k: v.dims for k, v in first.variables_dict().items()}
+  stacked = xds.Dataset({}, coords={
+      **first.coords_dict(), "metric": np.asarray(list(means), dtype=object)})
+  payloads = [{k: v.data for k, v in m.variables_dict().items()}
+              for m in means.values()]
+  del means, first, rest
+  for k, d in dims.items():
+    # each metric's means of k are freed as they join the stack
+    stacked[k] = xds.Variable(("metric",) + d, torch.stack(
+        [torch.as_tensor(p.pop(k)).to(dev) for p in payloads]))
+  return stacked
+
+
+def _metric_results(means) -> list:
+  """``_device_means``' output, on the host, as the datasets that
+  ``evaluation.merge_metric_results`` joins: the stacked means whole, or
+  each metric's means with its ``metric`` dim."""
+  if isinstance(means, xds.Dataset):
+    return [means]
+  return [m.expand_dims(metric=np.asarray([name], dtype=object))
+          for name, m in means.items()]
 
 
 def _host_dataset(ds: xds.Dataset) -> xds.Dataset:
@@ -1230,8 +1326,13 @@ def evaluate_streaming_multi(
   given, receives the run's counts: chunks, h2d bytes, bytes read, and
   seconds the main thread waited for host preparation (``wait_host_s``)
   and for the device (``wait_device_s``; its part ``d2h_s`` is the final
-  copy of the accumulators to the host), and seconds spent on the host
-  turning the accumulators into results (``finalize_s``).  The prefetch
+  division of the temporal means on the device and their copy, with the
+  per-time results, to the host), and seconds spent on the host turning
+  those into results (``finalize_s``); ``finalize_device_bytes`` are the
+  bytes of temporal means stacked by metric on the device, and
+  ``finalize_host_merges`` the configs whose metrics differ in variables,
+  dims or coordinates, joined on the host instead (both also attributes
+  of the ``wb2.finalize`` span).  The prefetch
   threads' seconds, summed over them: ``prepare_s`` in preparing chunks,
   and of it ``read_s`` opening and reading chunk files, ``decode_s``
   decoding them and ``pin_s`` staging the copies in pinned memory; a
@@ -1556,6 +1657,7 @@ def evaluate_streaming_multi(
   wait_host = wait_device = finalize = d2h = pin_s = prepare_s = 0.0
   offload_s = metric_prep_s = 0.0
   h2d_bytes = n_chunks_run = stage_tasks = 0
+  finalize_device_bytes = finalize_host_merges = 0
   from weatherbench2_torch.evaluation import merge_metric_results
 
   for lead_i, lead_sl in enumerate(lead_slices):
@@ -1687,11 +1789,17 @@ def evaluate_streaming_multi(
       lead_results.append(None)
       continue
     t0 = time.perf_counter()
-    accumulators = (sums_acc, counts_acc, per_time)
-    with (spans.span("wb2.d2h", bytes=sum(
-        t.numel() * t.element_size() for t in _leaves(accumulators, [])))
-          if spans else tracing.NO_SPAN):
-      sums_acc, counts_acc, per_time = batched_device_get(accumulators)
+    with (spans.span("wb2.d2h") if spans else tracing.NO_SPAN) as d2h_rec:
+      # rank 0 finalizes: its temporal means are divided on the device, and
+      # only they cross; each config's accumulators are released as divided
+      means = {c: _device_means(cfg.metrics, sums_acc.pop(c),
+                                counts_acc.pop(c), dev)
+               for c, cfg in eval_configs.items()
+               if cfg.temporal_mean and share.lead}
+      if d2h_rec is not None:
+        d2h_rec["bytes"] = sum(t.numel() * t.element_size()
+                               for t in _leaves((means, per_time), []))
+      means, per_time = batched_device_get((means, per_time))
       per_time = {c: share.gather_rows(per_time[c]) for c in eval_configs}
     t1 = time.perf_counter()
     d2h += t1 - t0
@@ -1699,16 +1807,20 @@ def evaluate_streaming_multi(
     if not share.lead:
       lead_results.append(None)
       continue
+    stacked = [m for m in means.values() if isinstance(m, xds.Dataset)]
+    device_bytes = sum(v.data.nbytes for m in stacked
+                       for v in m.variables_dict().values())
+    host_merges = len(means) - len(stacked)
+    finalize_device_bytes += device_bytes
+    finalize_host_merges += host_merges
     per_config = {}
-    with spans.span("wb2.finalize") if spans else tracing.NO_SPAN:
+    with (spans.span("wb2.finalize", finalize_device_bytes=device_bytes,
+                     finalize_host_merges=host_merges)
+          if spans else tracing.NO_SPAN):
       for cname, cfg in eval_configs.items():
         per_metric = []
         if cfg.temporal_mean:
-          for name in cfg.metrics:
-            mean_ds = _finalize_mean(sums_acc[cname][name],
-                                     counts_acc[cname][name])
-            per_metric.append(mean_ds.expand_dims(
-                metric=np.asarray([name], dtype=object)))
+          per_metric = _metric_results(means[cname])
         else:
           by_metric: dict = {}
           for name, ci, b, res in per_time[cname]:
@@ -1740,6 +1852,10 @@ def evaluate_streaming_multi(
     stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
     stats["d2h_s"] = stats.get("d2h_s", 0.0) + d2h
     stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
+    stats["finalize_device_bytes"] = (stats.get("finalize_device_bytes", 0)
+                                      + finalize_device_bytes)
+    stats["finalize_host_merges"] = (stats.get("finalize_host_merges", 0)
+                                     + finalize_host_merges)
     for key in ("h2d_bytes", "read_bytes", "read_s", "decode_s", "pin_s",
                 "prepare_s", "stage_tasks", "offload_s", "metric_prep_s",
                 "generic_s"):
