@@ -37,6 +37,7 @@ from weatherbench2_tpu import schema as jschema
 from weatherbench2_tpu import utils as jutils
 from weatherbench2_tpu import xds as jxds
 from weatherbench2_torch import convert
+from weatherbench2_torch import tracing
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds import _codec
 from weatherbench2_torch.xds import io_zarr
@@ -259,20 +260,22 @@ def test_decode_counter_adds_decoded_bytes(jax_stores):
 @pytest.mark.parametrize("case", ["zstd_shuffle2", "lz4_shuffle1"])
 def test_read_counter_times_reads_apart_from_decodes(jax_stores, case):
   """A store read whole: the file reads are timed in ``READS.seconds``, the
-  decoding in ``DECODES.seconds``, and this thread's own tallies are the
+  decoding in ``DECODES.seconds``, and this thread's own tally has the
   sums (no other thread read)."""
   path = jax_stores[case]
   io_zarr.READS.reset()
   io_zarr.DECODES.reset()
-  xds.open_zarr(path)
+  with io_zarr.tally(tracing.Counts()) as mine:
+    xds.open_zarr(path)
   assert io_zarr.READS.bytes > 0 and io_zarr.READS.seconds > 0
   assert io_zarr.DECODES.bytes > 0 and io_zarr.DECODES.seconds > 0
-  assert io_zarr.READS.mine() == (io_zarr.READS.bytes, io_zarr.READS.seconds)
-  assert io_zarr.DECODES.mine() == (io_zarr.DECODES.bytes,
-                                    io_zarr.DECODES.seconds)
+  assert (mine["read_bytes"], mine["read_s"]) == (io_zarr.READS.bytes,
+                                                  io_zarr.READS.seconds)
+  assert (mine["decode_bytes"], mine["decode_s"]) == (
+      io_zarr.DECODES.bytes, io_zarr.DECODES.seconds)
   io_zarr.READS.reset()
   assert (io_zarr.READS.bytes, io_zarr.READS.seconds) == (0, 0.0)
-  assert io_zarr.READS.mine() == (0, 0.0)
+  assert io_zarr.tallied() is None
 
 
 def test_threads_decode_in_parallel_and_count_every_chunk(jax_stores):

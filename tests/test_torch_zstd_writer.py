@@ -29,6 +29,7 @@ from tests.test_torch_blosc import (BLOCKS_SHAPE, CHUNKS, CNAMES,
                                     jax_dataset, port_dataset)
 from weatherbench2_tpu import xds as jxds
 from weatherbench2_torch import convert
+from weatherbench2_torch import tracing
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds import _codec
 from weatherbench2_torch.xds import io_zarr
@@ -430,9 +431,11 @@ def test_partial_reads_time_reads_and_decodes_apart(block_stores, store):
   lazy = xds.open_zarr(block_stores[store], lazy=True)["wide"].data
   io_zarr.READS.reset()
   io_zarr.DECODES.reset()
-  np.asarray(lazy[np.array([5, 6, 7])])
+  with io_zarr.tally(tracing.Counts()) as mine:
+    np.asarray(lazy[np.array([5, 6, 7])])
   assert io_zarr.READS.bytes > 0 and io_zarr.READS.seconds > 0
-  assert io_zarr.READS.mine() == (io_zarr.READS.bytes, io_zarr.READS.seconds)
+  assert (mine["read_bytes"], mine["read_s"]) == (io_zarr.READS.bytes,
+                                                  io_zarr.READS.seconds)
   if store == "raw":
     assert (io_zarr.DECODES.bytes, io_zarr.DECODES.seconds) == (0, 0.0)
   else:

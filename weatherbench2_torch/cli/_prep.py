@@ -9,32 +9,25 @@ card each waits for its copy to end).
 """
 from __future__ import annotations
 
-import contextlib
 import time
 
 import torch
 
+from weatherbench2_torch import tracing
 from weatherbench2_torch import xds
 from weatherbench2_torch.xds import _xp
 from weatherbench2_torch.xds import io_zarr
 
 
-class RunCounts(dict):
-  """A CLI run's counts; ``result()`` adds the bytes read and the wall."""
+class RunCounts(tracing.Counts):
+  """A CLI run's counts, with its counted reads and copies; ``result()``
+  adds the bytes read and the wall."""
 
   def __init__(self, **extra):
     super().__init__(h2d_bytes=0, d2h_bytes=0, read_s=0.0, device_s=0.0,
                      write_s=0.0, h2d_s=0.0, d2h_s=0.0, **extra)
     self._t0 = time.perf_counter()
     self._reads0 = io_zarr.READS.bytes
-
-  @contextlib.contextmanager
-  def timing(self, key: str):
-    t = time.perf_counter()
-    try:
-      yield
-    finally:
-      self[key] += time.perf_counter() - t
 
   def read(self, ds: xds.Dataset) -> xds.Dataset:
     """``ds`` with its lazy payloads read."""

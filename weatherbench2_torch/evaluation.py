@@ -14,11 +14,9 @@ written as NetCDF3 (``scipy.io``), which
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import logging
 import os
-import time
 from typing import Mapping, Optional
 
 import numpy as np
@@ -186,11 +184,8 @@ def create_persistence_forecast_by_init(forecast: xds.Dataset,
   init_vals = np.asarray(forecast.coords_dict()["init_time"].data)
   persistence = truth.sel(time=init_vals).rename({"time": "init_time"})
   lead = np.asarray(forecast.coords_dict()["lead_time"].data)
-  persistence = persistence.expand_dims(lead_time=lead)
-  for cn, cv in forecast.coords_dict().items():
-    if cn not in persistence.coords_dict():
-      persistence = persistence.assign_coords({cn: cv})
-  return persistence
+  return with_forecast_coords(persistence.expand_dims(lead_time=lead),
+                              forecast)
 
 
 def substitute_climatology_forecast(forecast_like: xds.Dataset,
@@ -504,26 +499,36 @@ def merge_metric_results(results: list, dim: str = "metric") -> xds.Dataset:
   return out
 
 
+def loop_over_regions(compute, regions):
+  """One result per region, concatenated along ``region``; with
+  ``{None: None}`` (a config without regions) the one result as it is."""
+  region_results = []
+  for region_name, region in regions.items():
+    res = compute(region)
+    if region_name is not None:
+      res = res.expand_dims(region=np.asarray([region_name], dtype=object))
+    region_results.append(res)
+  if len(region_results) > 1 or None not in regions:
+    return xds.concat(region_results, "region")
+  return region_results[0]
+
+
 def _metric_and_region_loop(forecast, truth, eval_config,
                             skipna) -> xds.Dataset:
   """Metric results looping over metrics and regions (the config's derived
   variables computed first, where the payloads are)."""
   forecast, truth = add_derived_variables(forecast, truth, eval_config)
+  regions = (eval_config.regions if eval_config.regions is not None
+             else {None: None})
   results = []
   for name, metric in eval_config.metrics.items():
     logging.info("metric: %s", name)
     eval_fn = (metric.compute if eval_config.temporal_mean
                else metric.compute_chunk)
-    if eval_config.regions is not None:
-      per_region = []
-      for region_name, region in eval_config.regions.items():
-        result = eval_fn(forecast=forecast, truth=truth, region=region,
-                         skipna=skipna)
-        per_region.append(result.expand_dims(
-            region=np.asarray([region_name], dtype=object)))
-      result = xds.concat(per_region, "region")
-    else:
-      result = eval_fn(forecast=forecast, truth=truth, skipna=skipna)
+    result = loop_over_regions(
+        lambda region, eval_fn=eval_fn: eval_fn(
+            forecast=forecast, truth=truth, region=region, skipna=skipna),
+        regions)
     results.append(result.expand_dims(
         metric=np.asarray([name], dtype=object)))
   return merge_metric_results(results)
@@ -612,7 +617,7 @@ def evaluate_with_mesh(
   from weatherbench2_torch.parallel import streaming
 
   # decided once, here: the prefetch threads are not the profiled thread
-  spans = tracing.profiling() and tracing.Spans()
+  spans = tracing.Spans(keep=tracing.profiling())
   if mesh is not None and not isinstance(mesh, mesh_lib.Mesh):
     raise TypeError(f"mesh must be a weatherbench2_torch.parallel.mesh.Mesh "
                     f"(make_mesh), not {type(mesh).__name__}")
@@ -622,23 +627,18 @@ def evaluate_with_mesh(
                      f"{mesh.device}")
   dev = mesh.device if mesh is not None else device_lib.resolve(device)
   for name, eval_config in eval_configs.items():
-    eval_config.validate()  # fail fast, not after hours of streaming
-    if checkpoint_path and not eval_config.temporal_mean:
-      raise ValueError(
-          "checkpoint/resume requires temporal_mean=True (config "
-          f"{name!r} emits per-time results, which the accumulator state "
-          "does not capture)")
+    # fail fast, not after hours of streaming
+    streaming.check_config(name, eval_config, checkpoint_path)
   input_chunks = dict(input_chunks or {})
-  stats: dict = {}
-  t0 = time.perf_counter()
-  with (spans.span("wb2.job", root=True, configs=sorted(eval_configs))
-        if spans else tracing.NO_SPAN):
+  stats = tracing.Counts()
+  with stats.timing("wall_s"), spans.span("wb2.job", root=True,
+                                          configs=sorted(eval_configs)):
     groups: dict = {}
     for name, cfg in eval_configs.items():
       groups.setdefault(streaming.input_key(cfg), {})[name] = cfg
     for group in groups.values():
       logging.info("Eval config group: %s", sorted(group))
-      with spans.span("wb2.open") if spans else tracing.NO_SPAN:
+      with spans.span("wb2.open"):
         forecast, truth, climatology = open_forecast_and_truth_datasets(
             data_config, next(iter(group.values())), lazy=True)
       cpath = state = None
@@ -667,33 +667,29 @@ def evaluate_with_mesh(
           mesh=mesh,
           spans=spans,
       )
-      t_write = time.perf_counter()
-      for eval_name, results in (results_by_config or {}).items():
-        output_format = group[eval_name].output_format
-        output_path = _get_output_path(data_config, eval_name, output_format)
-        with (spans.span("wb2.write", config=eval_name, format=output_format)
-              if spans else contextlib.nullcontext({})) as rec:
-          # the file's bytes as stored; of its Zarr chunks, the bytes
-          # encoded and the seconds that took (a netCDF file has none)
-          writes = io_zarr.WRITES
-          before = (writes.bytes, writes.decoded, writes.encode_s)
-          if output_format == "netcdf":
-            _to_netcdf(results, output_path)
-            written = os.path.getsize(output_path)
-          else:
-            os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
-            xds.to_zarr(results, output_path)
-            written = writes.bytes - before[0]
-          rec.update(bytes=written, encode_bytes=writes.decoded - before[1],
-                     encode_s=writes.encode_s - before[2])
-        logging.info("Saved results to %s", output_path)
-        stats["write_bytes"] = stats.get("write_bytes", 0) + rec["bytes"]
-        stats["encode_bytes"] = (stats.get("encode_bytes", 0)
-                                 + rec["encode_bytes"])
-        stats["encode_s"] = stats.get("encode_s", 0.0) + rec["encode_s"]
-      stats["write_s"] = stats.get("write_s", 0.0) + (
-          time.perf_counter() - t_write)
-  stats["wall_s"] = time.perf_counter() - t0
-  if spans:
+      with stats.timing("write_s"):
+        for eval_name, results in (results_by_config or {}).items():
+          output_format = group[eval_name].output_format
+          output_path = _get_output_path(data_config, eval_name,
+                                         output_format)
+          with spans.span("wb2.write", config=eval_name,
+                          format=output_format) as rec:
+            # the file's bytes as stored; of its Zarr chunks, the bytes
+            # encoded and the seconds that took (a netCDF file has none)
+            writes = io_zarr.WRITES
+            before = (writes.bytes, writes.decoded, writes.encode_s)
+            if output_format == "netcdf":
+              _to_netcdf(results, output_path)
+              written = os.path.getsize(output_path)
+            else:
+              os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
+              xds.to_zarr(results, output_path)
+              written = writes.bytes - before[0]
+            rec.update(bytes=written, encode_bytes=writes.decoded - before[1],
+                       encode_s=writes.encode_s - before[2])
+          logging.info("Saved results to %s", output_path)
+          stats.add(write_bytes=rec["bytes"],
+                    encode_bytes=rec["encode_bytes"], encode_s=rec["encode_s"])
+  if spans.keep:
     stats["spans"] = spans.records
-  return stats
+  return dict(stats)

@@ -26,6 +26,7 @@ import os
 import pickle
 import tempfile
 import time
+import traceback
 from typing import Any, Callable, Optional, Sequence
 
 import torch
@@ -187,17 +188,40 @@ def make_mesh(
   return Mesh(device_mesh, dev)
 
 
-def _rank_entry(rank, fn, world_size, devices, store, args, result):
+def _rank_entry(rank, fn, world_size, devices, tmp, args):
   """One spawned rank: join the world, run ``fn(*args)``, leave it; rank
-  0's return value is pickled to ``result``."""
-  init_world(rank, world_size, devices, f"file://{store}")
+  0's return value is pickled to ``tmp``'s ``rank0``.  A rank whose ``fn``
+  raises writes its traceback to ``tmp``'s ``failed.<time>.<rank>`` before
+  it leaves the world, so before any rank that fails because it left: the
+  names sort in the order the ranks failed."""
+  init_world(rank, world_size, devices, f"file://{os.path.join(tmp, 'store')}")
   try:
     out = fn(*args)
+  except BaseException:
+    failed = f"failed.{time.monotonic_ns():020d}.{rank}"
+    with open(os.path.join(tmp, failed), "w") as f:
+      f.write(traceback.format_exc())
+    raise
   finally:
     dist.destroy_process_group()
   if rank == 0:
-    with open(result, "wb") as f:
+    with open(os.path.join(tmp, "rank0"), "wb") as f:
       pickle.dump(out, f)
+
+
+def _world_failure(tmp, world_size, rank, reported) -> str:
+  """A failed world's message: every rank's recorded failure, the earliest
+  first, after the failure torch reported where that rank recorded none
+  (it was killed, or failed to join)."""
+  failures = []
+  for name in sorted(os.listdir(tmp)):
+    if name.startswith("failed."):
+      with open(os.path.join(tmp, name)) as f:
+        failures.append((int(name.rsplit(".", 1)[1]), f.read()))
+  if rank not in {r for r, _ in failures}:
+    failures.insert(0, (rank, reported))
+  return f"a world of {world_size} ranks failed: " + "; then ".join(
+      f"rank {r}: {text}" for r, text in failures)
 
 
 def run_ranks(fn: Callable, world_size: int,
@@ -210,20 +234,20 @@ def run_ranks(fn: Callable, world_size: int,
   ``fn`` and ``args`` must pickle (``fn`` by its import path).  The ranks
   meet on a file store in a temporary directory, so concurrent worlds never
   share a port.  A rank that fails ends the world: the others are
-  terminated and this raises with the failed rank's traceback or exit
-  code; so does a world still running after ``timeout`` seconds.
+  terminated and this raises with the failed ranks' tracebacks, the first
+  to fail first, or the exit code of a rank that died; so does a world
+  still running after ``timeout`` seconds.
   """
   import torch.multiprocessing as mp
 
   devices = ([str(d) for d in devices] if devices is not None
              else [str(d) for d in default_devices(world_size)])
   with tempfile.TemporaryDirectory(prefix="wb2_ranks_") as tmp:
-    store, result = os.path.join(tmp, "store"), os.path.join(tmp, "rank0")
     ranks = mp.start_processes(
-        _rank_entry, args=(fn, world_size, devices, store, tuple(args),
-                           result),
+        _rank_entry, args=(fn, world_size, devices, tmp, tuple(args)),
         nprocs=world_size, join=False, start_method="spawn")
     deadline = None if timeout is None else time.monotonic() + timeout
+    failed = None
     try:
       while not ranks.join(None if deadline is None else max(
           0.0, deadline - time.monotonic()), grace_period=5):
@@ -231,16 +255,15 @@ def run_ranks(fn: Callable, world_size: int,
           raise TimeoutError(
               f"a world of {world_size} ranks still ran after {timeout} s")
     except mp.ProcessExitedException as err:
-      raise RuntimeError(f"a world of {world_size} ranks failed: rank "
-                         f"{err.error_index}: exit code {err.exit_code}"
-                         ) from None
+      failed = (err.error_index, f"exit code {err.exit_code}")
     except mp.ProcessRaisedException as err:
-      raise RuntimeError(f"a world of {world_size} ranks failed: rank "
-                         f"{err.error_index}: {err}") from None
+      failed = (err.error_index, str(err))
     finally:
       for p in ranks.processes:
         if p.is_alive():
           p.kill()
         p.join()
-    with open(result, "rb") as f:
+    if failed is not None:
+      raise RuntimeError(_world_failure(tmp, world_size, *failed)) from None
+    with open(os.path.join(tmp, "rank0"), "rb") as f:
       return pickle.load(f)

@@ -91,9 +91,25 @@ D2H_BLOCK_BYTES = 64 << 20
 _UTIME = "__utime"
 
 
-def _normalize_chunk_coords(ds: xds.Dataset, chunk_dim: str) -> xds.Dataset:
-  """Replace chunk-dim coords by placeholders (the real labels come back
-  from the forecast when per-time results are assembled)."""
+def _map_labeled(tree, fn):
+  """``tree`` (dicts, lists and tuples of anything) with each Dataset and
+  DataArray in it replaced by ``fn`` of it."""
+  if isinstance(tree, (xds.Dataset, xds.DataArray)):
+    return fn(tree)
+  if isinstance(tree, dict):
+    return {k: _map_labeled(v, fn) for k, v in tree.items()}
+  if isinstance(tree, (list, tuple)):
+    return type(tree)(_map_labeled(v, fn) for v in tree)
+  return tree
+
+
+def _normalize_chunk_coords(ds, chunk_dim: str):
+  """A Dataset or DataArray with its chunk-dim coords replaced by
+  placeholders (the real labels come back from the forecast when per-time
+  results are assembled)."""
+  if isinstance(ds, xds.DataArray):
+    name = ds.name or "__da__"
+    return _normalize_chunk_coords(ds.to_dataset(name=name), chunk_dim)[name]
   coords = {}
   n = ds.sizes.get(chunk_dim)
   for name, cv in ds.coords_dict().items():
@@ -104,20 +120,6 @@ def _normalize_chunk_coords(ds: xds.Dataset, chunk_dim: str) -> xds.Dataset:
       coords[name] = cv
   return xds.Dataset(dict(ds.variables_dict()), coords=coords,
                      attrs=ds.attrs)
-
-
-def _normalize_any(obj, chunk_dim):
-  if isinstance(obj, xds.Dataset):
-    return _normalize_chunk_coords(obj, chunk_dim)
-  if isinstance(obj, xds.DataArray):
-    name = obj.name or "__da__"
-    return _normalize_chunk_coords(obj.to_dataset(name=name),
-                                   chunk_dim)[name]
-  if isinstance(obj, dict):
-    return {k: _normalize_any(v, chunk_dim) for k, v in obj.items()}
-  if isinstance(obj, (list, tuple)):
-    return type(obj)(_normalize_any(v, chunk_dim) for v in obj)
-  return obj
 
 
 def _reorder_like(ref, obj):
@@ -196,20 +198,19 @@ def _to_host(t: torch.Tensor) -> np.ndarray:
     bufs = [torch.empty(min(step, src.numel()), dtype=t.dtype,
                         pin_memory=True) for _ in range(2)]
     crossed = [torch.cuda.Event(), torch.cuda.Event()]
-
-    def cross(i):
-      lo = starts[i]
-      n = min(step, src.numel() - lo)
-      bufs[i % 2][:n].copy_(src[lo:lo + n], non_blocking=True)
-      crossed[i % 2].record()
-
-    cross(0)
-    for i, lo in enumerate(starts):
-      if i + 1 < len(starts):
-        cross(i + 1)  # its buffer's last block was copied out before
-      crossed[i % 2].synchronize()
-      n = min(step, src.numel() - lo)
-      out[lo:lo + n].copy_(bufs[i % 2][:n])
+    for i in range(len(starts) + 1):
+      if i < len(starts):
+        # block i crosses; its buffer's last block was copied out before
+        lo = starts[i]
+        n = min(step, src.numel() - lo)
+        bufs[i % 2][:n].copy_(src[lo:lo + n], non_blocking=True)
+        crossed[i % 2].record()
+      if i:
+        # while it crosses, block i - 1 is copied out
+        lo = starts[i - 1]
+        n = min(step, src.numel() - lo)
+        crossed[(i - 1) % 2].synchronize()
+        out[lo:lo + n].copy_(bufs[(i - 1) % 2][:n])
   return host
 
 
@@ -281,26 +282,20 @@ class StreamingState:
 
   def save(self, path: str) -> None:
     host = batched_device_get((self.sums, self.counts, self.configs))
+    fields = {f.name: getattr(self, f.name)
+              for f in dataclasses.fields(self)}
+    fields.update(sums=host[0], counts=host[1], configs=host[2])
     with open(path, "wb") as f:
-      pickle.dump(
-          {"version": 2, "sums": host[0], "counts": host[1],
-           "chunk_index": self.chunk_index, "chunk_size": self.chunk_size,
-           "total": self.total, "configs": host[2],
-           "lead_index": self.lead_index,
-           "n_lead_slices": self.n_lead_slices,
-           "completed_leads": self.completed_leads}, f)
+      pickle.dump({"version": 2, **fields}, f)
 
   @classmethod
   def load(cls, path: str) -> "StreamingState":
+    """The state of a file; a field the file lacks (one of an older
+    version) keeps its default."""
     with open(path, "rb") as f:
       d = pickle.load(f)
-    return cls(sums=d["sums"], counts=d["counts"],
-               chunk_index=d["chunk_index"],
-               chunk_size=d.get("chunk_size"), total=d.get("total"),
-               configs=d.get("configs"),
-               lead_index=d.get("lead_index", 0),
-               n_lead_slices=d.get("n_lead_slices"),
-               completed_leads=d.get("completed_leads"))
+    return cls(**{f.name: d[f.name] for f in dataclasses.fields(cls)
+                  if f.name in d})
 
 
 def _region_weight_setup(regions, forecast):
@@ -418,6 +413,30 @@ def _partition_fused(metrics, regions, forecast):
   return det_plan, prob_plan, pw_plan, remaining
 
 
+def _region_rows(f_c, t_c, v, ens=None):
+  """Variable ``v`` of a forecast and a truth chunk broadcast together as
+  rows of cells, the spatial dims last in (longitude, latitude) order to
+  match the weight matrix: (the forecast's (rows, cells), under its member
+  dim ``ens`` where given; the truth's (rows, cells); the dims of the
+  rows; their shape; the forecast's coordinates along them)."""
+  fvar, tvar = f_c.variables_dict()[v], t_c.variables_dict()[v]
+  other = tuple(d for d in xds.broadcast_dims_order(
+      tuple(d for d in fvar.dims if d != ens), tvar.dims)
+                if d not in ("longitude", "latitude"))
+  all_dims = other + ("longitude", "latitude")
+  members = (ens,) if ens is not None else ()
+  sizes = {**tvar.sizes, **fvar.sizes}
+  f_b = fvar.broadcast_to_dims(members + all_dims, sizes).data
+  t_b = tvar.broadcast_to_dims(all_dims, sizes).data
+  shape = tuple(t_b.shape[:-2])
+  b = int(np.prod(shape)) if shape else 1
+  l = t_b.shape[-2] * t_b.shape[-1]
+  coords = {k: cv for k, cv in f_c.coords_dict().items()
+            if set(cv.dims) <= set(other)}
+  return (f_b.reshape(f_b.shape[:len(members)] + (b, l)), t_b.reshape(b, l),
+          other, shape, coords)
+
+
 def _fused_chunk_results(plan, f_c, t_c, skipna):
   """Per-time MSE/RMSE/MAE/Bias values of every region, dims (region, ...).
 
@@ -436,40 +455,28 @@ def _fused_chunk_results(plan, f_c, t_c, skipna):
   for v in f_c.keys():
     if v not in t_c.keys():
       continue
-    fvar = f_c.variables_dict()[v]
-    tvar = t_c.variables_dict()[v]
-    all_dims = xds.broadcast_dims_order(fvar.dims, tvar.dims)
-    # spatial dims last, (lon, lat) order to match the weight matrix
-    other = [d for d in all_dims if d not in ("longitude", "latitude")]
-    all_dims = tuple(other) + ("longitude", "latitude")
-    sizes = {**tvar.sizes, **fvar.sizes}
-    f_b = fvar.broadcast_to_dims(all_dims, sizes).data
-    t_b = tvar.broadcast_to_dims(all_dims, sizes).data
-    other_shape = tuple(f_b.shape[:-2])
-    b = int(np.prod(other_shape)) if other_shape else 1
-    l = f_b.shape[-2] * f_b.shape[-1]
+    f_rows, t_rows, other, other_shape, coords = _region_rows(f_c, t_c, v)
+    b = f_rows.shape[0]
     if v in plan.get("infinite", ()):
       # the error's rows through kernel 2, which keeps each inf cell to the
       # regions that hold it
-      d = (f_b.reshape(b, l) - t_b.reshape(b, l)).to(torch.float32)
+      d = (f_rows - t_rows).to(torch.float32)
       sums, wsum, nanw = _inf_safe_region_sums(
           torch.cat([d, d * d, d.abs()]), region_w, band_sum)
       sums = sums.reshape(n_regions, 3, b).permute(1, 0, 2)
       wsum, nanw = wsum[:, :b], nanw[:, :b]
     else:
       sums, wsum, nanw = band_sum(ops.fused_deterministic_sums(
-          f_b.reshape(b, l), t_b.reshape(b, l), None, region_w))
+          f_rows, t_rows, None, region_w))
     means = sums / wsum[None]
     if not skipna:
       means = torch.where(nanw[None] > 0, torch.nan, means)
-    coords = {k: cv for k, cv in f_c.coords_dict().items()
-              if set(cv.dims) <= set(other)}
     coords["region"] = region_coord
     for name, stat in plan["stat_of"].items():
       arr = (torch.sqrt(means[stat_idx["mse"]]) if stat == "rmse"
              else means[stat_idx[stat]])
       results[name][v] = xds.DataArray(
-          xds.Variable(("region",) + tuple(other),
+          xds.Variable(("region",) + other,
                        arr.reshape((n_regions,) + other_shape)),
           coords=coords, name=v)
   return results
@@ -532,37 +539,23 @@ def _fused_prob_chunk_results(plan, f_c, t_c, skipna):
   for v in t_c.keys():
     if v not in f_c.keys():
       continue  # score the common variables only (xds binop rule)
-    fvar = f_c.variables_dict()[v]
-    tvar = t_c.variables_dict()[v]
-    all_dims = xds.broadcast_dims_order(
-        tuple(d for d in fvar.dims if d != ens), tvar.dims)
-    other = [d for d in all_dims if d not in ("longitude", "latitude")]
-    all_dims = tuple(other) + ("longitude", "latitude")
-    sizes = {**tvar.sizes, **fvar.sizes}
-    f_b = fvar.broadcast_to_dims((ens,) + all_dims, sizes).data
-    t_b = tvar.broadcast_to_dims(all_dims, sizes).data
-    other_shape = tuple(f_b.shape[1:-2])
-    b = int(np.prod(other_shape)) if other_shape else 1
-    l = f_b.shape[-2] * f_b.shape[-1]
-    fields = member_fields(f_b.reshape(f_b.shape[0], b, l),
-                           t_b.reshape(b, l), field_names, skipna)
+    f_rows, t_rows, other, other_shape, coords = _region_rows(f_c, t_c, v,
+                                                              ens)
+    fields = member_fields(f_rows, t_rows, field_names, skipna)
     stack = torch.stack([fields[k] for k in field_names])
     sums, wsum, nanw = _region_reducer(plan, [v])(
-        stack.reshape(len(field_names) * b, l), region_w)
+        stack.reshape(len(field_names) * t_rows.shape[0], -1), region_w)
     means = sums / wsum
     if not skipna:
       means = torch.where(nanw > 0, torch.nan, means)
-    means = means.reshape(n_regions, len(field_names), b)
+    means = means.reshape(n_regions, len(field_names), t_rows.shape[0])
     mean_of = {name: means[:, i].reshape((n_regions,) + other_shape)
                for i, name in enumerate(field_names)}
-    coords = {k: cv for k, cv in f_c.coords_dict().items()
-              if set(cv.dims) <= set(other)}
     coords["region"] = region_coord
     for name, stat in plan["stat_of"].items():
       arr = _PROB_RESULT.get(stat, lambda f, s=stat: f[s])(mean_of)
       results[name][v] = xds.DataArray(
-          xds.Variable(("region",) + tuple(other), arr), coords=coords,
-          name=v)
+          xds.Variable(("region",) + other, arr), coords=coords, name=v)
   return results
 
 
@@ -687,53 +680,42 @@ def _pointwise_chunk_results(plan, metrics, f_c, t_c, prepared, skipna):
 
 class _LoopTimer:
   """Seconds of the timed blocks (the per-metric loop of each chunk and
-  config): on a CUDA device the compute stream's time between two events
-  recorded around the block's launches, read once the stream has run them;
-  on the host the block's wall."""
+  config), each added to the ``generic_s`` of the record it was timed for:
+  on a CUDA device the compute stream's time between two events recorded
+  around the block's launches, read once the stream has run them; on the
+  host the block's wall."""
 
   def __init__(self, dev):
     self._stream = (torch.cuda.current_stream(dev) if dev.type == "cuda"
                     else None)
-    self.marks: list = []  # per block: (start, end) events, or seconds
+    # per block: (record, start event or None, end event or seconds)
+    self.marks: list = []
 
   @contextlib.contextmanager
-  def time(self):
+  def time(self, rec: dict):
     if self._stream is None:
       t0 = time.perf_counter()
       yield
-      self.marks.append(time.perf_counter() - t0)
+      self.marks.append((rec, None, time.perf_counter() - t0))
       return
     start = torch.cuda.Event(enable_timing=True)
     start.record(self._stream)
     yield
     end = torch.cuda.Event(enable_timing=True)
     end.record(self._stream)
-    self.marks.append((start, end))
+    self.marks.append((rec, start, end))
 
-  def seconds(self) -> list:
-    """Each block's seconds, waiting for the device where it has not run
-    them yet."""
-    out = []
-    for mark in self.marks:
-      if isinstance(mark, tuple):
-        mark[1].synchronize()
-        mark = mark[0].elapsed_time(mark[1]) / 1e3
-      out.append(mark)
-    return out
-
-
-def _loop_over_regions(compute, regions):
-  """One result per region, concatenated along ``region``; with
-  ``{None: None}`` (a config without regions) the one result as it is."""
-  region_results = []
-  for region_name, region in regions.items():
-    res = compute(region)
-    if region_name is not None:
-      res = res.expand_dims(region=np.asarray([region_name], dtype=object))
-    region_results.append(res)
-  if len(region_results) > 1 or None not in regions:
-    return xds.concat(region_results, "region")
-  return region_results[0]
+  def settle(self) -> float:
+    """Add each block's seconds to its record, waiting for the device where
+    it has not run them yet; the seconds of them all."""
+    total = 0
+    for rec, start, end in self.marks:
+      if start is not None:
+        end.synchronize()
+        end = start.elapsed_time(end) / 1e3
+      rec["generic_s"] += end
+      total += end
+    return total
 
 
 def _masked_sum_count(result, dim, mask, skipna):
@@ -845,7 +827,7 @@ def _eval_host_metric(metric, f_chunk, t_chunk, regions, skipna, n_real,
                       chunk_dim, temporal_mean):
   """A ``supports_jit = False`` metric on the host's numpy chunk; its
   (sum, count) over the chunk's real entries, or the per-time result."""
-  result = _loop_over_regions(
+  result = evaluation.loop_over_regions(
       lambda region: metric.compute_chunk(f_chunk, t_chunk, region=region,
                                           skipna=skipna), regions)
   if not temporal_mean:
@@ -918,40 +900,27 @@ def _rename_utime(obj):
   Applied after prepare_chunk (which sees a normal truth chunk); coords on
   the time dim are dropped, their labels differ per chunk.
   """
+  return _map_labeled(obj, _rename_utime_labeled)
+
+
+def _rename_utime_labeled(obj):
+  if "time" not in obj.sizes:
+    return obj
+  coords = {k: v for k, v in obj.coords_dict().items()
+            if "time" not in v.dims and k != "time"}
   if isinstance(obj, xds.Dataset):
-    if "time" not in obj.sizes:
-      return obj
     return xds.Dataset(
         {k: _rename_utime_var(v) for k, v in obj.variables_dict().items()},
-        coords={k: v for k, v in obj.coords_dict().items()
-                if "time" not in v.dims and k != "time"},
-        attrs=obj.attrs)
-  if isinstance(obj, xds.DataArray):
-    if "time" not in obj.dims:
-      return obj
-    return xds.DataArray(
-        _rename_utime_var(obj.variable),
-        coords={k: v for k, v in obj.coords.items()
-                if "time" not in v.dims and k != "time"},
-        name=obj.name)
-  if isinstance(obj, dict):
-    return {k: _rename_utime(v) for k, v in obj.items()}
-  if isinstance(obj, (list, tuple)):
-    return type(obj)(_rename_utime(v) for v in obj)
-  return obj
+        coords=coords, attrs=obj.attrs)
+  return xds.DataArray(_rename_utime_var(obj.variable), coords=coords,
+                       name=obj.name)
 
 
 def _expand_utime(obj, uinv):
   """Expand unique-time tensors to the chunk's (init, lead) layout with
   one gather on the device: the device half of the truth dedup."""
-  if isinstance(obj, (xds.Dataset, xds.DataArray)):
-    dims = obj.sizes if isinstance(obj, xds.Dataset) else obj.dims
-    return obj.isel({_UTIME: uinv}) if _UTIME in dims else obj
-  if isinstance(obj, dict):
-    return {k: _expand_utime(v, uinv) for k, v in obj.items()}
-  if isinstance(obj, (list, tuple)):
-    return type(obj)(_expand_utime(v, uinv) for v in obj)
-  return obj
+  return _map_labeled(obj, lambda labeled: labeled.isel({_UTIME: uinv})
+                      if _UTIME in labeled.sizes else labeled)
 
 
 def _make_truth_chunk(f_chunk, truth, climatology, eval_config, data_config,
@@ -1011,7 +980,8 @@ def input_key(cfg):
 def _check_resume(state, eval_configs, chunk_size, total, n_lead_slices):
   """Raise unless ``state`` can resume this run: the same config group,
   accumulators for the progress it records, the same chunk grid and the
-  same lead slices.  Normalizes a version-1 state to the ``configs`` form.
+  same lead slices.  Normalizes a version-1 state to the ``configs`` form,
+  and its progress (``lead_index``, ``chunk_index``) to ints.
   """
   if state.configs is None and state.sums is not None:
     if len(eval_configs) > 1:
@@ -1020,8 +990,8 @@ def _check_resume(state, eval_configs, chunk_size, total, n_lead_slices):
           "multi-config run; delete the checkpoint or stream the config "
           "alone")
     state.configs = {next(iter(eval_configs)): (state.sums, state.counts)}
-  resume_lead = int(state.lead_index or 0)
-  resume_chunk = int(state.chunk_index or 0)
+  resume_lead = state.lead_index = int(state.lead_index or 0)
+  resume_chunk = state.chunk_index = int(state.chunk_index or 0)
   if state.configs is not None and set(state.configs) != set(eval_configs):
     raise ValueError(
         f"checkpoint covers configs {sorted(state.configs)} but this run "
@@ -1086,21 +1056,19 @@ class _Snapshots:
     if self.stream is not None:
       ready = torch.cuda.Event()
       ready.record(torch.cuda.current_stream(self.dev))
-
-    def write():
-      ctx = (torch.cuda.stream(self.stream) if self.stream is not None
-             else contextlib.nullcontext())
-      with ctx:
-        if ready is not None:
-          self.stream.wait_event(ready)
-        snap.sums, snap.counts, snap.configs = batched_device_get(
-            (snap.sums, snap.counts, snap.configs))
-      tmp = self.path + ".tmp"
-      snap.save(tmp)
-      os.replace(tmp, self.path)
-
     self.wait()  # at most one save in flight
-    self.pending.append(self.pool.submit(write))
+    self.pending.append(self.pool.submit(self._write, snap, ready))
+
+  def _write(self, snap: StreamingState, ready) -> None:
+    with (torch.cuda.stream(self.stream) if self.stream is not None
+          else contextlib.nullcontext()):
+      if ready is not None:
+        self.stream.wait_event(ready)
+      snap.sums, snap.counts, snap.configs = batched_device_get(
+          (snap.sums, snap.counts, snap.configs))
+    tmp = self.path + ".tmp"
+    snap.save(tmp)
+    os.replace(tmp, self.path)
 
   def close(self):
     try:
@@ -1179,15 +1147,9 @@ class _RankShare:
     if self.band is None:
       return obj
     n_lat = self.latitude.shape[0]
-    if isinstance(obj, (xds.Dataset, xds.DataArray)):
-      if obj.sizes.get("latitude") == n_lat:
-        return obj.isel(latitude=self.band)
-      return obj
-    if isinstance(obj, dict):
-      return {k: self.to_band(v) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-      return type(obj)(self.to_band(v) for v in obj)
-    return obj
+    return _map_labeled(obj, lambda labeled: labeled.isel(latitude=self.band)
+                        if labeled.sizes.get("latitude") == n_lat
+                        else labeled)
 
   def band_sum(self, outs):
     """A region kernel's band outputs added over the spatial axis."""
@@ -1223,21 +1185,18 @@ class _RankShare:
     latitude axis over the spatial axis (every spatial rank calls this)."""
     if self.band is None:
       return tree
-    if isinstance(tree, xds.Dataset):
+    return _map_labeled(tree, self._gather_labeled)
+
+  def _gather_labeled(self, obj):
+    if isinstance(obj, xds.Dataset):
       return xds.Dataset(
           {k: xds.Variable(v.dims, self._gather_payload(v), v.attrs)
-           for k, v in tree.variables_dict().items()},
-          coords=self._whole_coords(tree.coords_dict()), attrs=tree.attrs)
-    if isinstance(tree, xds.DataArray):
-      v = tree.variable
-      return xds.DataArray(
-          xds.Variable(v.dims, self._gather_payload(v), v.attrs),
-          coords=self._whole_coords(tree.coords), name=tree.name)
-    if isinstance(tree, dict):
-      return {k: self.gather_bands(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-      return type(tree)(self.gather_bands(v) for v in tree)
-    return tree
+           for k, v in obj.variables_dict().items()},
+          coords=self._whole_coords(obj.coords_dict()), attrs=obj.attrs)
+    v = obj.variable
+    return xds.DataArray(
+        xds.Variable(v.dims, self._gather_payload(v), v.attrs),
+        coords=self._whole_coords(obj.coords), name=obj.name)
 
   def sum_over_batch(self, tree, dev):
     """``tree`` (float64 sums and counts, tensors or host arrays) added over
@@ -1303,6 +1262,509 @@ def _transfer_dtype():
   return torch.bfloat16 if name else None
 
 
+def check_config(name: str, cfg, resumable) -> None:
+  """Raise unless config ``name`` is valid and holds port metrics and,
+  where its stream is ``resumable`` (a state resumes it or is written),
+  takes temporal means: per-time results live in a host-side list, not in
+  the state, so a resumed run would drop the rows of every chunk already
+  done."""
+  cfg.validate()
+  for metric in cfg.metrics.values():
+    if not isinstance(metric, metrics_lib.Metric):
+      raise TypeError(
+          f"{type(metric).__module__}.{type(metric).__name__} is not a "
+          "port metric; convert reference configs with "
+          "convert.eval_configs_from_reference")
+  if resumable and not cfg.temporal_mean:
+    raise ValueError(
+        f"checkpoint/resume requires temporal_mean=True (config {name!r} "
+        "emits per-time results, which the accumulator state does not "
+        "capture)")
+
+
+def _chunk_size(forecast, climatology, input_chunks, chunk_dim,
+                batch: int) -> int:
+  """``input_chunks``' size of the chunk dim, else ``_auto_chunk_size``'s,
+  rounded up to a multiple of the batch axis: every rank takes an equal
+  share of each chunk (the padded last one too)."""
+  if chunk_dim in input_chunks:
+    size = int(input_chunks[chunk_dim])
+  else:
+    companions = 2
+    if climatology is not None and sum(
+        4 * v.size for v in climatology.variables_dict().values()
+    ) > metrics_lib.clim_device_budget():
+      companions = 2.5  # the climatology gathers per chunk on the host
+    size = _auto_chunk_size(forecast, chunk_dim, batch, companions)
+  if size < 1:
+    raise ValueError(f"chunk size must be positive, got {size}")
+  return -(-size // batch) * batch
+
+
+class _Plan:
+  """What a stream decides once from its inputs, and never changes: read
+  by the prefetch threads (``_prepare_chunk``) and the main thread
+  (``_stream_lead_slice``, ``_finalize``) alike.
+
+  It holds the chunk grid (``chunk_dim``, ``chunk_size``, ``total``) and
+  the ``lead_slices``; this rank's ``share`` of the mesh; its
+  ``forecast``, ``truth`` and ``climatology``, cut to its latitude band
+  unless a derived variable reads across latitude (``band_after_derive``:
+  the band is cut after the derivation); the truth dedup decision; each
+  config's metrics split into device and host ones and its fused plans
+  (``plans_by``: the det, prob and pointwise plans and the per-metric
+  loop's metrics, ``_partition_fused``); the transfer type and the copy
+  stream; and ``state``, checked and agreed on by every rank, which the
+  stream resumes from.
+  """
+
+  def __init__(self, forecast, truth, climatology, eval_configs, data_config,
+               input_chunks, skipna, dev, mesh, spans, state, checkpoint_path,
+               checkpoint_every):
+    cfg0 = self.cfg0 = next(iter(eval_configs.values()))
+    self.eval_configs, self.data_config = eval_configs, data_config
+    self.skipna, self.dev, self.spans = skipna, dev, spans
+    self.transfer_dtype = _transfer_dtype()
+    share = self.share = _RankShare(mesh, forecast.coords_dict().get(
+        "latitude"))
+    self.chunk_dim = "init_time" if data_config.by_init else "time"
+    self.total = forecast.sizes[self.chunk_dim]
+    self.chunk_size = _chunk_size(forecast, climatology, input_chunks,
+                                  self.chunk_dim, share.batch)
+    lead_chunk = int(input_chunks.get("lead_time", 0)) or None
+    self.lead_slices = (
+        list(_chunk_slices(forecast.sizes["lead_time"], lead_chunk))
+        if lead_chunk and "lead_time" in forecast.sizes else [slice(None)])
+    # derived variables whose core dims hold the lead axis (precipitation
+    # accumulations) need the whole axis in every chunk, and a truth with it
+    lead_core = [name for name, dv in cfg0.derived_variables.items()
+                 if {"lead_time", "prediction_timedelta"}
+                 & dv.all_input_core_dims]
+    if lead_core and len(self.lead_slices) > 1:
+      raise ValueError(
+          f"derived variable {lead_core[0]!r} requires the full lead_time "
+          "axis per chunk; remove lead_time from input_chunks or drop the "
+          "derived variable")
+    self.derived_bases = {base for dv in cfg0.derived_variables.values()
+                          for base in dv.base_variables}
+    self.device_metrics_by = {
+        c: {k: m for k, m in cfg.metrics.items() if m.supports_jit}
+        for c, cfg in eval_configs.items()}
+    self.host_metrics_by = {
+        c: {k: m for k, m in cfg.metrics.items() if not m.supports_jit}
+        for c, cfg in eval_configs.items()}
+    self.any_host = any(self.host_metrics_by.values())
+    self.regions_by = {c: (cfg.regions or {None: None})
+                       for c, cfg in eval_configs.items()}
+    # every chunk is padded to chunk_size where a config takes temporal means
+    self.pad_to_size = any(cfg.temporal_mean for cfg in eval_configs.values())
+    # host metrics need a chunk-shaped truth on the host, and the lead-core
+    # derived variables a truth with the lead axis: no dedup then
+    self.truth_dedup = (data_config.by_init and not self.any_host
+                        and not lead_core and "time" in truth.sizes
+                        and _UTIME not in truth.sizes)
+    # a rank reads its latitude band, unless a derived variable differences
+    # or integrates over latitude: then it reads the whole axis and keeps
+    # its band of the derived fields
+    self.band_after_derive = share.band is not None and any(
+        "latitude" in dv.all_input_core_dims
+        for dv in cfg0.derived_variables.values())
+    self.forecast, self.truth, self.climatology = (
+        (forecast, truth, climatology) if self.band_after_derive
+        else share.to_band((forecast, truth, climatology)))
+    self.prob_clim = (evaluation.probabilistic_climatology(self.truth, cfg0)
+                      if cfg0.evaluate_probabilistic_climatology else None)
+    # the members of the probabilistic climatology are the forecast's
+    self.plans_by = _fused_plans(
+        self, forecast.assign_coords(number=np.arange(self.prob_clim.size))
+        if self.prob_clim is not None and "number" not in forecast.sizes
+        else forecast)
+    self.copy_stream = (torch.cuda.Stream(dev) if dev.type == "cuda"
+                        else None)
+    self.generic_timer = _LoopTimer(dev)
+    self.state = state if state is not None else StreamingState()
+    _check_resume(self.state, eval_configs, self.chunk_size, self.total,
+                  len(self.lead_slices))
+    share.agree((self.state.lead_index, self.state.chunk_index,
+                 self.state.configs is not None),
+                "a state at (lead slice, chunk, accumulators)")
+    self.checkpoint_every = checkpoint_every
+    self.snapshot_path = (checkpoint_path if checkpoint_path
+                          and checkpoint_every and share.lead else None)
+
+
+def _fused_plans(plan: _Plan, members_like: xds.Dataset) -> dict:
+  """Each config's (det, prob, pointwise plans, per-metric loop's
+  metrics), planned on the whole grid (``members_like``), each plan's
+  region weights on the device: the whole grid's, cut to the band, so
+  that the latitude weights stay normalized over the whole grid."""
+  share = plan.share
+  infinite = {name for name, dv in plan.cfg0.derived_variables.items()
+              if dv.may_be_infinite}
+  plans_by = {}
+  for cname, metrics in plan.device_metrics_by.items():
+    *plans, generic = _partition_fused(metrics, plan.regions_by[cname],
+                                       members_like)
+    for fused in plans:
+      if fused is not None:
+        region_w = fused["region_w"]
+        if share.band is not None:
+          n_lat = share.latitude.shape[0]
+          region_w = np.ascontiguousarray(region_w.reshape(
+              region_w.shape[0], -1, n_lat)[:, :, share.band].reshape(
+                  region_w.shape[0], -1))
+        fused.update(region_w_dev=torch.as_tensor(region_w, device=plan.dev),
+                     infinite=infinite, band_sum=share.band_sum)
+    plans_by[cname] = (*plans, generic)
+  return plans_by
+
+
+def _prepare_chunk(plan: _Plan, ci, sl, lead_sl, queue):
+  """A chunk's host work on a prefetch thread (``_stage_chunk``), its large
+  payloads staged as tasks of ``queue`` at the chunk's rank, under a
+  ``wb2.prepare`` span: (what it staged, the chunk's counts).  The counts
+  are filled where they are measured: bytes moved (``h2d_bytes``) and
+  seconds pinning (``pin_s``) by ``xds.to_device``; the reads and decodes
+  wherever the chunk's tasks ran (``read_bytes``, ``read_s``,
+  ``decode_bytes``, ``decode_s``) by ``io_zarr.tally``; seconds in the
+  metrics' ``prepare_chunk`` (``metric_prep_s``); payload tasks
+  (``stage_tasks``) and seconds of them on other threads (``offload_s``) by
+  the ``xds.Staging``; the chunk's thread-seconds (``prepare_s``: this
+  thread's wall less the seconds it waited on its tasks, ``blocked_s``,
+  plus ``offload_s``).  The span carries them, with ``blocked_s`` and
+  ``prepare_s`` as ``busy_s``."""
+  t0 = time.perf_counter()
+  counts = tracing.Counts(h2d_bytes=0, pin_s=0.0, read_bytes=0, read_s=0.0,
+                          decode_bytes=0, decode_s=0.0)
+  staging = xds.Staging(queue, ci)
+  with plan.spans.span("wb2.prepare", chunk=ci) as rec, io_zarr.tally(counts):
+    staged = _stage_chunk(plan, ci, sl, lead_sl, counts, staging)
+    counts.add(stage_tasks=staging.tasks, offload_s=staging.offload_s)
+    rec.update(counts, blocked_s=staging.blocked_s)
+  # after the span closed: the thread-seconds of its whole wall
+  counts["prepare_s"] = rec["busy_s"] = (
+      time.perf_counter() - t0 - staging.blocked_s + staging.offload_s)
+  return staged, counts
+
+
+def _stage_chunk(plan: _Plan, ci, sl, lead_sl, counts, staging):
+  """Host work for this rank's share of one chunk (slice, align, prepare,
+  pad) and its transfer; the share is read and moved once for all
+  configs.  Derived variables and the probabilistic climatology's members
+  are made on the device after the copy, before the metrics prepare the
+  chunk."""
+  share, dev, cfg0, chunk_dim = plan.share, plan.dev, plan.cfg0, plan.chunk_dim
+  any_host, copy_stream = plan.any_host, plan.copy_stream
+  f_chunk = plan.forecast.isel({chunk_dim: sl})
+  if lead_sl != slice(None):
+    f_chunk = f_chunk.isel(lead_time=lead_sl)
+  n_real = f_chunk.sizes[chunk_dim]
+  padded = (plan.chunk_size if plan.pad_to_size
+            else -(-n_real // share.batch) * share.batch)
+  f_chunk = _pad_chunk(f_chunk, chunk_dim, padded)
+  rows = share.rows(padded)
+  if rows != slice(0, padded):
+    f_chunk = f_chunk.isel({chunk_dim: rows})
+  time_mask = (np.arange(rows.start, rows.stop) < n_real).astype(np.float64)
+  uinv = uniq = None
+  if plan.truth_dedup:
+    # the valid-time-aligned truth repeats each time in ~every lead
+    # slot: ship each unique time once, expand on the device
+    vt = np.asarray(f_chunk["valid_time"].data)
+    uniq, inv = np.unique(vt.ravel(), return_inverse=True)
+    n_pad = -(-len(uniq) // UTIME_BUCKET) * UTIME_BUCKET
+    uniq = np.concatenate([uniq, np.repeat(uniq[-1:], n_pad - len(uniq))])
+    uinv = xds.DataArray(inv.reshape(vt.shape).astype(np.int64),
+                         dims=f_chunk["valid_time"].dims)
+  with (torch.cuda.stream(copy_stream) if copy_stream is not None
+        else contextlib.nullcontext()):
+    f_chunk, t_chunk, members = _make_truth_chunk(
+        f_chunk, plan.truth, plan.climatology, cfg0, plan.data_config, uniq,
+        plan.prob_clim)
+    if members is not None or cfg0.derived_variables:
+      # derived variables come from their base fields at full precision,
+      # as the JAX package derives on the host before its bfloat16 cast;
+      # those fields and the derived ones are rounded after the derivation
+      # (host metrics read every field at full precision, and the fields
+      # cross again below)
+      f_chunk, t_chunk = xds.to_device(
+          (f_chunk, t_chunk), dev, copy_stream, counts,
+          None if any_host else plan.transfer_dtype,
+          full_precision=plan.derived_bases, staging=staging)
+      if members is not None:
+        f_chunk = f_chunk.isel({utils.MEMBER_PAIR: members})
+      f_chunk, t_chunk = evaluation.add_derived_variables(f_chunk, t_chunk,
+                                                          cfg0)
+      if plan.band_after_derive:
+        f_chunk, t_chunk = share.to_band((f_chunk, t_chunk))
+      if plan.transfer_dtype is not None and not any_host:
+        f_chunk, t_chunk = xds.round_to_bfloat16((f_chunk, t_chunk))
+    if any_host:
+      f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)
+    host_chunks = (f_chunk, t_chunk) if any_host else None
+    with counts.timing("metric_prep_s"):
+      prepared = {
+          c: {name: m.prepare_chunk(f_chunk, t_chunk, device=dev)
+              for name, m in metrics.items()}
+          for c, metrics in plan.device_metrics_by.items()
+      }
+    # climatology gathers span the whole grid: cut them to the band
+    prepared = share.to_band(prepared)
+    if plan.truth_dedup:
+      t_chunk = _rename_utime(t_chunk)
+      prepared = _rename_utime(prepared)
+    moved = xds.to_device(
+        _map_labeled((f_chunk, t_chunk, prepared, uinv),
+                     lambda obj: _normalize_chunk_coords(obj, chunk_dim)),
+        dev, copy_stream, counts, plan.transfer_dtype, staging=staging)
+    mask_dev = torch.as_tensor(time_mask).to(dev, non_blocking=True)
+    event = None
+    if copy_stream is not None:
+      event = torch.cuda.Event()
+      event.record(copy_stream)
+  return ci, n_real, sl, rows, moved, mask_dev, event, host_chunks
+
+
+def _chunk_program(plan: _Plan, cname, f_c, t_c, prepared, time_mask, uinv,
+                   rec):
+  """Every device metric × region of one config on one chunk, reduced
+  over the chunk dim (or per time with temporal_mean=False); the per-metric
+  loop's seconds go to ``rec``'s ``generic_s``."""
+  det_plan, prob_plan, pw_plan, generic = plan.plans_by[cname]
+  metrics, skipna = plan.device_metrics_by[cname], plan.skipna
+  if plan.truth_dedup:
+    t_c = _expand_utime(t_c, uinv)
+    prepared = _expand_utime(prepared, uinv)
+  results = {}
+  generic_names = list(generic)
+  if det_plan is not None:
+    results.update(_fused_chunk_results(det_plan, f_c, t_c, skipna))
+  if prob_plan is not None:
+    results.update(_fused_prob_chunk_results(prob_plan, f_c, t_c, skipna))
+  if pw_plan is not None:
+    pw_results, leftover = _pointwise_chunk_results(
+        pw_plan, metrics, f_c, t_c, prepared, skipna)
+    results.update(pw_results)
+    generic_names.extend(leftover)
+  if generic_names:
+    # whole fields, on one spatial rank
+    f_c, t_c, prepared = plan.share.gather_bands((f_c, t_c, prepared))
+  if generic_names and plan.share.owner:
+    with plan.generic_timer.time(rec):
+      for name in generic_names:
+        results[name] = evaluation.loop_over_regions(
+            lambda region, name=name: metrics[name].compute_chunk_prepared(
+                f_c, t_c, prepared[name], region=region, skipna=skipna),
+            plan.regions_by[cname])
+  metrics_lib.clear_caches()  # the CRPS spread of this chunk
+  if not plan.eval_configs[cname].temporal_mean:
+    return results, dict.fromkeys(results)
+  sums, counts = {}, {}
+  for name, result in results.items():
+    sums[name], counts[name] = _masked_sum_count(result, plan.chunk_dim,
+                                                 time_mask, skipna)
+  return sums, counts
+
+
+def _chunk_step(plan: _Plan, staged, per_time: dict, rec) -> dict:
+  """A prepared chunk through every config's program on the main thread:
+  its per-time rows appended to ``per_time``, and its (sums, counts) by
+  temporal-mean config, added over the batch axis, returned."""
+  ci, n_real, sl, rows, moved, mask_dev, event, host_chunks = staged
+  share, chunk_dim = plan.share, plan.chunk_dim
+  if event is not None:
+    compute_stream = torch.cuda.current_stream(plan.dev)
+    compute_stream.wait_event(event)
+    # the copies were allocated on the side stream: keep their memory from
+    # being reused while this stream still reads it
+    for t in _leaves((moved, mask_dev), []):
+      t.record_stream(compute_stream)
+  f_dev, t_dev, p_dev, u_dev = moved
+  if plan.any_host and share.band is not None:
+    host_chunks = tuple(_host_dataset(ds) for ds in
+                        share.gather_bands((f_dev, t_dev)))
+  # this rank's real rows, for per-time results
+  real = np.arange(max(0, min(rows.stop, n_real) - rows.start))
+  chunk_sums = {}
+  for cname, cfg in plan.eval_configs.items():
+    sums, counts = _chunk_program(plan, cname, f_dev, t_dev, p_dev[cname],
+                                  mask_dev, u_dev, rec)
+    if not share.owner:
+      continue  # the owner of this band's results adds them
+    for name, metric in plan.host_metrics_by[cname].items():
+      sums[name], counts[name] = _eval_host_metric(
+          metric, *host_chunks, plan.regions_by[cname], plan.skipna,
+          len(real), chunk_dim, cfg.temporal_mean)
+    if cfg.temporal_mean:
+      chunk_sums[cname] = (sums, counts)
+      continue
+    coord = np.asarray(plan.forecast.coords_dict()[chunk_dim].data)[sl]
+    if len(real):
+      for name, res in sums.items():
+        res = res.isel({chunk_dim: real})
+        per_time[cname].append((name, ci, share.b, res.assign_coords(
+            {chunk_dim: coord[rows.start:rows.start + len(real)]})))
+  return share.sum_over_batch(chunk_sums, plan.dev)
+
+
+def _accumulate(acc: dict, align: set, chunk_sums: dict) -> None:
+  """Each config's chunk (sums, counts) added to its [sums, counts] in
+  ``acc``, as new arrays, the sums first; a config in ``align`` (resumed
+  from a state saved in another variable order) has its accumulators put
+  in this run's order at its first merge."""
+  for cname, chunk in chunk_sums.items():
+    if acc[cname] is None:
+      acc[cname] = list(chunk)
+      continue
+    for i, part in enumerate(chunk):
+      if cname in align:
+        acc[cname][i] = _reorder_like(part, acc[cname][i])
+      acc[cname][i] = _tree_add(acc[cname][i], part)
+    align.discard(cname)
+
+
+def _snapshot(plan: _Plan, acc, chunk_index, lead_i,
+              lead_results) -> StreamingState:
+  """The state after ``chunk_index`` chunks of lead slice ``lead_i``."""
+  # the version-1 fields, kept for single-config readers
+  sums, counts = acc[next(iter(acc))] if len(acc) == 1 else (None, None)
+  return StreamingState(
+      sums, counts, chunk_index, chunk_size=plan.chunk_size, total=plan.total,
+      configs={c: tuple(acc[c]) for c in plan.eval_configs},
+      lead_index=lead_i, n_lead_slices=len(plan.lead_slices),
+      completed_leads=list(lead_results))
+
+
+def _stream_lead_slice(plan: _Plan, lead_i, lead_sl, lead_results, run,
+                       own):
+  """One lead slice's chunks through every config's program on the main
+  thread, ``PREFETCH_DEPTH`` of them prepared ahead on the prefetch threads
+  and at most ``DEVICE_INFLIGHT`` queued on the device, the accumulators
+  snapshotted every ``checkpoint_every`` chunks: (accumulators, per-time
+  rows) by config.  The slice a state stopped in starts from its
+  accumulators, past the chunks it covers."""
+  share, dev, state = plan.share, plan.dev, plan.state
+  first = lead_i == state.lead_index
+  resuming = first and state.configs is not None
+  acc = dict.fromkeys(plan.eval_configs)
+  if resuming and share.owner:
+    acc = {c: list(_tree_to_device(state.configs[c], dev))
+           for c in plan.eval_configs}
+  align = set(plan.eval_configs) if resuming else set()
+  per_time = {c: [] for c in plan.eval_configs}
+  chunk_list = list(enumerate(_chunk_slices(plan.total, plan.chunk_size)))
+  del chunk_list[:state.chunk_index if first else 0]  # done before
+  own.add(chunks=len(chunk_list))
+  inflight: list = []
+  pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
+  queue = xds.StageQueue(pool)
+  snapshots = (_Snapshots(plan.snapshot_path, dev) if plan.snapshot_path
+               else None)
+  try:
+    pending = [pool.submit(_prepare_chunk, plan, ci, sl, lead_sl, queue)
+               for ci, sl in chunk_list[:PREFETCH_DEPTH]]
+    for idx, (ci, _) in enumerate(chunk_list):
+      # idx 0 fills the pipeline: nothing was prepared ahead of it
+      with run.timing("wait_host_s"), plan.spans.span(
+          "wb2.wait_host", chunk=ci, ordinal=idx):
+        staged, counts = pending.pop(0).result()
+      run.add(counts)
+      if idx + PREFETCH_DEPTH < len(chunk_list):
+        pending.append(pool.submit(
+            _prepare_chunk, plan, *chunk_list[idx + PREFETCH_DEPTH], lead_sl,
+            queue))
+      with plan.spans.span("wb2.chunk_program", chunk=ci,
+                           generic_s=0) as rec:
+        _accumulate(acc, align, _chunk_step(plan, staged, per_time, rec))
+        if dev.type == "cuda":
+          done = torch.cuda.Event()
+          done.record(torch.cuda.current_stream(dev))
+          inflight.append((ci, done))
+      # bound the queue: before moving past chunk n, wait for chunk
+      # n-DEVICE_INFLIGHT to finish so its buffers free
+      if len(inflight) > DEVICE_INFLIGHT:
+        waited, done = inflight.pop(0)
+        with own.timing("wait_device_s"), plan.spans.span(
+            "wb2.wait_device", chunk=waited):
+          done.synchronize()
+      if snapshots is not None and (ci + 1) % plan.checkpoint_every == 0:
+        snapshots.submit(_snapshot(plan, acc, ci + 1, lead_i, lead_results))
+  finally:
+    pool.shutdown(wait=True, cancel_futures=True)
+    if snapshots is not None:
+      snapshots.close()
+  return acc, per_time
+
+
+def _config_results(cfg, means, rows, chunk_dim) -> xds.Dataset:
+  """A config's results: its temporal means on the host (``means``), or
+  its per-time ``rows`` ((metric, chunk, batch rank, Dataset)) joined
+  along the chunk dim in chunk and rank order."""
+  if cfg.temporal_mean:
+    return evaluation.merge_metric_results(_metric_results(means))
+  rows = sorted(rows, key=lambda row: row[1:3])
+  return evaluation.merge_metric_results([
+      xds.concat([res for metric, _, _, res in rows if metric == name],
+                 chunk_dim).expand_dims(metric=np.asarray([name],
+                                                          dtype=object))
+      for name in cfg.metrics])
+
+
+def _finalize(plan: _Plan, acc, per_time, own):
+  """A lead slice's results by config on rank 0 (None elsewhere): its
+  temporal means divided on the device and each config's accumulators
+  released as they are (``_device_means``), copied back with the per-time
+  rows of every batch rank (``wb2.d2h``, ``d2h_s``), then joined on the
+  host (``wb2.finalize``, ``finalize_s``)."""
+  share, spans = plan.share, plan.spans
+  if not share.owner:
+    return None
+  with own.timing("wait_device_s"), own.timing("d2h_s"), spans.span(
+      "wb2.d2h") as rec:
+    means = {c: _device_means(cfg.metrics, *acc.pop(c), plan.dev)
+             for c, cfg in plan.eval_configs.items()
+             if cfg.temporal_mean and share.lead}
+    rec["bytes"] = sum(t.numel() * t.element_size()
+                       for t in _leaves((means, per_time), []))
+    means, per_time = batched_device_get((means, per_time))
+    per_time = {c: share.gather_rows(per_time[c]) for c in plan.eval_configs}
+  if not share.lead:
+    return None
+  with own.timing("finalize_s"):
+    stacked = [m for m in means.values() if isinstance(m, xds.Dataset)]
+    counts = tracing.Counts(
+        finalize_device_bytes=sum(v.data.nbytes for m in stacked
+                                  for v in m.variables_dict().values()),
+        finalize_host_merges=len(means) - len(stacked))
+    own.add(counts)
+    with spans.span("wb2.finalize", **counts):
+      return {c: _config_results(cfg, means.get(c), per_time[c],
+                                 plan.chunk_dim)
+              for c, cfg in plan.eval_configs.items()}
+
+
+def _merge_ranks(stats: dict, share: _RankShare, run, own) -> None:
+  """Add a stream's counts to ``stats``, by one rule: each of ``run``'s
+  counts is summed over the ranks, but ``wait_host_s`` is the largest, and
+  ``gathered_bytes`` and the launches are in ``stats["ranks"]`` only (with
+  a mesh: every rank's ``run``, in rank order); ``own`` are this rank's
+  alone.  The bytes decoded are the chunks' spans' only."""
+  run.pop("decode_bytes", None)
+  ranks = share.all_stats(run)
+  total = tracing.Counts(own)
+  for key in run:
+    if key == "wait_host_s":
+      total[key] = max(r[key] for r in ranks)
+    elif key != "gathered_bytes" and not key.endswith("_launches"):
+      total[key] = sum(r[key] for r in ranks)
+  for key, value in total.items():
+    stats[key] = stats.get(key, 0) + value
+  if share.mesh is not None:
+    before = stats.get("ranks") or [{}] * len(ranks)
+    stats["ranks"] = [{k: a.get(k, 0) + v for k, v in r.items()}
+                      for a, r in zip(before, ranks)]
+
+
 def evaluate_streaming_multi(
     forecast: xds.Dataset,
     truth: xds.Dataset,
@@ -1322,29 +1784,28 @@ def evaluate_streaming_multi(
   """Stream chunks ONCE through the metric programs of several configs.
 
   All configs must build their inputs identically (``evaluate_with_mesh``
-  groups them).  Returns {config_name: results dataset}.  ``stats``, when
-  given, receives the run's counts: chunks, h2d bytes, bytes read, and
-  seconds the main thread waited for host preparation (``wait_host_s``)
-  and for the device (``wait_device_s``; its part ``d2h_s`` is the final
-  division of the temporal means on the device and their copy, with the
-  per-time results, to the host), and seconds spent on the host turning
-  those into results (``finalize_s``); ``finalize_device_bytes`` are the
-  bytes of temporal means stacked by metric on the device, and
-  ``finalize_host_merges`` the configs whose metrics differ in variables,
-  dims or coordinates, joined on the host instead (both also attributes
-  of the ``wb2.finalize`` span).  The prefetch
-  threads' seconds, summed over them: ``prepare_s`` in preparing chunks,
-  and of it ``read_s`` opening and reading chunk files, ``decode_s``
-  decoding them and ``pin_s`` staging the copies in pinned memory; a
-  chunk's large payloads are staged as tasks that any idle prefetch thread
-  may take (``stage_tasks`` of them, ``offload_s`` seconds of them on a
-  thread other than their chunk's); ``metric_prep_s`` in the metrics'
-  ``prepare_chunk`` (rank draws, climatology gathers).  ``generic_s``: the
-  seconds of the per-metric loop (the metrics no fused tier takes), on a
-  CUDA device the compute stream's time around its launches, read once
-  the stream has run them, on the host its wall; each chunk's is an
-  attribute of its ``wb2.chunk_program`` span, as ``metric_prep_s`` is of
-  its ``wb2.prepare``.
+  groups them).  Returns {config_name: results dataset}: the stream is
+  planned once (``_Plan``), each lead slice's chunks run through
+  the configs' programs (``_stream_lead_slice``), and each slice's results
+  are finalized (``_finalize``).  ``stats``, when given, receives the
+  run's counts: ``chunks``; the prefetch threads' counts of each chunk
+  (``_prepare_chunk``: ``h2d_bytes``, ``read_bytes``, ``read_s``,
+  ``decode_s``, ``pin_s``, ``prepare_s``, ``stage_tasks``, ``offload_s``,
+  ``metric_prep_s``), summed over the threads, and with ``wait_host_s``
+  absent where no chunk is left to stream (a resume from a state taken
+  after the last chunk); ``generic_s``, the seconds
+  of the per-metric loop (the metrics no fused tier takes; on a CUDA
+  device the compute stream's time around its launches, read once the
+  stream has run them, on the host its wall; each chunk's is an attribute
+  of its ``wb2.chunk_program`` span); the seconds the main thread waited
+  for host preparation (``wait_host_s``) and for the device
+  (``wait_device_s``; its part ``d2h_s`` is the final division of the
+  temporal means on the device and their copy, with the per-time results,
+  to the host); and seconds spent on the host turning those into results
+  (``finalize_s``); ``finalize_device_bytes`` are the bytes of temporal
+  means stacked by metric on the device, and ``finalize_host_merges`` the
+  configs whose metrics differ in variables, dims or coordinates, joined
+  on the host instead (both also attributes of the ``wb2.finalize`` span).
   ``spans`` (a ``tracing.Spans``) records the chunk pipeline's spans, and
   False records none; None, the default, records them while
   ``torch.profiler`` records the calling thread, into ``stats["spans"]``.
@@ -1360,515 +1821,51 @@ def evaluate_streaming_multi(
   state's chunk grid is the same under any world size.  Rank 0 returns the
   results (the other ranks None) and writes the snapshots; a state seeds
   the accumulators of every rank that holds them (they are alike on every
-  rank of the batch axis).
-  ``stats`` then also holds ``ranks``, every rank's ``h2d_bytes``,
-  ``read_bytes``, ``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``,
-  ``stage_tasks``, ``offload_s``, ``metric_prep_s``, ``generic_s``,
-  ``wait_host_s``, ``gathered_bytes`` and the region kernels' launches
-  (``fused_deterministic_sums_launches``, ``fused_region_sums_launches``);
-  its bytes and prefetch seconds are their sums, ``wait_host_s`` the
-  largest.
+  rank of the batch axis).  ``stats`` then also holds ``ranks``, every
+  rank's counts that are summed over the ranks, its ``wait_host_s``,
+  ``gathered_bytes`` and the region kernels' launches
+  (``fused_deterministic_sums_launches``, ``fused_region_sums_launches``;
+  ``_merge_ranks``).
   """
   dev = mesh.device if mesh is not None else device_lib.resolve(device)
   cfg0 = next(iter(eval_configs.values()))
-  for cfg in eval_configs.values():
-    cfg.validate()
+  for name, cfg in eval_configs.items():
+    check_config(name, cfg, state is not None or checkpoint_path)
     if input_key(cfg) != input_key(cfg0):
       raise ValueError(
           "evaluate_streaming_multi requires configs with identical input "
           "construction (baselines/derived/against_analysis)")
-    for metric in cfg.metrics.values():
-      if not isinstance(metric, metrics_lib.Metric):
-        raise TypeError(
-            f"{type(metric).__module__}.{type(metric).__name__} is not a "
-            "port metric; convert reference configs with "
-            "convert.eval_configs_from_reference")
-  if state is not None or checkpoint_path:
-    # per-time results live in a host-side list, not in the state: a
-    # resumed run would drop the rows of every chunk already done
-    for cname, cfg in eval_configs.items():
-      if not cfg.temporal_mean:
-        raise ValueError(
-            "checkpoint/resume requires temporal_mean=True (config "
-            f"{cname!r} emits per-time results, which the accumulator "
-            "state does not capture)")
   own_spans = spans is None
-  if own_spans:
-    spans = tracing.profiling() and tracing.Spans()
-  transfer_dtype = _transfer_dtype()
-  reads0, launches0 = io_zarr.READS.bytes, _launch_counts()
-  read_s0, decode_s0 = io_zarr.READS.seconds, io_zarr.DECODES.seconds
-  share = _RankShare(mesh, forecast.coords_dict().get("latitude"))
-
-  by_init = data_config.by_init
-  chunk_dim = "init_time" if by_init else "time"
-  total = forecast.sizes[chunk_dim]
-  if chunk_dim in input_chunks:
-    chunk_size = int(input_chunks[chunk_dim])
-  else:
-    companions = 2
-    if climatology is not None and sum(
-        4 * v.size for v in climatology.variables_dict().values()
-    ) > metrics_lib.clim_device_budget():
-      companions = 2.5  # the climatology gathers per chunk on the host
-    chunk_size = _auto_chunk_size(forecast, chunk_dim, share.batch,
-                                  companions)
-  if chunk_size < 1:
-    raise ValueError(f"chunk size must be positive, got {chunk_size}")
-  # every rank takes an equal share of each chunk (the padded last one too)
-  chunk_size = -(-chunk_size // share.batch) * share.batch
-  lead_chunk = int(input_chunks.get("lead_time", 0)) or None
-  lead_slices = (list(_chunk_slices(forecast.sizes["lead_time"], lead_chunk))
-                 if lead_chunk and "lead_time" in forecast.sizes
-                 else [slice(None)])
-  # derived variables whose core dims hold the lead axis (precipitation
-  # accumulations) need the whole axis in every chunk, and a truth with it
-  lead_core = [name for name, dv in cfg0.derived_variables.items()
-               if {"lead_time", "prediction_timedelta"}
-               & dv.all_input_core_dims]
-  if lead_core and len(lead_slices) > 1:
-    raise ValueError(
-        f"derived variable {lead_core[0]!r} requires the full lead_time "
-        "axis per chunk; remove lead_time from input_chunks or drop the "
-        "derived variable")
-  infinite = {name for name, dv in cfg0.derived_variables.items()
-              if dv.may_be_infinite}
-  derived_bases = {base for dv in cfg0.derived_variables.values()
-                   for base in dv.base_variables}
-
-  device_metrics_by = {
-      c: {k: m for k, m in cfg.metrics.items() if m.supports_jit}
-      for c, cfg in eval_configs.items()}
-  host_metrics_by = {
-      c: {k: m for k, m in cfg.metrics.items() if not m.supports_jit}
-      for c, cfg in eval_configs.items()}
-  any_host = any(host_metrics_by.values())
-  regions_by = {c: (cfg.regions or {None: None})
-                for c, cfg in eval_configs.items()}
-  any_temporal = any(cfg.temporal_mean for cfg in eval_configs.values())
-  # host metrics need a chunk-shaped truth on the host, and the lead-core
-  # derived variables a truth with the lead axis: no dedup then
-  truth_dedup = (by_init and not any_host and not lead_core
-                 and "time" in truth.sizes and _UTIME not in truth.sizes)
-  # a rank reads its latitude band, unless a derived variable differences
-  # or integrates over latitude: then it reads the whole axis and keeps its
-  # band of the derived fields
-  whole_forecast = forecast
-  band_after_derive = share.band is not None and any(
-      "latitude" in dv.all_input_core_dims
-      for dv in cfg0.derived_variables.values())
-  if not band_after_derive:
-    forecast, truth, climatology = share.to_band(
-        (forecast, truth, climatology))
-  prob_clim = (evaluation.probabilistic_climatology(truth, cfg0)
-               if cfg0.evaluate_probabilistic_climatology else None)
-  # the members of the probabilistic climatology are the forecast's
-  members_like = (
-      whole_forecast.assign_coords(number=np.arange(prob_clim.size))
-      if prob_clim is not None and "number" not in whole_forecast.sizes
-      else whole_forecast)
-  plans_by = {}
-  for cname in eval_configs:
-    # the region weights of the whole grid, cut to the band: the latitude
-    # weights stay normalized over the whole grid
-    *plans, generic = _partition_fused(device_metrics_by[cname],
-                                       regions_by[cname], members_like)
-    for plan in plans:
-      if plan is not None:
-        region_w = plan["region_w"]
-        if share.band is not None:
-          n_lat = share.latitude.shape[0]
-          region_w = np.ascontiguousarray(region_w.reshape(
-              region_w.shape[0], -1, n_lat)[:, :, share.band].reshape(
-                  region_w.shape[0], -1))
-        plan["region_w_dev"] = torch.as_tensor(region_w, device=dev)
-        plan["infinite"] = infinite
-        plan["band_sum"] = share.band_sum
-    plans_by[cname] = (*plans, generic)
-
-  def chunk_program(cname, f_c, t_c, prepared, time_mask, uinv):
-    """Every device metric × region of one config on one chunk, reduced
-    over the chunk dim (or per time with temporal_mean=False)."""
-    det_plan, prob_plan, pw_plan, generic = plans_by[cname]
-    metrics = device_metrics_by[cname]
-    if truth_dedup:
-      t_c = _expand_utime(t_c, uinv)
-      prepared = _expand_utime(prepared, uinv)
-    results = {}
-    generic_names = list(generic)
-    if det_plan is not None:
-      results.update(_fused_chunk_results(det_plan, f_c, t_c, skipna))
-    if prob_plan is not None:
-      results.update(_fused_prob_chunk_results(prob_plan, f_c, t_c, skipna))
-    if pw_plan is not None:
-      pw_results, leftover = _pointwise_chunk_results(
-          pw_plan, metrics, f_c, t_c, prepared, skipna)
-      results.update(pw_results)
-      generic_names.extend(leftover)
-    if generic_names:
-      # whole fields, on one spatial rank
-      f_c, t_c, prepared = share.gather_bands((f_c, t_c, prepared))
-      if not share.owner:
-        generic_names = []
-    if generic_names:
-      with generic_timer.time():
-        for name in generic_names:
-          results[name] = _loop_over_regions(
-              lambda region, name=name: metrics[name].compute_chunk_prepared(
-                  f_c, t_c, prepared[name], region=region, skipna=skipna),
-              regions_by[cname])
-    metrics_lib.clear_caches()  # the CRPS spread of this chunk
-    if not eval_configs[cname].temporal_mean:
-      return results, dict.fromkeys(results)
-    sums, counts = {}, {}
-    for name, result in results.items():
-      sums[name], counts[name] = _masked_sum_count(result, chunk_dim,
-                                                   time_mask, skipna)
-    return sums, counts
-
-  copy_stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
-  # the per-metric loop's seconds, and the chunk_program span of each chunk
-  # with the blocks it timed: (record, first block, end)
-  generic_timer = _LoopTimer(dev)
-  program_spans = []
-
-  def prepare_one(ci, sl, lead_sl, queue):
-    """``prepare_chunk`` on a prefetch thread, its large payloads staged as
-    tasks of ``queue`` at the chunk's rank, with its counts appended to
-    what it returns: bytes moved (``h2d_bytes``), seconds pinning
-    (``pin_s``), payload tasks (``stage_tasks``), seconds of them on other
-    threads (``offload_s``) and the chunk's thread-seconds (``prepare_s``:
-    this thread's wall less the seconds it waited on its tasks, plus
-    ``offload_s``).  A ``wb2.prepare`` span when spans are kept, with the
-    chunk's tallies of reads and decodes wherever its tasks ran, its
-    ``stage_tasks``, ``offload_s``, ``blocked_s`` (the waits) and
-    ``busy_s`` (``prepare_s``)."""
-    t0 = time.perf_counter()
-    counter = {"h2d_bytes": 0, "pin_s": 0.0, "metric_prep_s": 0.0}
-    staging = xds.Staging(queue, ci)
-    if not spans:
-      out = prepare_chunk(ci, sl, lead_sl, counter, staging)
-    else:
-      r0, d0 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
-      with spans.span("wb2.prepare", chunk=ci) as rec:
-        out = prepare_chunk(ci, sl, lead_sl, counter, staging)
-        r1, d1 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
-        rec.update(read_bytes=r1[0] - r0[0] + staging.read[0],
-                   read_s=r1[1] - r0[1] + staging.read[1],
-                   decode_bytes=d1[0] - d0[0] + staging.decode[0],
-                   decode_s=d1[1] - d0[1] + staging.decode[1],
-                   stage_tasks=staging.tasks, offload_s=staging.offload_s,
-                   blocked_s=staging.blocked_s, **counter)
-    counter.update(
-        prepare_s=(time.perf_counter() - t0 - staging.blocked_s
-                   + staging.offload_s),
-        stage_tasks=staging.tasks, offload_s=staging.offload_s)
-    if spans:
-      # after the span closed: the thread-seconds of its whole wall
-      rec["busy_s"] = counter["prepare_s"]
-    return (*out, counter)
-
-  def prepare_chunk(ci, sl, lead_sl, counter, staging):
-    """Host work for this rank's share of one chunk (slice, align, prepare,
-    pad) and its transfer; the share is read and moved once for all
-    configs.  Derived variables and the probabilistic climatology's members
-    are made on the device after the copy, before the metrics prepare the
-    chunk."""
-    f_chunk = forecast.isel({chunk_dim: sl})
-    if lead_sl != slice(None):
-      f_chunk = f_chunk.isel(lead_time=lead_sl)
-    n_real = f_chunk.sizes[chunk_dim]
-    padded = (chunk_size if any_temporal
-              else -(-n_real // share.batch) * share.batch)
-    f_chunk = _pad_chunk(f_chunk, chunk_dim, padded)
-    rows = share.rows(padded)
-    if rows != slice(0, padded):
-      f_chunk = f_chunk.isel({chunk_dim: rows})
-    time_mask = (np.arange(rows.start, rows.stop) < n_real).astype(np.float64)
-    uinv = None
-    uniq = None
-    if truth_dedup:
-      # the valid-time-aligned truth repeats each time in ~every lead
-      # slot: ship each unique time once, expand on the device
-      vt = np.asarray(f_chunk["valid_time"].data)
-      uniq, inv = np.unique(vt.ravel(), return_inverse=True)
-      n_pad = -(-len(uniq) // UTIME_BUCKET) * UTIME_BUCKET
-      uniq = np.concatenate([uniq, np.repeat(uniq[-1:], n_pad - len(uniq))])
-      uinv = xds.DataArray(inv.reshape(vt.shape).astype(np.int64),
-                           dims=f_chunk["valid_time"].dims)
-    ctx = (torch.cuda.stream(copy_stream) if copy_stream is not None
-           else contextlib.nullcontext())
-    with ctx:
-      f_chunk, t_chunk, members = _make_truth_chunk(
-          f_chunk, truth, climatology, cfg0, data_config, uniq, prob_clim)
-      if members is not None or cfg0.derived_variables:
-        # derived variables come from their base fields at full precision,
-        # as the JAX package derives on the host before its bfloat16 cast;
-        # those fields and the derived ones are rounded after the derivation
-        # (host metrics read every field at full precision, and the fields
-        # cross again below)
-        f_chunk, t_chunk = xds.to_device(
-            (f_chunk, t_chunk), dev, copy_stream, counter,
-            None if any_host else transfer_dtype,
-            full_precision=derived_bases, staging=staging)
-        if members is not None:
-          f_chunk = f_chunk.isel({utils.MEMBER_PAIR: members})
-        f_chunk, t_chunk = evaluation.add_derived_variables(f_chunk, t_chunk,
-                                                            cfg0)
-        if band_after_derive:
-          f_chunk, t_chunk = share.to_band((f_chunk, t_chunk))
-        if transfer_dtype is not None and not any_host:
-          f_chunk, t_chunk = xds.round_to_bfloat16((f_chunk, t_chunk))
-      host_chunks = None
-      if any_host:
-        f_chunk, t_chunk = _host_dataset(f_chunk), _host_dataset(t_chunk)
-        host_chunks = (f_chunk, t_chunk)
-      t0 = time.perf_counter()
-      prepared = {
-          c: {name: m.prepare_chunk(f_chunk, t_chunk, device=dev)
-              for name, m in device_metrics_by[c].items()}
-          for c in eval_configs
-      }
-      counter["metric_prep_s"] = time.perf_counter() - t0
-      # climatology gathers span the whole grid: cut them to the band
-      prepared = share.to_band(prepared)
-      if truth_dedup:
-        t_chunk = _rename_utime(t_chunk)
-        prepared = _rename_utime(prepared)
-      moved = xds.to_device(
-          _normalize_any((f_chunk, t_chunk, prepared, uinv), chunk_dim),
-          dev, copy_stream, counter, transfer_dtype, staging=staging)
-      mask_dev = torch.as_tensor(time_mask).to(dev, non_blocking=True)
-      event = None
-      if copy_stream is not None:
-        event = torch.cuda.Event()
-        event.record(copy_stream)
-    return ci, n_real, sl, rows, moved, mask_dev, event, host_chunks
-
-  if state is None:
-    state = StreamingState()
-  _check_resume(state, eval_configs, chunk_size, total, len(lead_slices))
-  resume_lead = int(state.lead_index or 0)
-  resume_chunk = int(state.chunk_index or 0)
-  resume_configs = state.configs
-  share.agree((resume_lead, resume_chunk, resume_configs is not None),
-              "a state at (lead slice, chunk, accumulators)")
-  lead_results = []
-  wait_host = wait_device = finalize = d2h = pin_s = prepare_s = 0.0
-  offload_s = metric_prep_s = 0.0
-  h2d_bytes = n_chunks_run = stage_tasks = 0
-  finalize_device_bytes = finalize_host_merges = 0
-  from weatherbench2_torch.evaluation import merge_metric_results
-
-  for lead_i, lead_sl in enumerate(lead_slices):
-    if lead_i < resume_lead:
-      # finalized in an earlier run; carried whole inside the state
-      lead_results.append(state.completed_leads[lead_i])
-      continue
-    resuming = lead_i == resume_lead and resume_configs is not None
-    sums_acc = {c: None for c in eval_configs}
-    counts_acc = {c: None for c in eval_configs}
-    if resuming and share.owner:
-      sums_acc = {c: _tree_to_device(resume_configs[c][0], dev)
-                  for c in eval_configs}
-      counts_acc = {c: _tree_to_device(resume_configs[c][1], dev)
-                    for c in eval_configs}
-    # a state saved in another variable order is aligned to this run's
-    # chunk program at the first merge
-    needs_align = {c: resuming for c in eval_configs}
-    per_time = {c: [] for c in eval_configs}
-    chunk_list = [(ci, sl)
-                  for ci, sl in enumerate(_chunk_slices(total, chunk_size))
-                  if not (lead_i == resume_lead and ci < resume_chunk)]
-    n_chunks_run += len(chunk_list)
-    inflight: list = []
-    pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
-    queue = xds.StageQueue(pool)
-    snapshots = (_Snapshots(checkpoint_path, dev)
-                 if checkpoint_path and checkpoint_every and share.lead
-                 else None)
-    try:
-      pending = [pool.submit(prepare_one, ci, sl, lead_sl, queue)
-                 for ci, sl in chunk_list[:PREFETCH_DEPTH]]
-      for idx in range(len(chunk_list)):
-        t0 = time.perf_counter()
-        # idx 0 fills the pipeline: nothing was prepared ahead of it
-        with (spans.span("wb2.wait_host", chunk=chunk_list[idx][0],
-                         ordinal=idx) if spans else tracing.NO_SPAN):
-          (ci, n_real, sl, rows, moved, mask_dev, event, host_chunks,
-           tally) = pending.pop(0).result()
-        wait_host += time.perf_counter() - t0
-        h2d_bytes += tally["h2d_bytes"]
-        pin_s += tally["pin_s"]
-        prepare_s += tally["prepare_s"]
-        stage_tasks += tally["stage_tasks"]
-        offload_s += tally["offload_s"]
-        metric_prep_s += tally["metric_prep_s"]
-        if idx + PREFETCH_DEPTH < len(chunk_list):
-          pending.append(pool.submit(
-              prepare_one, *chunk_list[idx + PREFETCH_DEPTH], lead_sl, queue))
-        with (spans.span("wb2.chunk_program", chunk=ci) if spans
-              else tracing.NO_SPAN) as program_rec:
-          first_block = len(generic_timer.marks)
-          if event is not None:
-            compute_stream = torch.cuda.current_stream(dev)
-            compute_stream.wait_event(event)
-            # the copies were allocated on the side stream: keep their
-            # memory from being reused while this stream still reads it
-            for t in _leaves((moved, mask_dev), []):
-              t.record_stream(compute_stream)
-          f_dev, t_dev, p_dev, u_dev = moved
-          if any_host and share.band is not None:
-            host_chunks = tuple(_host_dataset(ds) for ds in
-                                share.gather_bands((f_dev, t_dev)))
-          # this rank's real rows, for per-time results
-          real = np.arange(max(0, min(rows.stop, n_real) - rows.start))
-          chunk_sums = {}
-          for cname, cfg in eval_configs.items():
-            sums, counts = chunk_program(cname, f_dev, t_dev, p_dev[cname],
-                                         mask_dev, u_dev)
-            if not share.owner:
-              continue  # the owner of this band's results adds them
-            for name, metric in host_metrics_by[cname].items():
-              sums[name], counts[name] = _eval_host_metric(
-                  metric, *host_chunks, regions_by[cname], skipna, len(real),
-                  chunk_dim, cfg.temporal_mean)
-            if cfg.temporal_mean:
-              chunk_sums[cname] = (sums, counts)
-              continue
-            coord = np.asarray(forecast.coords_dict()[chunk_dim].data)[sl]
-            if len(real):
-              for name, res in sums.items():
-                res = res.isel({chunk_dim: real})
-                per_time[cname].append((name, ci, share.b, res.assign_coords(
-                    {chunk_dim: coord[rows.start:rows.start + len(real)]})))
-          for cname, (sums, counts) in share.sum_over_batch(
-              chunk_sums, dev).items():
-            if sums_acc[cname] is None:
-              sums_acc[cname], counts_acc[cname] = sums, counts
-            else:
-              if needs_align[cname]:
-                sums_acc[cname] = _reorder_like(sums, sums_acc[cname])
-                counts_acc[cname] = _reorder_like(counts, counts_acc[cname])
-                needs_align[cname] = False
-              sums_acc[cname] = _tree_add(sums_acc[cname], sums)
-              counts_acc[cname] = _tree_add(counts_acc[cname], counts)
-          if program_rec is not None:
-            program_spans.append(
-                (program_rec, first_block, len(generic_timer.marks)))
-          if dev.type == "cuda":
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(dev))
-            inflight.append((ci, done))
-        # bound the queue: before moving past chunk n, wait for chunk
-        # n-DEVICE_INFLIGHT to finish so its buffers free
-        if len(inflight) > DEVICE_INFLIGHT:
-          waited, done = inflight.pop(0)
-          t0 = time.perf_counter()
-          with (spans.span("wb2.wait_device", chunk=waited) if spans
-                else tracing.NO_SPAN):
-            done.synchronize()
-          wait_device += time.perf_counter() - t0
-        if snapshots is not None and (ci + 1) % checkpoint_every == 0:
-          only = next(iter(eval_configs))
-          single = len(eval_configs) == 1
-          snapshots.submit(StreamingState(
-              # version-1 fields kept for single-config readers
-              sums_acc[only] if single else None,
-              counts_acc[only] if single else None,
-              ci + 1, chunk_size=chunk_size, total=total,
-              configs={c: (sums_acc[c], counts_acc[c]) for c in eval_configs},
-              lead_index=lead_i, n_lead_slices=len(lead_slices),
-              completed_leads=list(lead_results)))
-    finally:
-      pool.shutdown(wait=True, cancel_futures=True)
-      if snapshots is not None:
-        snapshots.close()
-
-    if not share.owner:
-      lead_results.append(None)
-      continue
-    t0 = time.perf_counter()
-    with (spans.span("wb2.d2h") if spans else tracing.NO_SPAN) as d2h_rec:
-      # rank 0 finalizes: its temporal means are divided on the device, and
-      # only they cross; each config's accumulators are released as divided
-      means = {c: _device_means(cfg.metrics, sums_acc.pop(c),
-                                counts_acc.pop(c), dev)
-               for c, cfg in eval_configs.items()
-               if cfg.temporal_mean and share.lead}
-      if d2h_rec is not None:
-        d2h_rec["bytes"] = sum(t.numel() * t.element_size()
-                               for t in _leaves((means, per_time), []))
-      means, per_time = batched_device_get((means, per_time))
-      per_time = {c: share.gather_rows(per_time[c]) for c in eval_configs}
-    t1 = time.perf_counter()
-    d2h += t1 - t0
-    wait_device += t1 - t0
-    if not share.lead:
-      lead_results.append(None)
-      continue
-    stacked = [m for m in means.values() if isinstance(m, xds.Dataset)]
-    device_bytes = sum(v.data.nbytes for m in stacked
-                       for v in m.variables_dict().values())
-    host_merges = len(means) - len(stacked)
-    finalize_device_bytes += device_bytes
-    finalize_host_merges += host_merges
-    per_config = {}
-    with (spans.span("wb2.finalize", finalize_device_bytes=device_bytes,
-                     finalize_host_merges=host_merges)
-          if spans else tracing.NO_SPAN):
-      for cname, cfg in eval_configs.items():
-        per_metric = []
-        if cfg.temporal_mean:
-          per_metric = _metric_results(means[cname])
-        else:
-          by_metric: dict = {}
-          for name, ci, b, res in per_time[cname]:
-            by_metric.setdefault(name, []).append(((ci, b), res))
-          for name in cfg.metrics:
-            items = sorted(by_metric[name], key=lambda item: item[0])
-            cat = xds.concat([r for _, r in items], chunk_dim)
-            per_metric.append(cat.expand_dims(
-                metric=np.asarray([name], dtype=object)))
-        per_config[cname] = merge_metric_results(per_metric)
-    lead_results.append(per_config)
-    finalize += time.perf_counter() - t1
-
-  generic_s = generic_timer.seconds()
-  for rec, first, end in program_spans:
-    rec["generic_s"] = sum(generic_s[first:end])
+  if not isinstance(spans, tracing.Spans):
+    spans = tracing.Spans(keep=own_spans and tracing.profiling())
+  # this rank's counts summed over the ranks (each chunk's added as the
+  # main thread takes it), and those it keeps alone
+  run = tracing.Counts()
+  own = tracing.Counts(chunks=0, wait_device_s=0.0, d2h_s=0.0,
+                       finalize_s=0.0, finalize_device_bytes=0,
+                       finalize_host_merges=0)
+  launches0 = _launch_counts()
+  with io_zarr.tally(run):
+    plan = _Plan(forecast, truth, climatology, eval_configs, data_config,
+                 input_chunks, skipna, dev, mesh, spans, state,
+                 checkpoint_path, checkpoint_every)
+    lead_results = []
+    for lead_i, lead_sl in enumerate(plan.lead_slices):
+      if lead_i < plan.state.lead_index:
+        # finalized in an earlier run; carried whole inside the state
+        lead_results.append(plan.state.completed_leads[lead_i])
+        continue
+      acc, per_time = _stream_lead_slice(plan, lead_i, lead_sl, lead_results,
+                                         run, own)
+      lead_results.append(_finalize(plan, acc, per_time, own))
+  run.add({k: v - launches0[k] for k, v in _launch_counts().items()},
+          generic_s=plan.generic_timer.settle(),
+          gathered_bytes=plan.share.gathered_bytes)
   if stats is not None:
-    mine = {"h2d_bytes": h2d_bytes,
-            "read_bytes": io_zarr.READS.bytes - reads0,
-            "read_s": io_zarr.READS.seconds - read_s0,
-            "decode_s": io_zarr.DECODES.seconds - decode_s0,
-            "pin_s": pin_s, "prepare_s": prepare_s,
-            "stage_tasks": stage_tasks, "offload_s": offload_s,
-            "metric_prep_s": metric_prep_s, "generic_s": sum(generic_s),
-            "wait_host_s": wait_host, "gathered_bytes": share.gathered_bytes,
-            **{k: v - launches0[k] for k, v in _launch_counts().items()}}
-    ranks = share.all_stats(mine)
-    stats["chunks"] = stats.get("chunks", 0) + n_chunks_run
-    stats["wait_device_s"] = stats.get("wait_device_s", 0.0) + wait_device
-    stats["d2h_s"] = stats.get("d2h_s", 0.0) + d2h
-    stats["finalize_s"] = stats.get("finalize_s", 0.0) + finalize
-    stats["finalize_device_bytes"] = (stats.get("finalize_device_bytes", 0)
-                                      + finalize_device_bytes)
-    stats["finalize_host_merges"] = (stats.get("finalize_host_merges", 0)
-                                     + finalize_host_merges)
-    for key in ("h2d_bytes", "read_bytes", "read_s", "decode_s", "pin_s",
-                "prepare_s", "stage_tasks", "offload_s", "metric_prep_s",
-                "generic_s"):
-      stats[key] = stats.get(key, 0) + sum(r[key] for r in ranks)
-    stats["wait_host_s"] = stats.get("wait_host_s", 0.0) + max(
-        r["wait_host_s"] for r in ranks)
-    if mesh is not None:
-      before = stats.get("ranks") or [dict.fromkeys(mine, 0)] * len(ranks)
-      stats["ranks"] = [{k: a[k] + r[k] for k in mine}
-                        for a, r in zip(before, ranks)]
-    if own_spans and spans:
+    _merge_ranks(stats, plan.share, run, own)
+    if own_spans and spans.keep:
       stats.setdefault("spans", []).extend(spans.records)
-  if not share.lead:
+  if not plan.share.lead:
     return None
   if len(lead_results) == 1:
     return lead_results[0]

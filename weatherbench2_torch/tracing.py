@@ -1,15 +1,15 @@
 """Spans of an evaluation call, kept while ``torch.profiler`` records the
-calling thread.
+calling thread, and the named counts of a run.
 
 ``evaluation.evaluate_with_mesh`` asks once, on its calling thread, whether
-the profiler records that thread (``profiling()``); only then does it keep
-a ``Spans`` and pass it down the chunk pipeline.  A span is one record, a
-dict: ``name``; ``start_ns`` and ``end_ns`` in ``time.time_ns()``, the
-clock of the profiler's event stamps; ``thread`` (its name); ``id``;
-``parent``, the id of the span that caused it (the job's root span, or
-None for the root); ``job``, the root span's id; ``chunk`` where there is
-one; and the attributes its site gives.  The records are handed over at
-the end of the call, in ``stats["spans"]``.
+the profiler records that thread (``profiling()``); only then does its
+``Spans`` keep what the chunk pipeline's sites record.  A span is one
+record, a dict: ``name``; ``start_ns`` and ``end_ns`` in
+``time.time_ns()``, the clock of the profiler's event stamps; ``thread``
+(its name); ``id``; ``parent``, the id of the span that caused it (the
+job's root span, or None for the root); ``job``, the root span's id;
+``chunk`` where there is one; and the attributes its site gives.  The
+records are handed over at the end of the call, in ``stats["spans"]``.
 
 Every span also opens a profiler range of its name.  On the profiled
 thread it lands among the trace's host operations; a prefetch thread's
@@ -18,7 +18,11 @@ lands there only when the profiler records every thread (started with
 profile_all_threads=True)``).  The range is a plain function scope, not a
 user annotation: the profiler mirrors a user annotation on the device
 timeline over the kernels launched inside it, which would read as device
-work.
+work.  A ``Spans`` that keeps nothing yields a throwaway record and opens no
+range, so that every site enters its span unconditionally.
+
+``Counts`` are a run's numbers by name (bytes, events, seconds): the
+evaluation engine's, a chunk's, a data-prep CLI's.
 """
 from __future__ import annotations
 
@@ -28,9 +32,6 @@ import threading
 import time
 
 import torch
-
-# What a span site enters while no spans are kept.
-NO_SPAN = contextlib.nullcontext()
 
 # Span ids, unique in the process, so that the spans of several jobs merge.
 _IDS = itertools.count(1)
@@ -42,11 +43,32 @@ def profiling() -> bool:
   return torch._C._autograd._profiler_enabled()
 
 
+class Counts(dict):
+  """Counts by name; a count that is added to or timed before it is set
+  starts at 0."""
+
+  @contextlib.contextmanager
+  def timing(self, key: str):
+    """Add the seconds of the ``with`` block to ``key``."""
+    t = time.perf_counter()
+    try:
+      yield
+    finally:
+      self[key] = self.get(key, 0.0) + time.perf_counter() - t
+
+  def add(self, other=(), **more) -> "Counts":
+    """Add the counts of ``other`` (a mapping) and ``more`` to these."""
+    for key, value in itertools.chain(dict(other).items(), more.items()):
+      self[key] = self.get(key, 0) + value
+    return self
+
+
 class Spans:
   """The span records of one call, appended as the spans close, from any
-  thread."""
+  thread; ``keep=False`` keeps none."""
 
-  def __init__(self):
+  def __init__(self, keep: bool = True):
+    self.keep = keep
     self.records: list = []
     self.root = None  # the id of the job's root span
 
@@ -55,6 +77,9 @@ class Spans:
     """A span of ``name`` over the ``with`` block, yielding its record (a
     site may add attributes to it before the block ends).  ``root`` makes
     it the job's root: the parent of every later span of this object."""
+    if not self.keep:
+      yield dict(attrs)
+      return
     rec = {"name": name, "id": next(_IDS),
            "parent": None if root else self.root,
            "thread": threading.current_thread().name}

@@ -16,6 +16,7 @@ default bit-shuffled zstd too, open here.  Local paths only.
 """
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import os
@@ -47,46 +48,68 @@ KNOWN_COORD_NAMES = {
 }
 
 
+# the counts that the calling thread's reads and decodes are added to
+_TALLY = threading.local()
+
+
+def tallied():
+  """The counts of the calling thread's ``tally``, or None."""
+  return getattr(_TALLY, "counts", None)
+
+
+@contextlib.contextmanager
+def tally(counts):
+  """Add the calling thread's reads and decodes in the ``with`` block to
+  ``counts`` (a ``tracing.Counts``: ``read_bytes``, ``read_s``,
+  ``decode_bytes``, ``decode_s``) instead of to the tally it was in; None
+  adds them to none.  A staging task adds its reads and decodes to the
+  tally of the thread that made it, wherever it runs."""
+  outer = tallied()
+  _TALLY.counts = counts
+  try:
+    yield counts
+  finally:
+    _TALLY.counts = outer
+
+
 class _Counter:
-  """Bytes and seconds summed over every thread that counts; ``mine()`` is
-  the calling thread's own tally of both."""
+  """Bytes and seconds summed over every thread that counts; a counter
+  with a ``key`` also adds them to the calling thread's tally."""
+
+  key = None
 
   def __init__(self):
     self._lock = threading.Lock()
-    self._local = threading.local()
     self.bytes = 0
     self.seconds = 0.0
 
   def add(self, n: int, seconds: float = 0.0) -> None:
+    counts = tallied() if self.key else None
     with self._lock:
       self.bytes += int(n)
       self.seconds += seconds
-    local = self._local
-    local.bytes = getattr(local, "bytes", 0) + int(n)
-    local.seconds = getattr(local, "seconds", 0.0) + seconds
-
-  def mine(self) -> tuple:
-    """(bytes, seconds) counted on the calling thread since its first
-    count or the last ``reset()``."""
-    return (getattr(self._local, "bytes", 0),
-            getattr(self._local, "seconds", 0.0))
+      if counts is not None:
+        counts.add({f"{self.key}_bytes": int(n), f"{self.key}_s": seconds})
 
   def reset(self) -> None:
-    """Zero the sums and every thread's tally."""
+    """Zero the sums."""
     with self._lock:
       self.bytes = 0
       self.seconds = 0.0
-      self._local = threading.local()
 
 
 class ReadCounter(_Counter):
   """Bytes read from chunk files and the seconds their opens and reads
   took (decoding is not in it), summed over every thread that reads."""
 
+  key = "read"
+
 
 class DecodeCounter(_Counter):
   """Bytes decoded from compressed chunks and the seconds the decoding took,
   summed over every thread that decodes (reading the file is not in it)."""
+
+  key = "decode"
 
 
 class WriteCounter(_Counter):

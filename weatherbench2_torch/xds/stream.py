@@ -272,34 +272,32 @@ class _Task:
   """One payload's host work, run once by the thread that claims it."""
 
   __slots__ = ("fn", "state", "result", "error", "thread", "start", "end",
-               "read", "decode")
+               "tally")
 
   def __init__(self, fn):
     self.fn = fn
     self.state = _QUEUED
     self.result = self.error = None
+    self.tally = io_zarr.tallied()  # the reads' tally of the thread making it
 
   def run(self, cond: threading.Condition) -> None:
-    """Run ``fn`` on this thread, which claimed the task: its result or its
-    exception, its seconds and this thread's reads and decodes in it are
-    kept, and the waiters on ``cond`` told."""
-    r0, d0 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
+    """Run ``fn`` on this thread, which claimed the task, its reads and
+    decodes added to its maker's tally: its result or its exception and
+    its seconds are kept, and the waiters on ``cond`` told."""
     start = time.perf_counter()
     result = error = None
     try:
-      result = self.fn()
+      with io_zarr.tally(self.tally):
+        result = self.fn()
     except BaseException as err:  # the task's owner raises it again
       error = err
       raise
     finally:
       end = time.perf_counter()
-      r1, d1 = io_zarr.READS.mine(), io_zarr.DECODES.mine()
       with cond:
         self.result, self.error = result, error
         self.thread = threading.get_ident()
         self.start, self.end = start, end
-        self.read = (r1[0] - r0[0], r1[1] - r0[1])
-        self.decode = (d1[0] - d0[0], d1[1] - d0[1])
         self.state = _DONE
         cond.notify_all()
 
@@ -348,17 +346,14 @@ class StageQueue:
 class Staging:
   """One caller's share of a ``StageQueue``: its tasks queue at ``rank``
   (the lowest first), and it counts them: ``tasks`` handed in,
-  ``offload_s`` the seconds of those that ran on other threads, with those
-  threads' ``read`` and ``decode`` tallies in them (bytes, seconds), and
+  ``offload_s`` the seconds of those that ran on other threads, and
   ``blocked_s`` the seconds the caller waited while another thread ran one
-  of them."""
+  of them.  Their reads and decodes go to the caller's ``io_zarr.tally``."""
   queue: StageQueue
   rank: int
   tasks: int = 0
   offload_s: float = 0.0
   blocked_s: float = 0.0
-  read: tuple = (0, 0.0)
-  decode: tuple = (0, 0.0)
 
 
 def _nbytes(payload) -> int:
@@ -441,8 +436,6 @@ def _collect(tasks: list, cond: threading.Condition, staging, deliver):
           raise task.error
         if task.thread != me:
           staging.offload_s += task.end - task.start
-          staging.read = tuple(map(sum, zip(staging.read, task.read)))
-          staging.decode = tuple(map(sum, zip(staging.decode, task.decode)))
         deliver(i, task.result)
   finally:
     with cond:
