@@ -5,9 +5,11 @@ records its calling thread, and hands them over in ``stats["spans"]``; the
 counters (``read_s``, ``decode_s``, ``pin_s``, ``prepare_s``, ``d2h_s``,
 ``stage_tasks``, ``offload_s``, ``metric_prep_s``, ``generic_s``,
 ``write_bytes``, ``encode_bytes``, ``encode_s``, ``finalize_device_bytes``,
-``finalize_host_merges``) are always there.  The
+``finalize_host_merges``) are always there, and ``write_direct_bytes``
+where a config writes Zarr.  The
 stores are 30-degree, two 2-d variables, 8 daily inits of 3 leads, written
-by the port uncompressed or as blosc-lz4.
+by the port uncompressed or as blosc-lz4.  The Zarr writer's counts
+(``io_zarr.WRITES``) are held to the bytes it writes.
 """
 import contextlib
 import hashlib
@@ -28,6 +30,7 @@ from weatherbench2_torch import utils
 from weatherbench2_torch import xds
 from weatherbench2_torch.parallel import streaming
 from weatherbench2_torch.regions import SliceRegion
+from weatherbench2_torch.xds import _codec
 from weatherbench2_torch.xds import io_zarr
 
 VARIABLES = ["2m_temperature", "10m_u_component_of_wind"]
@@ -405,3 +408,106 @@ def test_counted_writes_are_the_bytes_written_before(tmp_path, compressor):
   assert io_zarr.WRITES.bytes - before[0] == _stored_bytes(path)
   assert io_zarr.WRITES.decoded - before[1] == 2 * 8 * np.prod(shape) + (
       8 * (12 + 7 + 4))  # the two variables and the numeric coordinates
+
+
+def _grid_dataset(values, dims=("x", "y")):
+  return xds.Dataset({"v": xds.Variable(dims, values)},
+                     coords={d: np.arange(n) * 1.5
+                             for d, n in zip(dims, values.shape)})
+
+
+# (chunks, region writes into a template or None for to_zarr, the bytes
+# encoded, those encoded from the caller's data): on a (64, 32) float64
+# variable, whole chunks inside the array go direct, with the coordinates'
+# whole chunks; edge chunks (padded past the array's end, and encoded at
+# their padded size) and partial chunks are staged
+DIRECT_CASES = {
+    "one_chunk": (None, None, 8 * (64 * 32 + 64 + 32),
+                  8 * (64 * 32 + 64 + 32)),
+    "edge_chunks": ({"x": 24, "y": 12}, None,
+                    8 * (9 * 24 * 12 + 3 * 24 + 3 * 12),
+                    8 * (4 * 24 * 12 + 2 * 24 + 2 * 12)),
+    "edge_and_partial_only": ({"x": 24, "y": 12},
+                              [(slice(48, 64), slice(0, 32)),
+                               (slice(5, 30), slice(3, 9)),
+                               (slice(0, 48), slice(24, 32))],
+                              8 * 24 * 12 * (3 + 2 + 2), 0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(DIRECT_CASES))
+def test_direct_writes_count_the_whole_chunks_inside_the_array(tmp_path,
+                                                                case):
+  chunks, regions, decoded, direct = DIRECT_CASES[case]
+  values = np.random.default_rng(3).standard_normal((64, 32))
+  path = str(tmp_path / "d.zarr")
+  if regions is None:
+    before = (io_zarr.WRITES.direct, io_zarr.WRITES.decoded)
+    xds.to_zarr(_grid_dataset(values), path, chunks=chunks,
+                compressor="zstd3")
+  else:
+    writer = xds.RegionWriter(path, _grid_dataset(values), chunks=chunks,
+                              compressor="zstd3")
+    before = (io_zarr.WRITES.direct, io_zarr.WRITES.decoded)
+    for xs, ys in regions:
+      writer.write(_grid_dataset(values[xs, ys]), {"x": xs, "y": ys})
+  assert io_zarr.WRITES.decoded - before[1] == decoded
+  assert io_zarr.WRITES.direct - before[0] == direct
+
+
+def test_a_single_chunk_is_encoded_from_the_callers_buffer(tmp_path,
+                                                           monkeypatch):
+  """The encoder reads the caller's own C-contiguous array, and leaves it
+  as it was, NaN payloads too."""
+  values = np.random.default_rng(4).standard_normal((16, 8))
+  values.view(np.uint64)[3, :4] = 0x7FF8000000000123
+  kept = values.copy()
+  shared = []
+  encode = _codec.encode
+
+  def spy(data, *args):
+    shared.append(np.shares_memory(data, values))
+    return encode(data, *args)
+
+  monkeypatch.setattr(_codec, "encode", spy)
+  xds.to_zarr(_grid_dataset(values), str(tmp_path / "s.zarr"),
+              compressor="zstd3")
+  # x, y, then v
+  assert shared == [False, False, True]
+  assert values.tobytes() == kept.tobytes()
+
+
+def _chunk_files(path):
+  out = {}
+  for root, _, files in os.walk(path):
+    for f in files:
+      if not f.startswith("."):
+        with open(os.path.join(root, f), "rb") as fh:
+          out[os.path.relpath(os.path.join(root, f), path)] = fh.read()
+  return out
+
+
+@pytest.mark.parametrize("chunks", [None, {"x": 5, "y": 24}])
+def test_a_transposed_callers_array_writes_the_same_bytes(tmp_path, chunks):
+  values = np.random.default_rng(5).standard_normal((32, 13)).T
+  assert not values.flags.c_contiguous
+  paths = [str(tmp_path / "t.zarr"), str(tmp_path / "c.zarr")]
+  for path, data in zip(paths, (values, np.ascontiguousarray(values))):
+    xds.to_zarr(_grid_dataset(data), path, chunks=chunks, compressor="lz4")
+  assert _chunk_files(paths[0]) == _chunk_files(paths[1])
+  np.testing.assert_array_equal(np.asarray(xds.open_zarr(paths[0])["v"].data),
+                                values)
+
+
+def test_zarr_results_count_their_direct_bytes_and_netcdf_none(stores):
+  """A Zarr results store's ``wb2.write`` span carries ``direct_bytes``,
+  every byte it encoded (one chunk a variable), and ``stats`` their sum
+  as ``write_direct_bytes``; a netCDF file carries neither."""
+  stats, _ = _run(stores, profiled=True, configs=_spatial_configs)
+  writes = {s["config"]: s for s in stats["spans"] if s["name"] == "wb2.write"}
+  assert writes["spatial"]["direct_bytes"] == (
+      writes["spatial"]["encode_bytes"]) > 0
+  assert "direct_bytes" not in writes["det"]
+  assert stats["write_direct_bytes"] == writes["spatial"]["direct_bytes"]
+  netcdf, _ = _run(stores)
+  assert "write_direct_bytes" not in netcdf

@@ -596,12 +596,14 @@ def evaluate_with_mesh(
   device and finalizing the results (see
   ``streaming.evaluate_streaming_multi``), seconds spent writing the
   results files (``write_s``), their bytes as stored (``write_bytes``),
-  and of their Zarr chunks the decoded bytes (``encode_bytes``) and the
-  seconds their encoding took (``encode_s``; ``xds.io_zarr.WRITES``), and
-  the wall time.  While ``torch.profiler`` records the calling thread,
-  ``stats["spans"]`` holds the call's spans (``tracing``): ``wb2.job``
-  over the whole call, ``wb2.open`` and each results file's ``wb2.write``
-  (with its ``bytes``, ``encode_bytes`` and ``encode_s``) here, and the
+  and of their Zarr chunks the decoded bytes (``encode_bytes``), the
+  seconds their encoding took (``encode_s``; ``xds.io_zarr.WRITES``) and,
+  where a config writes Zarr, the bytes encoded straight from the results
+  (``write_direct_bytes``), and the wall time.  While ``torch.profiler``
+  records the calling thread, ``stats["spans"]`` holds the call's spans
+  (``tracing``): ``wb2.job`` over the whole call, ``wb2.open`` and each
+  results file's ``wb2.write`` (with its ``bytes``, ``encode_bytes`` and
+  ``encode_s``, and of a Zarr store ``direct_bytes``) here, and the
   chunk pipeline's from ``streaming.evaluate_streaming_multi``.
   ``device=None`` is the CUDA card; pass ``device="cpu"`` to run on the
   host.  With ``checkpoint_path`` each
@@ -675,9 +677,12 @@ def evaluate_with_mesh(
           with spans.span("wb2.write", config=eval_name,
                           format=output_format) as rec:
             # the file's bytes as stored; of its Zarr chunks, the bytes
-            # encoded and the seconds that took (a netCDF file has none)
+            # encoded, of those the bytes encoded straight from the results
+            # (no staged chunk), and the seconds that took (a netCDF file
+            # has none)
             writes = io_zarr.WRITES
-            before = (writes.bytes, writes.decoded, writes.encode_s)
+            before = (writes.bytes, writes.decoded, writes.encode_s,
+                      writes.direct)
             if output_format == "netcdf":
               _to_netcdf(results, output_path)
               written = os.path.getsize(output_path)
@@ -685,11 +690,14 @@ def evaluate_with_mesh(
               os.makedirs(os.path.dirname(output_path) or ".", exist_ok=True)
               xds.to_zarr(results, output_path)
               written = writes.bytes - before[0]
+              rec.update(direct_bytes=writes.direct - before[3])
             rec.update(bytes=written, encode_bytes=writes.decoded - before[1],
                        encode_s=writes.encode_s - before[2])
           logging.info("Saved results to %s", output_path)
           stats.add(write_bytes=rec["bytes"],
                     encode_bytes=rec["encode_bytes"], encode_s=rec["encode_s"])
+          if "direct_bytes" in rec:
+            stats.add(write_direct_bytes=rec["direct_bytes"])
   if spans.keep:
     stats["spans"] = spans.records
   return dict(stats)

@@ -115,23 +115,29 @@ class DecodeCounter(_Counter):
 class WriteCounter(_Counter):
   """Files this module writes (chunks and metadata): ``bytes`` as stored
   and ``seconds`` of their opens, writes and renames, summed over every
-  thread that writes; of the chunks, the decoded bytes (``decoded``) and
-  the seconds their encoding took (``encode_s``)."""
+  thread that writes; of the chunks, the decoded bytes (``decoded``), of
+  those the bytes encoded straight from the caller's data with no staged
+  chunk (``direct``), and the seconds their encoding took (``encode_s``)."""
 
   def __init__(self):
     super().__init__()
     self.decoded = 0
+    self.direct = 0
     self.encode_s = 0.0
 
-  def add_encoded(self, decoded: int, seconds: float) -> None:
+  def add_encoded(self, decoded: int, seconds: float,
+                  direct: bool = False) -> None:
     with self._lock:
       self.decoded += int(decoded)
+      if direct:
+        self.direct += int(decoded)
       self.encode_s += seconds
 
   def reset(self) -> None:
     super().reset()
     with self._lock:
       self.decoded = 0
+      self.direct = 0
       self.encode_s = 0.0
 
 
@@ -367,7 +373,10 @@ class ZarrArray:
       flat[...] = np.frombuffer(data, np.uint8)
     DECODES.add(out.nbytes, time.perf_counter() - t0)
 
-  def _write_chunk(self, idx, arr: np.ndarray) -> None:
+  def _write_chunk(self, idx, arr: np.ndarray, direct: bool = False) -> None:
+    """Encode ``arr`` (the chunk's shape; read, never written) into the
+    chunk file ``idx``; ``direct``: ``arr`` is the caller's data, not a
+    staged chunk."""
     data = np.ascontiguousarray(arr, dtype=self.dtype)
     comp = self.compressor
     path = self._chunk_path(idx)
@@ -389,7 +398,7 @@ class ZarrArray:
       enc = zlib.compressobj(comp.get("level", 1), zlib.DEFLATED, wbits)
       raw = enc.compress(data.tobytes()) + enc.flush()
     t1 = time.perf_counter()
-    WRITES.add_encoded(data.nbytes, t1 - t0)
+    WRITES.add_encoded(data.nbytes, t1 - t0, direct)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as f:
@@ -547,13 +556,16 @@ class ZarrArray:
     return chunk.view(self.dtype).reshape(-1, row)[rows]
 
   def write_box(self, box, data: np.ndarray) -> None:
-    """Write ``data`` into the [lo, hi) box; partial chunks read-modify-write."""
+    """Write ``data`` into the [lo, hi) box.  A chunk the box covers whole
+    and that ends inside the array is encoded from ``data`` itself (counted
+    in ``WRITES.direct``); one padded past the array's end is staged in a
+    chunk of ``fill_value``; partial chunks read-modify-write."""
     data = np.asarray(data, dtype=self.dtype)
     if not self.shape:
       self._write_chunk((), data.reshape(()))
       return
     for idx in itertools.product(*self._chunk_ranges(box)):
-      src, dst, full = [], [], True
+      src, dst, full, inside = [], [], True, True
       for ax, i in enumerate(idx):
         c0 = i * self.chunks[ax]
         c1 = min(c0 + self.chunks[ax], self.shape[ax])
@@ -562,6 +574,10 @@ class ZarrArray:
         src.append(slice(lo - box[ax][0], hi - box[ax][0]))
         dst.append(slice(lo - c0, hi - c0))
         full = full and lo == c0 and hi == c1
+        inside = inside and c0 + self.chunks[ax] <= self.shape[ax]
+      if full and inside:
+        self._write_chunk(idx, data[tuple(src)], direct=True)
+        continue
       chunk = (np.full(self.chunks, self.fill_value, dtype=self.dtype)
                if full else self._read_chunk(idx).copy())
       chunk[tuple(dst)] = data[tuple(src)]
