@@ -157,7 +157,8 @@ def test_an_unprofiled_run_keeps_no_spans_and_every_counter(stores):
   # name: a one-device run has no "ranks"
   assert set(stats) == set(COUNTERS) | {
       "chunks", "h2d_bytes", "read_bytes", "wait_host_s", "wait_device_s",
-      "finalize_s", "write_s", "wall_s"}
+      "finalize_s", "write_s", "wall_s", "lead_slices", "lead_refill_s"}
+  assert (stats["lead_slices"], stats["lead_refill_s"]) == (1, 0.0)
   for key in COUNTERS:
     assert stats[key] >= 0, key
   assert stats["prepare_s"] > 0 and stats["read_s"] > 0

@@ -584,12 +584,18 @@ class SpatialSEEPS(Metric):
   min_p1: float = 0.1
   max_p1: float = 0.85
 
-  @functools.cached_property
+  @property
   def p1(self) -> xds.DataArray:
     """The climatological dry fraction per cell (one read of that one
-    variable, whatever else the climatology store holds)."""
-    dry_fraction = self.climatology[f"{self.precip_name}_seeps_dry_fraction"]
-    return dry_fraction.mean(["hour", "dayofyear"])
+    variable, whatever else the climatology store holds), computed once:
+    the prefetch threads that ask for it meanwhile wait for that mean (at
+    0.25 degrees it reads 6 GB)."""
+    with self.__dict__.setdefault("_p1_lock", threading.Lock()):
+      if "_p1" not in self.__dict__:
+        dry_fraction = self.climatology[
+            f"{self.precip_name}_seeps_dry_fraction"]
+        self._p1 = dry_fraction.mean(["hour", "dayofyear"])
+      return self._p1
 
   def _category_indicators(self, ds: xds.Dataset, wet: xds.DataArray):
     """(dry, light, heavy) indicators in the data's float type, NaN where

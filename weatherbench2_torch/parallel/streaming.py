@@ -1392,6 +1392,14 @@ class _Plan:
     self.snapshot_path = (checkpoint_path if checkpoint_path
                           and checkpoint_every and share.lead else None)
 
+  def chunk_list(self, lead_i) -> list:
+    """(index, slice) of each chunk of lead slice ``lead_i`` left to
+    stream: in the slice a state stopped in, those past the chunks it
+    covers."""
+    chunks = list(enumerate(_chunk_slices(self.total, self.chunk_size)))
+    return chunks[self.state.chunk_index
+                  if lead_i == self.state.lead_index else 0:]
+
 
 def _fused_plans(plan: _Plan, members_like: xds.Dataset) -> dict:
   """Each config's (det, prob, pointwise plans, per-metric loop's
@@ -1635,14 +1643,16 @@ def _snapshot(plan: _Plan, acc, chunk_index, lead_i,
       completed_leads=list(lead_results))
 
 
-def _stream_lead_slice(plan: _Plan, lead_i, lead_sl, lead_results, run,
-                       own):
-  """One lead slice's chunks through every config's program on the main
-  thread, ``PREFETCH_DEPTH`` of them prepared ahead on the prefetch threads
-  and at most ``DEVICE_INFLIGHT`` queued on the device, the accumulators
-  snapshotted every ``checkpoint_every`` chunks: (accumulators, per-time
-  rows) by config.  The slice a state stopped in starts from its
-  accumulators, past the chunks it covers."""
+def _stream_lead_slice(plan: _Plan, lead_i, lead_sl, chunk_list,
+                       lead_results, run, own):
+  """One lead slice's chunks (``chunk_list``) through every config's
+  program on the main thread, ``PREFETCH_DEPTH`` of them prepared ahead on
+  the prefetch threads and at most ``DEVICE_INFLIGHT`` queued on the
+  device, the accumulators snapshotted every ``checkpoint_every`` chunks:
+  (accumulators, per-time rows) by config.  The slice a state stopped in
+  starts from its accumulators.  The wait for the first chunk of every
+  slice after the first this run streams is also ``lead_refill_s``: the
+  pipeline fills again there."""
   share, dev, state = plan.share, plan.dev, plan.state
   first = lead_i == state.lead_index
   resuming = first and state.configs is not None
@@ -1652,9 +1662,9 @@ def _stream_lead_slice(plan: _Plan, lead_i, lead_sl, lead_results, run,
            for c in plan.eval_configs}
   align = set(plan.eval_configs) if resuming else set()
   per_time = {c: [] for c in plan.eval_configs}
-  chunk_list = list(enumerate(_chunk_slices(plan.total, plan.chunk_size)))
-  del chunk_list[:state.chunk_index if first else 0]  # done before
   own.add(chunks=len(chunk_list))
+  run.add(lead_slices=1)
+  refill = () if first else ("lead_refill_s",)
   inflight: list = []
   pool = concurrent.futures.ThreadPoolExecutor(max_workers=PREFETCH_DEPTH)
   queue = xds.StageQueue(pool)
@@ -1664,9 +1674,11 @@ def _stream_lead_slice(plan: _Plan, lead_i, lead_sl, lead_results, run,
     pending = [pool.submit(_prepare_chunk, plan, ci, sl, lead_sl, queue)
                for ci, sl in chunk_list[:PREFETCH_DEPTH]]
     for idx, (ci, _) in enumerate(chunk_list):
-      # idx 0 fills the pipeline: nothing was prepared ahead of it
-      with run.timing("wait_host_s"), plan.spans.span(
-          "wb2.wait_host", chunk=ci, ordinal=idx):
+      # idx 0 fills the pipeline: nothing was prepared ahead of it (in
+      # every slice after the first, again: lead_refill_s)
+      with run.timing("wait_host_s", *(refill if idx == 0 else ())), \
+          plan.spans.span("wb2.wait_host", chunk=ci, ordinal=idx,
+                          lead=lead_i):
         staged, counts = pending.pop(0).result()
       run.add(counts)
       if idx + PREFETCH_DEPTH < len(chunk_list):
@@ -1745,15 +1757,16 @@ def _finalize(plan: _Plan, acc, per_time, own):
 
 def _merge_ranks(stats: dict, share: _RankShare, run, own) -> None:
   """Add a stream's counts to ``stats``, by one rule: each of ``run``'s
-  counts is summed over the ranks, but ``wait_host_s`` is the largest, and
-  ``gathered_bytes`` and the launches are in ``stats["ranks"]`` only (with
-  a mesh: every rank's ``run``, in rank order); ``own`` are this rank's
-  alone.  The bytes decoded are the chunks' spans' only."""
+  counts is summed over the ranks, but ``wait_host_s``, its part
+  ``lead_refill_s`` and ``lead_slices`` (alike on every rank) are the
+  largest, and ``gathered_bytes`` and the launches are in ``stats["ranks"]``
+  only (with a mesh: every rank's ``run``, in rank order); ``own`` are this
+  rank's alone.  The bytes decoded are the chunks' spans' only."""
   run.pop("decode_bytes", None)
   ranks = share.all_stats(run)
   total = tracing.Counts(own)
   for key in run:
-    if key == "wait_host_s":
+    if key in ("wait_host_s", "lead_refill_s", "lead_slices"):
       total[key] = max(r[key] for r in ranks)
     elif key != "gathered_bytes" and not key.endswith("_launches"):
       total[key] = sum(r[key] for r in ranks)
@@ -1805,10 +1818,16 @@ def evaluate_streaming_multi(
   (``finalize_s``); ``finalize_device_bytes`` are the bytes of temporal
   means stacked by metric on the device, and ``finalize_host_merges`` the
   configs whose metrics differ in variables, dims or coordinates, joined
-  on the host instead (both also attributes of the ``wb2.finalize`` span).
+  on the host instead (both also attributes of the ``wb2.finalize`` span);
+  ``lead_slices``, the lead slices streamed, and ``lead_refill_s``, the
+  part of ``wait_host_s`` spent waiting for the first chunk of each slice
+  after the first (0 with one slice).
   ``spans`` (a ``tracing.Spans``) records the chunk pipeline's spans, and
-  False records none; None, the default, records them while
-  ``torch.profiler`` records the calling thread, into ``stats["spans"]``.
+  False records none (with more than one lead slice, a ``wb2.lead_slice``
+  span covers each slice's stream and finalize: ``lead``, its index,
+  ``leads``, its length, and ``chunks``); None, the default, records them
+  while ``torch.profiler`` records the calling thread, into
+  ``stats["spans"]``.
   ``state`` resumes a run; with ``checkpoint_path`` and
   ``checkpoint_every`` the accumulators of every config are snapshotted
   together every so many chunks, completed lead slices' results riding in
@@ -1840,7 +1859,7 @@ def evaluate_streaming_multi(
     spans = tracing.Spans(keep=own_spans and tracing.profiling())
   # this rank's counts summed over the ranks (each chunk's added as the
   # main thread takes it), and those it keeps alone
-  run = tracing.Counts()
+  run = tracing.Counts(lead_slices=0, lead_refill_s=0.0)
   own = tracing.Counts(chunks=0, wait_device_s=0.0, d2h_s=0.0,
                        finalize_s=0.0, finalize_device_bytes=0,
                        finalize_host_merges=0)
@@ -1850,14 +1869,21 @@ def evaluate_streaming_multi(
                  input_chunks, skipna, dev, mesh, spans, state,
                  checkpoint_path, checkpoint_every)
     lead_results = []
+    sliced = len(plan.lead_slices) > 1
     for lead_i, lead_sl in enumerate(plan.lead_slices):
       if lead_i < plan.state.lead_index:
         # finalized in an earlier run; carried whole inside the state
         lead_results.append(plan.state.completed_leads[lead_i])
         continue
-      acc, per_time = _stream_lead_slice(plan, lead_i, lead_sl, lead_results,
-                                         run, own)
-      lead_results.append(_finalize(plan, acc, per_time, own))
+      chunk_list = plan.chunk_list(lead_i)
+      # a run of one slice keeps the span set it had
+      with (plan.spans.span("wb2.lead_slice", lead=lead_i,
+                            leads=lead_sl.stop - lead_sl.start,
+                            chunks=len(chunk_list))
+            if sliced else contextlib.nullcontext()):
+        acc, per_time = _stream_lead_slice(plan, lead_i, lead_sl, chunk_list,
+                                           lead_results, run, own)
+        lead_results.append(_finalize(plan, acc, per_time, own))
   run.add({k: v - launches0[k] for k, v in _launch_counts().items()},
           generic_s=plan.generic_timer.settle(),
           gathered_bytes=plan.share.gathered_bytes)

@@ -48,13 +48,15 @@ class Counts(dict):
   starts at 0."""
 
   @contextlib.contextmanager
-  def timing(self, key: str):
-    """Add the seconds of the ``with`` block to ``key``."""
+  def timing(self, *keys: str):
+    """Add the seconds of the ``with`` block to each of ``keys``."""
     t = time.perf_counter()
     try:
       yield
     finally:
-      self[key] = self.get(key, 0.0) + time.perf_counter() - t
+      seconds = time.perf_counter() - t
+      for key in keys:
+        self[key] = self.get(key, 0.0) + seconds
 
   def add(self, other=(), **more) -> "Counts":
     """Add the counts of ``other`` (a mapping) and ``more`` to these."""
